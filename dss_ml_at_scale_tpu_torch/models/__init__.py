@@ -1,6 +1,14 @@
 """Models of the port (PyTorch ``nn.Module``s)."""
 
-from .convert import init_lm_state, lm_state_from_flax, seeded_lm
+from .convert import (
+    init_lm_state,
+    init_resnet_state,
+    lm_state_from_flax,
+    resnet_state_from_flax,
+    seeded_lm,
+    seeded_resnet,
+)
+from .resnet import BottleneckBlock, ResNet, ResNet18, ResNet50, ResNet101, ResNetBlock
 from .transformer import (
     RMSNorm,
     TransformerBlock,
@@ -13,15 +21,24 @@ from .transformer import (
 )
 
 __all__ = [
+    "BottleneckBlock",
     "RMSNorm",
+    "ResNet",
+    "ResNet101",
+    "ResNet18",
+    "ResNet50",
+    "ResNetBlock",
     "TransformerBlock",
     "TransformerLM",
     "decode_step",
     "generate",
     "init_kv_cache",
     "init_lm_state",
+    "init_resnet_state",
     "lm_state_from_flax",
     "next_token_loss",
+    "resnet_state_from_flax",
     "rms_norm",
     "seeded_lm",
+    "seeded_resnet",
 ]

@@ -47,7 +47,7 @@ def busy_ms(events) -> float:
     return total / 1e3  # trace timestamps are µs
 
 
-def profile(torch, name: str, fn, out_dir: Path) -> dict:
+def profile(torch, name: str, fn, out_dir: Path, top: int = 8) -> dict:
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
@@ -64,14 +64,14 @@ def profile(torch, name: str, fn, out_dir: Path) -> dict:
         if e.get("cat") == "kernel" and "dur" in e:
             by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + e["dur"] / 1e3
     busy = busy_ms(events)
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
     return {
         "phase": name,
         "wall_ms": wall,
         "device_busy_ms": busy if by_kernel else "not measured",
         "device_idle_share": (1.0 - busy / wall) if by_kernel else "not measured",
         "kernels": len(by_kernel),
-        "top_kernels_ms": [[k[:90], v] for k, v in top],
+        "top_kernels_ms": [[k[:90], v] for k, v in ranked],
     }
 
 

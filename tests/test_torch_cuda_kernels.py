@@ -10,6 +10,7 @@ this file imports neither and is run there without the conftest:
 import pytest
 import torch
 
+from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
 from dss_ml_at_scale_tpu_torch.ops.flash_attention import (
     attention_reference,
     flash_attention,
@@ -91,3 +92,90 @@ def test_generate_at_awkward_prompt_length_launches_the_kernel(cuda, monkeypatch
     assert flash_attention.launches == before + 2  # one prefill, one per layer
     assert out.shape == (1, 304) and torch.equal(out[:, :300], prompt)
     assert int(out.min()) >= 0 and int(out.max()) < 512
+
+
+def _fused_inputs(gen, m, k, n, with_res):
+    def randn(*shape, std=1.0, mean=0.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std + mean).to(dtype)
+
+    y = randn(m, k)
+    mean = y.float().mean(0)
+    inv = torch.rsqrt(y.float().square().mean(0) - mean.square() + 1e-5)
+    s = randn(k, mean=1.0, std=0.2, dtype=torch.float32) * inv
+    t = randn(k, std=0.2, dtype=torch.float32) - mean * s
+    return (y, s, t, mean, inv, randn(k, n, std=k ** -0.5), randn(m, n),
+            randn(m, k) if with_res else None)
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+# K1 out at the bf16 tolerance of tests/test_fused_matmul.py:203; gt, the
+# sums and dW to one bf16 spacing (2^-7) of the plain result's max-abs.
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("m,k,n", [(4133, 72, 200), (2048, 64, 256), (300, 512, 2048)])
+def test_fused_matmul_kernels_match_plain_versions(cuda, m, k, n, with_res):
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, n, with_res)
+    before = (fm.bn_relu_matmul_fwd.launches, fm.bn_relu_matmul_bwd_da.launches,
+              fm.bn_relu_matmul_bwd_dw.launches)
+    out = fm.bn_relu_matmul_fwd(y, s, t, w, res)
+    gt, sg, sgx = fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res)
+    dw = fm.bn_relu_matmul_bwd_dw(y, s, t, g, res)
+    torch.cuda.synchronize()
+    assert (fm.bn_relu_matmul_fwd.launches, fm.bn_relu_matmul_bwd_da.launches,
+            fm.bn_relu_matmul_bwd_dw.launches) == tuple(b + 1 for b in before)
+    ref = fm.bn_relu_matmul_fwd_reference(y, s, t, w, res)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0.05, atol=0.15)
+    rgt, rsg, rsgx = fm.bn_relu_matmul_bwd_da_reference(g, w, y, s, t, mean, inv, res)
+    for got, want in ((gt, rgt), (sg, rsg), (sgx, rsgx),
+                      (dw, fm.bn_relu_matmul_bwd_dw_reference(y, s, t, g, res))):
+        assert _rel(got, want) <= 2.0 ** -7
+
+
+def test_fused_matmul_kernels_are_deterministic(cuda):
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, 20000, 64, 256, True)
+    first = fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res)
+    again = fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    assert torch.equal(fm.bn_relu_matmul_bwd_dw(y, s, t, g, res),
+                       fm.bn_relu_matmul_bwd_dw(y, s, t, g, res))
+
+
+def test_fused_matmul_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    y, s, t, mean, inv, w, g, _ = _fused_inputs(cuda, 256, 64, 128, False)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fm.bn_relu_matmul_fwd(y.float(), s, t, w.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.bn_relu_matmul_fwd(y.t().contiguous().t(), s, t, w)
+    with pytest.raises(ValueError, match="float32"):
+        fm.bn_relu_matmul_fwd(y, s.to(torch.bfloat16), t, w)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fm.bn_relu_matmul_fwd(y[:, :60].contiguous(), s[:60].contiguous(), t[:60].contiguous(),
+                              w[:60].contiguous())
+    with pytest.raises(ValueError, match="channels-last"):
+        fm.bn_relu_matmul(y.reshape(4, 8, 8, 64).transpose(1, 2), s, t, mean, inv * 0 + 1, w)
+
+
+def test_tiny_bottleneck_train_step_launches_all_three_kernels(cuda):
+    from dss_ml_at_scale_tpu_torch.config.checkpoints import build_classifier_model
+    from dss_ml_at_scale_tpu_torch.parallel import ClassifierTask
+
+    model = build_classifier_model("tiny-bottleneck", num_classes=10, torch_padding=False,
+                                   fused_bn="pallas", device="cuda")
+    with torch.no_grad():  # a nonzero last-BN scale lets the gradient reach K2/K3
+        for name, p in model.named_parameters():
+            if name.endswith("bn3.weight"):
+                p.fill_(0.5)
+    task = ClassifierTask(model=model)
+    batch = {"image": torch.randn(8, 32, 32, 3, generator=cuda, device="cuda"),
+             "label": torch.randint(0, 10, (8,), generator=cuda, device="cuda")}
+    before = (fm.bn_relu_matmul_fwd.launches, fm.bn_relu_matmul_bwd_da.launches,
+              fm.bn_relu_matmul_bwd_dw.launches)
+    metrics = task.train_step(batch)
+    torch.cuda.synchronize()
+    assert (fm.bn_relu_matmul_fwd.launches, fm.bn_relu_matmul_bwd_da.launches,
+            fm.bn_relu_matmul_bwd_dw.launches) == tuple(b + 2 for b in before)  # 2 blocks
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert model.layer1[0].conv3.weight.grad.abs().max() > 0

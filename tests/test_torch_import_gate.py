@@ -2,8 +2,10 @@
 
 Under pytest ``tests/conftest.py`` imports jax first, so the runtime check
 runs in a fresh subprocess: it imports every module of the port, serves one
-generation over HTTP on the CPU through the real model, and then lists what
-got loaded. The static scan reads every source file of the port (and
+generation over HTTP on the CPU through the real model, writes a 16-row
+image table and trains the pallas-level ``tiny-bottleneck`` on it through
+the port's ``train`` entry (crop 32, on the CPU), and then lists what got
+loaded. The static scan reads every source file of the port (and
 ``chip_smoke.py``) for imports of the same.
 """
 
@@ -21,7 +23,7 @@ PORT = ROOT / "dss_ml_at_scale_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
 
 _CHILD = r"""
-import http.client, json, pkgutil, importlib, sys
+import contextlib, http.client, io, json, pkgutil, importlib, sys, tempfile
 import dss_ml_at_scale_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
@@ -42,7 +44,17 @@ with serve_lm_in_thread(engine) as handle:
                  {"Content-Type": "application/json"})
     lines = [json.loads(l) for l in conn.getresponse().read().splitlines() if l]
     conn.close()
-print(json.dumps({"done": lines[-1], "modules": sorted(sys.modules)}))
+from dss_ml_at_scale_tpu_torch.config import cli
+work = tempfile.mkdtemp()
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli.main(["datagen", "images", "--out", work + "/t", "--n", "16",
+                     "--classes", "4", "--size", "32"]) == 0
+    assert cli.main(["train", "--data", work + "/t", "--model", "tiny-bottleneck",
+                     "--pallas-fused", "--batch-size", "8", "--crop", "32",
+                     "--num-classes", "4", "--epochs", "1", "--device", "cpu"]) == 0
+train = json.loads(out.getvalue().strip().splitlines()[-1])
+print(json.dumps({"done": lines[-1], "train": train, "modules": sorted(sys.modules)}))
 """
 
 
@@ -63,14 +75,19 @@ def test_port_serves_a_generation_without_jax():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["done"]["done"] == "max_tokens"
     assert report["done"]["tokens"] == 4
+    assert report["train"]["steps"] == 2 and report["train"]["device"] == "cpu"
+    assert report["train"]["train_loss"] > 0
     loaded = [m for m in report["modules"] if _forbidden(m)]
     assert loaded == []
     assert "dss_ml_at_scale_tpu_torch.ops.flash_attention" in report["modules"]
+    assert "dss_ml_at_scale_tpu_torch.ops.fused_matmul" in report["modules"]
 
 
 def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "scripts" / "profile_torch_lm.py"]
+                                         ROOT / "scripts" / "profile_torch_lm.py",
+                                         ROOT / "scripts" / "profile_torch_train.py",
+                                         ROOT / "scripts" / "resnet_grad_sensitivity.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
