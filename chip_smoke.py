@@ -11,7 +11,9 @@ Phases (any failure exits non-zero; there is no CPU path):
    off for matmuls and convolutions (the LM head is an f32 product, and
    the plain versions of the kernels must be full f32);
    builds every kernel of ``dss_ml_at_scale_tpu_torch/csrc`` with nvcc,
-   one process per source, all at once.
+   one process per source, all at once; prints the build time, each
+   kernel's registers, spills and static shared memory from ptxas, and the
+   dynamic shared memory of K4 and K1.
 2. kernels: the flash attention kernel (K4) against its plain version on the
    card, in bf16, at the serving shapes (b=1, h=8, d=128, causal, seq 128,
    512, 1024) plus a non-causal, an ``sq < sk`` and a d=64 case; atol
@@ -19,7 +21,10 @@ Phases (any failure exits non-zero; there is no CPU path):
    f32 case holds the kernel's f32 variant, which serving does not take,
    to atol 2e-5. Median times (CUDA events) of the kernel, the plain version and
    ``scaled_dot_product_attention`` (the library yardstick, never called
-   by the port), beside the least time the card could take.
+   by the port), beside the least time the card could take. At the three
+   serving buckets also the kernel with and without its key-split plan
+   (``split_ms``, ``nosplit_ms``), both held to the same limits, and the
+   split output checked bit for bit from run to run.
 3. fused-matmul kernels: K1 (BN-apply + ReLU + 1x1 conv forward), K2 (its
    masked input gradient with the BN channel sums) and K3 (its weight
    gradient) against their plain versions, in bf16, at the four ResNet-50
@@ -100,6 +105,7 @@ FUSED_REL = 2.0 ** -7  # gt, sums, dW: one bf16 spacing of the plain max-abs
 PARITY_LOGITS = 2e-2  # pallas vs fused model: logits and loss, of max-abs
 PARITY_GRADS = 5e-2  # conv3 and middle-BN gradients, of max-abs
 TRAIN_ROWS, VAL_ROWS, BATCH, STEPS = 848, 212, 212, 4
+SM_COUNT = 132  # set from the card in main()
 
 
 def fail(msg: str) -> None:
@@ -162,9 +168,13 @@ def device_ms(fn, launches: int = 20, trials: int = 3) -> float:
 
 
 def kernel_phase(torch, F) -> list[dict]:
+    import importlib
+
     from dss_ml_at_scale_tpu_torch.ops.flash_attention import (
         attention_reference, flash_attention,
     )
+
+    fa = importlib.import_module("dss_ml_at_scale_tpu_torch.ops.flash_attention")
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
@@ -213,6 +223,24 @@ def kernel_phase(torch, F) -> list[dict]:
             "max_abs_err": err,
             "atol": atol,
             "mean_rel_err": mean_rel,
+        }
+        if dtype == bf16 and causal and sq == sk:
+            # A serving bucket: the split plan's launch against one CTA per
+            # query tile, both held to the same limits; the split output
+            # must be the same from run to run.
+            whole = fa._launch(q, k, v, causal, split=False)
+            again = flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again), f"{name}: split output differs between runs")
+            werr = (whole.float() - ref.float()).abs()
+            check(werr.max().item() <= atol, f"{name}: unsplit max abs err {werr.max().item()}")
+            check(werr.mean().item() / ref.float().abs().mean().item() <= MEAN_REL,
+                  f"{name}: unsplit mean abs err over the limit")
+            plan = fa.split_plan(8, sq, sk, causal, SM_COUNT)
+            row["split_items"] = None if plan is None else len(plan[0])
+            row["split_ms"] = device_ms(lambda: fa._launch(q, k, v, causal, split=True))
+            row["nosplit_ms"] = device_ms(lambda: fa._launch(q, k, v, causal, split=False))
+        row.update({
             "ms": device_ms(lambda: flash_attention(q, k, v, causal=causal)),
             "plain_ms": device_ms(
                 lambda: attention_reference(q, k, v, causal=causal)),
@@ -221,7 +249,7 @@ def kernel_phase(torch, F) -> list[dict]:
                     q, k, v, attn_mask=mask, is_causal=is_causal)),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        }
+        })
         print("kernel-case " + json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -603,8 +631,19 @@ def main() -> int:
           flush=True)
     for name in built:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line:
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}", flush=True)
+    global SM_COUNT
+    SM_COUNT = torch.cuda.get_device_properties(0).multi_processor_count
+    import importlib
+
+    from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
+
+    fa = importlib.import_module("dss_ml_at_scale_tpu_torch.ops.flash_attention")
+    k4, k1 = fa._kernel(), fm._kernel()
+    print(f"dynamic shared memory per CTA: K4 d128 {k4.dsst_flash_attention_smem_bytes(128)} B, "
+          f"K1 K512 {k1.dsst_bn_relu_matmul_fwd_smem_bytes(512, 0)} B "
+          f"(+res {k1.dsst_bn_relu_matmul_fwd_smem_bytes(512, 1)} B); {SM_COUNT} SMs", flush=True)
 
     cases = kernel_phase(torch, F)
     fused = fused_kernel_phase(torch)

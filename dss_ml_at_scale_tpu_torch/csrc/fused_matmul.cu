@@ -14,13 +14,17 @@
 // global load and the store to shared memory; K2 recomputes the ReLU mask in
 // its epilogue.
 //
-// Design. One CTA of 8 warps computes one output tile with bf16 mma.sync
-// m16n8k16 (f32 accumulate), operands staged through shared memory (rows
-// padded by 16 bytes, read with ldmatrix, free of bank conflicts), a reduction
-// depth of 32 per stage, and the next stage's global loads issued into
-// registers before the current stage's products. Every kernel takes any M and
-// masks the ragged edge; K and N must be multiples of 8 (16-byte vectors).
-//   K1: 128 x 128 tiles of out; grid (N tiles, M tiles).
+// Design. K1 is a persistent, warp-specialised wgmma kernel (its section
+// below): TMA loads into a ring of stages driven by mbarriers, the prologue
+// applied to a register A operand, a TMA-store epilogue. K2 and K3 are one
+// CTA of 8 warps per output tile with bf16 mma.sync m16n8k16 (f32
+// accumulate), operands staged through shared memory (rows padded by 16
+// bytes, read with ldmatrix, free of bank conflicts), a reduction depth of 32
+// per stage, and the next stage's global loads issued into registers before
+// the current stage's products. Every kernel takes any M and masks the
+// ragged edge; K and N must be multiples of 8 (16-byte rows for TMA and
+// vector loads).
+//   K1: 128 x 256 tiles of out, one CTA per SM walking them.
 //   K2: 128 x 64 tiles of gt; grid (K tiles, M tiles). The TPU kernel carries
 //       the two channel sums across its sequential grid; GPU blocks run in no
 //       order, so each CTA writes its column sums to a [M tiles, 2K] f32
@@ -36,16 +40,24 @@
 // y and out (2*M*(K+N) bytes): at stage 1 (K=64, N=256) that is 425 MB, so
 // bytes bound it (0.127 ms) and not operations (0.022 ms); at stage 4 (K=512,
 // N=2048, M=10,388) operations bound it. K2 reads g and y and writes gt; K3
-// reads y and g: both are bytes-bound at stage 1. The design reads each input
-// tile from device memory once per output tile and writes each output once;
-// it does not yet overlap loads with products beyond the register prefetch
-// (no cp.async or TMA ring) and does not reach the wgmma rate. Later work.
+// reads y and g: both are bytes-bound at stage 1. K1 reads y once per 256
+// columns of out (once in all at stage 1) and keeps loads, products and
+// stores in flight together. K2 and K3 read each input tile once per output
+// tile; they do not yet overlap loads with products beyond the register
+// prefetch, nor reach the wgmma rate: later work, on K1's machinery.
 
+#include <algorithm>
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 typedef __nv_bfloat16 bf16;
 
@@ -140,97 +152,193 @@ __device__ __forceinline__ uint4 bn_relu8(const bf16* __restrict__ y, const bf16
 
 // ---------------------------------------------------------------------------
 // K1: out = bf16(relu(y*s + t [+ res])) @ W.  y, res [M,K]; W [K,N]; out [M,N].
+//
+// Persistent: one CTA per SM walks 128 x 256 output tiles, M first within
+// a 256-wide band of N, so W's band stays in L2 and, at N <= 256, y is read
+// exactly once. Warps 0-7 are two consumer warpgroups (64 rows each), warps
+// 8-11 the producer warpgroup, which gives its registers to the consumers
+// (setmaxnreg: 40 against 232 a thread) and whose one thread keeps a ring
+// of stages full by TMA: a 128 x 64 y tile (and res tile) and a 64 x 256 W
+// tile per stage, each in the 128-byte swizzle, with out-of-bounds rows and
+// columns zero-filled (the ragged M, K and N). A consumer reads its y
+// fragment with ldmatrix from the swizzled tile, applies the BN prologue in
+// registers (s and t are staged in shared memory once per CTA) and issues
+// wgmma m64n256k16 with that A from registers and W from a shared-memory
+// descriptor; the two A buffers let one step's prologue run while the
+// previous product is in flight. The epilogue rounds the accumulators to
+// bf16 into a swizzled staging tile and TMA-stores it in full 128-byte rows;
+// the store runs on while the CTA multiplies its next tile.
 // ---------------------------------------------------------------------------
-constexpr int kFwdBM = 128, kFwdBN = 128;
+constexpr int kFwdBM = 128, kFwdBN = 256, kFwdBK = 64;
+constexpr int kFwdConsumerWarps = 8;
+constexpr int kFwdThreads = kFwdConsumerWarps * 32 + 128;
+constexpr int kFwdYBytes = kFwdBM * kFwdBK * 2;  // 16 KB, one SW128 block of 128 rows
+constexpr int kFwdWBytes = kFwdBK * kFwdBN * 2;  // 32 KB, four SW128 blocks of 64 rows
+constexpr int kFwdStageBytes = kFwdBM * kFwdBN * 2;  // 64 KB, two warpgroups' 64 x 256
+constexpr int kSmemLimit = 232448;  // what one CTA may opt in to on an H100
+
+// Bytes of dynamic shared memory for `stages` ring stages.
+__host__ __device__ constexpr int fwd_smem_bytes(int stages, bool res, int k_pad) {
+  return 1024 + stages * (kFwdYBytes * (res ? 2 : 1) + kFwdWBytes) + kFwdStageBytes +
+         2 * k_pad * 4 + 2 * stages * 8;
+}
+
+// As many ring stages as fit beside the rest, up to 4 (fewer than 2: K is
+// too large for the ring).
+int fwd_stages(int K, bool res) {
+  const int k_pad = (K + kFwdBK - 1) / kFwdBK * kFwdBK;
+  const int stage = kFwdYBytes * (res ? 2 : 1) + kFwdWBytes;
+  return std::min(4, (kSmemLimit - fwd_smem_bytes(0, res, k_pad)) / (stage + 16));
+}
+
+__device__ __forceinline__ uint32_t bn_relu2(uint32_t yv, float2 s, float2 t) {
+  const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&yv));
+  return pack2(fmaxf(bn_pre(y.x, s.x, t.x), 0.f), fmaxf(bn_pre(y.y, s.y, t.y), 0.f));
+}
+
+__device__ __forceinline__ uint32_t bn_relu2(uint32_t yv, float2 s, float2 t, uint32_t rv) {
+  const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&yv));
+  const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv));
+  return pack2(fmaxf(__fadd_rn(bn_pre(y.x, s.x, t.x), r.x), 0.f),
+               fmaxf(__fadd_rn(bn_pre(y.y, s.y, t.y), r.y), 0.f));
+}
 
 template <bool RES>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const bf16* __restrict__ y, const bf16* __restrict__ res, const float* __restrict__ s,
-           const float* __restrict__ t, const bf16* __restrict__ w, bf16* __restrict__ out,
-           int M, int K, int N) {
-  constexpr int BM = kFwdBM, BN = kFwdBN, WM = 64, WN = 32, MI = WM / 16, NI = WN / 8;
-  constexpr int LDA = kBK + kPad, LDB = BN + kPad;
-  __shared__ __align__(16) bf16 As[BM * LDA];   // a tile [m][k]
-  __shared__ __align__(16) bf16 Bs[kBK * LDB];  // W tile [k][n]
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+__global__ void __launch_bounds__(kFwdThreads, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap tm_y, const __grid_constant__ CUtensorMap tm_res,
+           const __grid_constant__ CUtensorMap tm_w, const __grid_constant__ CUtensorMap tm_out,
+           const float* __restrict__ s, const float* __restrict__ t, int M, int K, int N,
+           int stages) {
+  constexpr int kYStage = kFwdYBytes * (RES ? 2 : 1);
+  constexpr int kStage = kYStage + kFwdWBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  const int k_blocks = (K + kFwdBK - 1) / kFwdBK, k_pad = k_blocks * kFwdBK;
+  const int tiles_m = (M + kFwdBM - 1) / kFwdBM;
+  const int tiles = tiles_m * ((N + kFwdBN - 1) / kFwdBN);
+  const uint32_t s_ring = smem_u32(smem);  // stage i: y [, res], W
+  uint8_t* staging = smem + stages * kStage;  // two 32 KB halves, one per warpgroup
+  float* s_s = reinterpret_cast<float*>(staging + kFwdStageBytes);
+  float* s_t = s_s + k_pad;
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_t + k_pad);
+  uint64_t* empty = full + stages;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kFwdConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  for (int i = tid; i < k_pad; i += kFwdThreads) {  // zero past K: the padded a is 0
+    s_s[i] = i < K ? s[i] : 0.f;
+    s_t[i] = i < K ? t[i] : 0.f;
+  }
+  __syncthreads();
 
-  uint4 ra[2], rb[2];
-  auto load = [&](int k0) {
+  if (warp >= kFwdConsumerWarps) {
+    // Producer: one thread issues every TMA load of this CTA's tiles.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == kFwdConsumerWarps && lane == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % tiles_m) * kFwdBM, n0 = (tile / tiles_m) * kFwdBN;
+        for (int kb = 0; kb < k_blocks; ++kb, ++it) {
+          const int st = it % stages;
+          mbar_wait(&empty[st], ((it / stages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[st], kStage);
+          const uint32_t base = s_ring + st * kStage;
+          tma_load_2d(base, &tm_y, &full[st], kb * kFwdBK, m0);
+          if (RES) tma_load_2d(base + kFwdYBytes, &tm_res, &full[st], kb * kFwdBK, m0);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * kThreads, r = v >> 2, c = (v & 3) * 8;
-      const int gm = m0 + r, gk = k0 + c;
-      ra[i] = (gm < M && gk < K) ? bn_relu8<RES>(y, res, s, t, static_cast<size_t>(gm) * K + gk, gk)
-                                 : zero;
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * kThreads, r = v >> 4, c = (v & 15) * 8;
-      const int gk = k0 + r, gn = n0 + c;
-      rb[i] = (gk < K && gn < N) ? ld16(w + static_cast<size_t>(gk) * N + gn) : zero;
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * kThreads;
-      *reinterpret_cast<uint4*>(&As[(v >> 2) * LDA + (v & 3) * 8]) = ra[i];
-      *reinterpret_cast<uint4*>(&Bs[(v >> 4) * LDB + (v & 15) * 8]) = rb[i];
-    }
-  };
-
-  const int n_k = (K + kBK - 1) / kBK;
-  load(0);
-  for (int kt = 0; kt < n_k; ++kt) {
-    store();
-    __syncthreads();
-    if (kt + 1 < n_k) load((kt + 1) * kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        ldsm_x4(af[mi], &As[(wm * WM + mi * 16 + (lane & 15)) * LDA + kk + (lane >> 4) * 8]);
-#pragma unroll
-      for (int j = 0; j < NI / 2; ++j) {
-        uint32_t bfr[4];
-        ldsm_x4_t(bfr, &Bs[(kk + (lane & 15)) * LDB + wn * WN + j * 16 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          mma_16816(acc[mi][2 * j], af[mi], bfr[0], bfr[1]);
-          mma_16816(acc[mi][2 * j + 1], af[mi], bfr[2], bfr[3]);
+          for (int b = 0; b < kFwdBN / 64; ++b)
+            tma_load_2d(base + kYStage + b * 8192, &tm_w, &full[st], n0 + b * 64, kb * kFwdBK);
         }
       }
     }
-    __syncthreads();
+    return;
   }
 
-  const int gr = lane >> 2, tq = lane & 3;
+  // Consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp / 4, wt = tid % 128, wl = warp % 4;
+  const int g = lane >> 2, tq = lane & 3;
+  const int a_row = wg * 64 + wl * 16 + (lane & 15);  // this lane's ldmatrix row
+  uint8_t* stage_out = staging + wg * (kFwdStageBytes / 2);
+  float acc[kFwdBN / 2];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile % tiles_m) * kFwdBM, n0 = (tile / tiles_m) * kFwdBN;
+    for (int kb = 0; kb < k_blocks; ++kb, ++it) {
+      const int st = it % stages;
+      mbar_wait(&full[st], (it / stages) & 1);
+      const uint32_t base = s_ring + st * kStage;
+      uint32_t a[2][4];
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const int col = n0 + wn * WN + ni * 8 + tq * 2;
-      if (col >= N) continue;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * WM + mi * 16 + gr + half * 8;
-        if (row < M) {
-          *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * N + col) =
-              pack2(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
+      for (int ks = 0; ks < kFwdBK / 16; ++ks) {
+        // y fragment of rows a_row, channels [16 ks, 16 ks + 16) of the block.
+        const uint32_t off = sw128(a_row, ks * 2 + (lane >> 4));
+        uint32_t yv[4];
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(yv[0]), "=r"(yv[1]), "=r"(yv[2]), "=r"(yv[3])
+                     : "r"(base + off));
+        const int kc = kb * kFwdBK + ks * 16 + tq * 2;
+        const float2 s0 = *reinterpret_cast<const float2*>(s_s + kc);
+        const float2 s1 = *reinterpret_cast<const float2*>(s_s + kc + 8);
+        const float2 t0 = *reinterpret_cast<const float2*>(s_t + kc);
+        const float2 t1 = *reinterpret_cast<const float2*>(s_t + kc + 8);
+        uint32_t(&av)[4] = a[ks & 1];
+        if (RES) {
+          uint32_t rv[4];
+          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(rv[0]), "=r"(rv[1]), "=r"(rv[2]), "=r"(rv[3])
+                       : "r"(base + kFwdYBytes + off));
+          av[0] = bn_relu2(yv[0], s0, t0, rv[0]);
+          av[1] = bn_relu2(yv[1], s0, t0, rv[1]);
+          av[2] = bn_relu2(yv[2], s1, t1, rv[2]);
+          av[3] = bn_relu2(yv[3], s1, t1, rv[3]);
+        } else {
+          av[0] = bn_relu2(yv[0], s0, t0);
+          av[1] = bn_relu2(yv[1], s0, t0);
+          av[2] = bn_relu2(yv[2], s1, t1);
+          av[3] = bn_relu2(yv[3], s1, t1);
         }
+        wgmma_fence();
+        wgmma_m64n256k16_rs<1>(acc, av, sw128_desc(base + kYStage + ks * 2048, 8192, 1024),
+                               (kb | ks) != 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the product before this one is done: its A buffer is free
       }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+    // Epilogue: the previous tile's store must have read the staging tile.
+    if (wt == 0) bulk_wait_read<0>();
+    named_bar_sync(1 + wg, 128);
+    const uint32_t out_base = smem_u32(stage_out);
+#pragma unroll
+    for (int i = 0; i < kFwdBN / 8; ++i) {
+      const int r = wl * 16 + g;
+      const uint32_t addr = out_base + (i / 8) * 8192 + sw128(r, i % 8) + tq * 4;
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(pack2(acc[4 * i], acc[4 * i + 1])));
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr + 8 * 128),
+                   "r"(pack2(acc[4 * i + 2], acc[4 * i + 3])));
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+    if (wt == 0 && m0 + wg * 64 < M) {
+#pragma unroll
+      for (int b = 0; b < kFwdBN / 64; ++b)
+        if (n0 + b * 64 < N) tma_store_2d(&tm_out, out_base + b * 8192, n0 + b * 64, m0 + wg * 64);
+      bulk_commit();
     }
   }
+  if (wt == 0) bulk_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -516,6 +624,43 @@ int sum_rows(const float* part, float* out, int rows, long long cols, cudaStream
   return static_cast<int>(cudaGetLastError());
 }
 
+// cuTensorMapEncodeTiled, fetched from the driver at first use.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 2-D TMA map of a row-major bf16 [outer, inner] matrix, boxes of
+// box_outer rows x box_inner columns in the 128-byte swizzle, zero fill
+// out of bounds.
+int make_map(CUtensorMap* map, const void* ptr, int inner, int outer, int box_inner,
+             int box_outer) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // All pointers are device pointers, 16-byte aligned; y, res, w, g, gt are
@@ -523,23 +668,45 @@ int sum_rows(const float* part, float* out, int rows, long long cols, cudaStream
 // variant without a residual). Each function launches on `stream` and
 // returns cudaGetLastError() after its launches (0 when they were accepted).
 
-// K1. out [M,N] bf16.
+// K1. out [M,N] bf16; sm_count CTAs at most (one per SM). The tensor maps
+// are encoded here at every call, through the driver's entry point (no
+// -lcuda at link time).
 extern "C" int dsst_bn_relu_matmul_fwd(const void* y, const void* res, const void* s, const void* t,
-                                       const void* w, void* out, int M, int K, int N, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kFwdBN - 1) / kFwdBN, (M + kFwdBM - 1) / kFwdBM);
-  const auto* yp = static_cast<const bf16*>(y);
-  const auto* rp = static_cast<const bf16*>(res);
+                                       const void* w, void* out, int M, int K, int N, int sm_count,
+                                       void* stream) {
+  const bool with_res = res != nullptr;
+  const int k_pad = (K + kFwdBK - 1) / kFwdBK * kFwdBK;
+  const int stages = fwd_stages(K, with_res);
+  if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);  // K too large for the ring
+  CUtensorMap tm_y, tm_res, tm_w, tm_out;
+  int rc = make_map(&tm_y, y, K, M, kFwdBK, kFwdBM);
+  if (rc == 0) rc = make_map(&tm_res, with_res ? res : y, K, M, kFwdBK, kFwdBM);
+  if (rc == 0) rc = make_map(&tm_w, w, N, K, 64, kFwdBK);
+  if (rc == 0) rc = make_map(&tm_out, out, N, M, 64, 64);
+  if (rc != 0) return rc;
+  const int tiles = (M + kFwdBM - 1) / kFwdBM * ((N + kFwdBN - 1) / kFwdBN);
+  const int grid = std::min(tiles, sm_count);
+  const int bytes = fwd_smem_bytes(stages, with_res, k_pad);
   const auto* sp = static_cast<const float*>(s);
   const auto* tp = static_cast<const float*>(t);
-  const auto* wp = static_cast<const bf16*>(w);
-  auto* op = static_cast<bf16*>(out);
-  if (res != nullptr) {
-    fwd_kernel<true><<<grid, kThreads, 0, st>>>(yp, rp, sp, tp, wp, op, M, K, N);
-  } else {
-    fwd_kernel<false><<<grid, kThreads, 0, st>>>(yp, rp, sp, tp, wp, op, M, K, N);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = with_res ? fwd_kernel<true> : fwd_kernel<false>;
+  static bool configured[2] = {false, false};  // more than 48 KB needs the opt-in
+  if (!configured[with_res]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured[with_res] = true;
   }
+  kernel<<<grid, kFwdThreads, bytes, st>>>(tm_y, tm_res, tm_w, tm_out, sp, tp, M, K, N, stages);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of one K1 CTA at reduction depth K.
+extern "C" int dsst_bn_relu_matmul_fwd_smem_bytes(int K, int with_res) {
+  const int stages = fwd_stages(K, with_res);
+  const int k_pad = (K + kFwdBK - 1) / kFwdBK * kFwdBK;
+  return stages < 2 ? -1 : fwd_smem_bytes(stages, with_res, k_pad);
 }
 
 // K2. gt [M,K] bf16; partial [ceil(M/128), 2K] f32 scratch; sums [2K] f32

@@ -3,7 +3,8 @@
 Every ``csrc/*.cu`` compiles on its own with a plain C interface
 (``nvcc -gencode arch=compute_90a,code=sm_90a -shared``) into
 ``build/kernels/`` at the root of the checkout, at first use. The file name
-carries a hash of the source, so an edit rebuilds and an unchanged source
+carries a hash of the source, of every ``csrc/*.cuh`` header it may include
+and of the flags, so an edit to any of them rebuilds and an unchanged source
 loads what is there. Nothing here runs at import: the CPU tests import every
 module, and this machine may have no ``nvcc`` at all.
 """
@@ -50,8 +51,10 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """``build/kernels/<name>-<hash>.so`` for ``csrc/<name>.cu``."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -14,21 +14,37 @@ CPU, which is where the tests run it. The block sizes are the TPU kernel's
 tiling and are checked for the contract only: the CUDA kernel tiles by its
 own 64 x 64 and masks ragged edges itself. Forward only: serving takes no
 gradient, and the training slice brings the backward.
+
+Where one query tile per CTA would leave the card's SMs idle, as at every
+serving bucket, :func:`split_plan` cuts the longest tiles' key ranges into
+pieces that run in parallel; the kernel combines them in a fixed order.
+:func:`split_attention_reference` is the plain version of that split and
+combine.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
 _NEG_INF = -1e30  # finite "minus infinity": avoids inf-inf NaNs in masking
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _KERNEL_HEAD_DIMS = (64, 128)
-_MAX_GRID_Y = 65535  # the kernel puts batch*heads on grid.y
+_MAX_GRID_Y = 65535  # the f32 kernel puts batch*heads on grid.y
+_Q_TILE, _K_TILE = 64, 64  # query rows of a bf16 kernel CTA; keys of a key tile
+_CTAS_PER_SM = 2  # bf16 kernel CTAs resident on one SM (shared memory bounds it)
+_MIN_PIECE = 2  # key tiles per split piece at least: shorter ones lose to the combine
+# A query tile of at most this many key tiles is not split: the combine pass
+# and the f32 partials cost more than the shorter chain saves. On an H100 the
+# split lost at 8 tiles (causal s512) and won at 16 (s1024).
+_MAX_UNSPLIT = 8
 
 _lib = None
+_plans: dict[tuple, tuple] = {}  # device copies of split plans, by shape and device
+_plans_lock = threading.Lock()
 
 
 class BlockDivisibilityError(ValueError):
@@ -94,30 +110,176 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
         )
 
 
+def visible_key_tiles(sq: int, sk: int, causal: bool) -> list[int]:
+    """Key tiles of 64 that each 64-row query tile of the bf16 kernel
+    walks: all of them, or with the causal mask those up to the tile's last
+    row's last visible key (fully masked tiles are skipped)."""
+    n_kt = -(-sk // _K_TILE)
+    if not causal:
+        return [n_kt] * -(-sq // _Q_TILE)
+    return [min(n_kt, (min(q0 + _Q_TILE, sq) - 1 + sk - sq) // _K_TILE + 1)
+            for q0 in range(0, sq, _Q_TILE)]
+
+
+def split_plan(bh: int, sq: int, sk: int, causal: bool, sm_count: int):
+    """How the bf16 kernel splits key ranges, or ``None`` for no split.
+
+    One CTA per (head, query tile) leaves SMs idle when ``bh`` times the
+    query tiles is under ``sm_count``, and a causal launch then lasts as
+    long as its longest tile; where that tile is longer than
+    ``_MAX_UNSPLIT`` key tiles, the plan cuts each tile's visible key range
+    into pieces of at most ``chunk`` key tiles (sizes differing by at most
+    one), with ``chunk`` the least, and at least ``_MIN_PIECE``, whose
+    pieces of all heads still run in one wave of ``_CTAS_PER_SM`` CTAs per
+    SM. No split when no tile is longer than ``chunk``.
+
+    Returns ``(items, combine, n_slots)``: ``items`` are the work items
+    ``(qt, kt_begin, kt_end, slot)`` in launch order, longest first
+    (``slot = -1``: the piece is its tile's whole range and writes the
+    output itself; else it writes partial slot ``slot``); ``combine`` lists
+    ``(qt, first_slot, pieces)`` for each split tile, whose slots are
+    consecutive and combined in slot order.
+    """
+    tiles = visible_key_tiles(sq, sk, causal)
+    if bh * len(tiles) >= sm_count or max(tiles) <= _MAX_UNSPLIT:
+        return None
+    chunk = _MIN_PIECE
+    slots = _CTAS_PER_SM * sm_count
+    while chunk < max(tiles) and bh * sum(-(-n // chunk) for n in tiles) > slots:
+        chunk += 1
+    if max(tiles) <= chunk:
+        return None
+    items, combine, n_slots = [], [], 0
+    for qt, n in enumerate(tiles):
+        pieces = -(-n // chunk)
+        if pieces == 1:
+            items.append((qt, 0, n, -1))
+            continue
+        combine.append((qt, n_slots, pieces))
+        base, extra = divmod(n, pieces)
+        start = 0
+        for i in range(pieces):
+            size = base + (i < extra)
+            items.append((qt, start, start + size, n_slots + i))
+            start += size
+        n_slots += pieces
+    items.sort(key=lambda it: (it[1] - it[2], -it[0], it[1]))
+    return items, combine, n_slots
+
+
+def work_items(bh: int, sq: int, sk: int, causal: bool, sm_count: int):
+    """The bf16 kernel's work items per head in launch order, as
+    ``(qt, kt_begin, kt_end, slot)``: the split plan's, or without one each
+    query tile whole, longest first (the kernel's own mapping)."""
+    plan = split_plan(bh, sq, sk, causal, sm_count)
+    if plan is not None:
+        return plan[0]
+    tiles = visible_key_tiles(sq, sk, causal)
+    order = range(len(tiles) - 1, -1, -1) if causal else range(len(tiles))
+    return [(qt, 0, tiles[qt], -1) for qt in order]
+
+
+def split_attention_reference(q, k, v, *, causal: bool = False, plan) -> torch.Tensor:
+    """Plain version of the bf16 kernel's split and combine, in f32.
+
+    Each work item of ``plan`` (from :func:`split_plan`) takes softmax over
+    its own key tiles: its output, normalized, and its log-sum-exp. A tile
+    split in pieces combines them in slot order, each weighted by
+    ``exp(lse - max lse)``. A row that sees no key of a piece (the causal
+    diagonal) gets that piece's -1e30 scores at weight 1, as in the
+    kernel; its log-sum-exp is then about -1e30 and its weight 0.
+    """
+    items, combine, _ = plan
+    sq, sk = q.shape[-2], k.shape[-2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    parts = {}
+    for qt, kb, ke, slot in items:
+        r0, r1 = qt * _Q_TILE, min(qt * _Q_TILE + _Q_TILE, sq)
+        c0, c1 = kb * _K_TILE, min(ke * _K_TILE, sk)
+        s = torch.matmul(qf[..., r0:r1, :], kf[..., c0:c1, :].transpose(-1, -2)) * scale
+        if causal:
+            qi = torch.arange(r0, r1, device=q.device)[:, None] + (sk - sq)
+            ki = torch.arange(c0, c1, device=q.device)[None, :]
+            s = torch.where(qi >= ki, s, torch.full_like(s, _NEG_INF))
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        o = torch.matmul(p, vf[..., c0:c1, :]) / l
+        if slot < 0:
+            out[..., r0:r1, :] = o
+        else:
+            parts[slot] = (o, m + torch.log(l))
+    for qt, first, pieces in combine:
+        r0, r1 = qt * _Q_TILE, min(qt * _Q_TILE + _Q_TILE, sq)
+        lse = torch.stack([parts[first + i][1] for i in range(pieces)])
+        w = torch.exp(lse - lse.amax(0))
+        acc = sum(w[i] * parts[first + i][0] for i in range(pieces))
+        out[..., r0:r1, :] = acc / w.sum(0)
+    return out.to(q.dtype)
+
+
 def _kernel():
     global _lib
     if _lib is None:
         from ._build import load
 
         lib = load("flash_attention")
+        p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.dsst_flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [p] * 4 + [i] * 6 + [p, i, p, i, p, p, i, p]
         fn.restype = ctypes.c_int
+        lib.dsst_flash_attention_smem_bytes.argtypes = [i]
+        lib.dsst_flash_attention_smem_bytes.restype = i
         _lib = lib
     return _lib
 
 
-def _launch(q, k, v, causal: bool) -> torch.Tensor:
+def _device_plan(bh, sq, sk, causal, device):
+    """The split plan on the device, made once per shape and device:
+    ``(items, combine, n_items, n_combine, n_slots)``, or ``None``."""
+    key = (bh, sq, sk, causal, device)
+    with _plans_lock:
+        if key in _plans:
+            return _plans[key]
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = split_plan(bh, sq, sk, causal, sm_count)
+    if plan is not None:
+        items, combine, n_slots = plan
+        plan = (torch.tensor(items, dtype=torch.int32, device=device),
+                torch.tensor([c + (0,) for c in combine], dtype=torch.int32, device=device),
+                len(items), len(combine), n_slots)
+    with _plans_lock:
+        if len(_plans) >= 64:
+            _plans.clear()
+        _plans[key] = plan
+    return plan
+
+
+def _launch(q, k, v, causal: bool, split: bool = True) -> torch.Tensor:
+    """Launch the kernel; ``split=False`` ignores the split plan (the
+    measurement of what the plan buys uses it)."""
     check_kernel_inputs(q, k, v)
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     lib = _kernel()
+    plan = None
+    if split and q.dtype == torch.bfloat16:
+        plan = _device_plan(b * h, sq, k.shape[2], causal, q.device)
+    args = (None, 0, None, 0, None, None, 0)  # no split
+    if plan is not None:
+        items, combine, n_items, n_combine, n_slots = plan
+        part_o = torch.empty((b * h, n_slots, _Q_TILE, d), dtype=torch.float32, device=q.device)
+        part_lse = torch.empty((b * h, n_slots, _Q_TILE), dtype=torch.float32, device=q.device)
+        args = (items.data_ptr(), n_items, combine.data_ptr(), n_combine,
+                part_o.data_ptr(), part_lse.data_ptr(), n_slots)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dsst_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b * h, sq, k.shape[2], d, int(causal),
-            int(q.dtype == torch.bfloat16), stream,
+            int(q.dtype == torch.bfloat16), *args, stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")

@@ -40,9 +40,10 @@ import torch
 # Tile constants of csrc/fused_matmul.cu that size the scratch the wrappers
 # allocate: K2 writes one row of channel sums per 128-row tile of M (kDaBM);
 # K3 splits M into chunks that are multiples of its reduction depth (kBK).
+# K1 walks 128 x 256 output tiles (kFwdBM, kFwdBN).
 _DA_TILE_M = 128
 _DW_TILE_K, _DW_TILE_N, _DW_DEPTH = 64, 128, 32
-_FWD_TILE_M = 128
+_FWD_TILE_M, _FWD_TILE_N = 128, 256
 _MAX_GRID_Y = 65535
 
 _lib = None
@@ -93,7 +94,9 @@ def _kernel():
 
         lib = load("fused_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dsst_bn_relu_matmul_fwd.argtypes = [p] * 6 + [i] * 3 + [p]
+        lib.dsst_bn_relu_matmul_fwd.argtypes = [p] * 6 + [i] * 4 + [p]
+        lib.dsst_bn_relu_matmul_fwd_smem_bytes.argtypes = [i, i]
+        lib.dsst_bn_relu_matmul_fwd_smem_bytes.restype = i
         lib.dsst_bn_relu_matmul_bwd_da.argtypes = [p] * 11 + [i] * 3 + [p]
         lib.dsst_bn_relu_matmul_bwd_dw.argtypes = [p] * 7 + [i] * 5 + [p]
         for fn in (lib.dsst_bn_relu_matmul_fwd, lib.dsst_bn_relu_matmul_bwd_da,
@@ -128,8 +131,8 @@ def check_kernel_inputs(m: int, k: int, n: int, *, bf16=(), f32=(), shapes=()) -
             raise ValueError("fused matmul kernels need 16-byte aligned storage")
     if k % 8 or n % 8:
         raise ValueError(f"fused matmul kernels need K and N multiples of 8, got K={k}, N={n}")
-    if m < 1 or (m + _FWD_TILE_M - 1) // _FWD_TILE_M > _MAX_GRID_Y:
-        raise ValueError(f"fused matmul kernels take 1..{_MAX_GRID_Y * _FWD_TILE_M} rows, got {m}")
+    if m < 1 or (m + _DA_TILE_M - 1) // _DA_TILE_M > _MAX_GRID_Y:
+        raise ValueError(f"fused matmul kernels take 1..{_MAX_GRID_Y * _DA_TILE_M} rows, got {m}")
 
 
 def _ptr(x):
@@ -150,6 +153,23 @@ def _on_cpu_or_raise(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} runs on cuda or cpu, got {x.device}")
 
 
+def _sm_count(x: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
+def fwd_tile_walk(m: int, n: int, sm_count: int) -> list[list[tuple[int, int]]]:
+    """K1's persistent walk: for each of its ``min(tiles, sm_count)`` CTAs,
+    the ``(row, column)`` origins of the 128 x 256 output tiles it computes,
+    in order. Tile ``i`` is row tile ``i % tiles_m`` of column band
+    ``i // tiles_m`` (M first within a band of N), and CTA ``c`` takes tiles
+    ``c, c + grid, c + 2 grid, ...``, as the kernel does."""
+    tiles_m = -(-m // _FWD_TILE_M)
+    tiles = tiles_m * -(-n // _FWD_TILE_N)
+    grid = min(tiles, sm_count)
+    return [[((i % tiles_m) * _FWD_TILE_M, (i // tiles_m) * _FWD_TILE_N)
+             for i in range(c, tiles, grid)] for c in range(grid)]
+
+
 def bn_relu_matmul_fwd(y2, s, t, w, res=None) -> torch.Tensor:
     """K1 on the card, or its plain version for CPU tensors."""
     if not y2.is_cuda:
@@ -164,7 +184,7 @@ def bn_relu_matmul_fwd(y2, s, t, w, res=None) -> torch.Tensor:
     with torch.cuda.device(y2.device):
         rc = lib.dsst_bn_relu_matmul_fwd(
             y2.data_ptr(), _ptr(res), s.data_ptr(), t.data_ptr(), w.data_ptr(),
-            out.data_ptr(), m, k, n, _stream(y2))
+            out.data_ptr(), m, k, n, _sm_count(y2), _stream(y2))
     _raise_if(rc, "bn_relu_matmul_fwd")
     bn_relu_matmul_fwd.launches += 1
     return out
@@ -216,8 +236,7 @@ def bn_relu_matmul_bwd_dw(y2, s, t, g, res=None) -> torch.Tensor:
     n = g.shape[1]
     check_kernel_inputs(m, k, n, bf16=(y2, g, res), f32=(s, t),
                         shapes=((g, (m, n)), (res, (m, k)), (s, (k,)), (t, (k,))))
-    sm_count = torch.cuda.get_device_properties(y2.device).multi_processor_count
-    splits, chunk = dw_splits(m, k, n, sm_count)
+    splits, chunk = dw_splits(m, k, n, _sm_count(y2))
     partial = torch.empty((splits, k, n), dtype=torch.float32, device=y2.device)
     dw = torch.empty((k, n), dtype=torch.float32, device=y2.device)
     lib = _kernel()

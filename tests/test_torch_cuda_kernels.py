@@ -7,6 +7,8 @@ this file imports neither and is run there without the conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
 
+import importlib
+
 import pytest
 import torch
 
@@ -27,15 +29,17 @@ def cuda():
 
 
 # bf16: the JAX package's bf16 tolerance (tests/test_flash_attention.py:41);
-# f32: its f32 tolerance (:23).
+# f32: its f32 tolerance (:23). The serving buckets (b1 h8 d128 causal,
+# 128/512/1024) and sq < sk take the split path in bf16 on an H100.
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
-@pytest.mark.parametrize("sq,sk,d,causal", [
-    (128, 128, 128, True), (64, 192, 64, True), (96, 96, 128, False),
-    (32, 32, 64, True),
+@pytest.mark.parametrize("b,h,sq,sk,d,causal", [
+    (2, 4, 128, 128, 128, True), (2, 4, 64, 192, 64, True), (2, 4, 96, 96, 128, False),
+    (2, 4, 32, 32, 64, True), (1, 8, 128, 128, 128, True), (1, 8, 512, 512, 128, True),
+    (1, 8, 1024, 1024, 128, True), (1, 8, 256, 1024, 128, True),
 ])
-def test_flash_kernel_matches_plain_version(cuda, dtype, atol, sq, sk, d, causal):
+def test_flash_kernel_matches_plain_version(cuda, dtype, atol, b, h, sq, sk, d, causal):
     def mk(s):
-        return torch.randn(2, 4, s, d, generator=cuda, device="cuda", dtype=dtype)
+        return torch.randn(b, h, s, d, generator=cuda, device="cuda", dtype=dtype)
 
     q, k, v = mk(sq), mk(sk), mk(sk)
     before = flash_attention.launches
@@ -45,6 +49,34 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, atol, sq, sk, d, causal
     assert out.dtype == dtype and out.shape == q.shape
     ref = attention_reference(q, k, v, causal=causal)
     assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("sq,sk", [(128, 128), (512, 512), (1024, 1024), (256, 1024)])
+def test_flash_split_path_is_deterministic_and_matches_unsplit(cuda, sq, sk):
+    fa = importlib.import_module("dss_ml_at_scale_tpu_torch.ops.flash_attention")
+    q = torch.randn(1, 8, sq, 128, generator=cuda, device="cuda", dtype=torch.bfloat16)
+    k, v = (torch.randn(1, 8, sk, 128, generator=cuda, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    first = flash_attention(q, k, v, causal=True)
+    again = flash_attention(q, k, v, causal=True)
+    whole = fa._launch(q, k, v, True, split=False)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    ref = attention_reference(q, k, v, causal=True).float()
+    for out in (first, whole):
+        assert (out.float() - ref).abs().max().item() <= 2e-2
+
+
+def test_kernels_opt_in_to_more_than_48kb_of_shared_memory(cuda):
+    fa = importlib.import_module("dss_ml_at_scale_tpu_torch.ops.flash_attention")
+    assert fa._kernel().dsst_flash_attention_smem_bytes(128) > 48 * 1024
+    assert fm._kernel().dsst_bn_relu_matmul_fwd_smem_bytes(512, 1) > 48 * 1024
+    q = torch.randn(1, 2, 128, 128, generator=cuda, device="cuda", dtype=torch.bfloat16)
+    out = flash_attention(q, q, q, causal=True)  # raises if the launch is refused
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, 300, 512, 256, True)
+    got = fm.bn_relu_matmul_fwd(y, s, t, w, res)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(got).all()
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
@@ -113,8 +145,11 @@ def _rel(got, ref):
 
 # K1 out at the bf16 tolerance of tests/test_fused_matmul.py:203; gt, the
 # sums and dW to one bf16 spacing (2^-7) of the plain result's max-abs.
+# M, K and N on and off K1's 128 x 256 x 64 tile edges.
 @pytest.mark.parametrize("with_res", [False, True])
-@pytest.mark.parametrize("m,k,n", [(4133, 72, 200), (2048, 64, 256), (300, 512, 2048)])
+@pytest.mark.parametrize("n", [200, 256, 2048])
+@pytest.mark.parametrize("k", [64, 72, 512])
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 4133])
 def test_fused_matmul_kernels_match_plain_versions(cuda, m, k, n, with_res):
     y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, n, with_res)
     before = (fm.bn_relu_matmul_fwd.launches, fm.bn_relu_matmul_bwd_da.launches,
@@ -130,7 +165,10 @@ def test_fused_matmul_kernels_match_plain_versions(cuda, m, k, n, with_res):
     rgt, rsg, rsgx = fm.bn_relu_matmul_bwd_da_reference(g, w, y, s, t, mean, inv, res)
     for got, want in ((gt, rgt), (sg, rsg), (sgx, rsgx),
                       (dw, fm.bn_relu_matmul_bwd_dw_reference(y, s, t, g, res))):
-        assert _rel(got, want) <= 2.0 ** -7
+        # Of the plain result's max-abs, which is 0 where M = 1 makes the
+        # batch statistics' x_hat 0.
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * want.float().abs().max().item()
 
 
 def test_fused_matmul_kernels_are_deterministic(cuda):

@@ -9,6 +9,8 @@ itself is held against the plain version on the card by ``chip_smoke.py``
 and by ``tests/test_torch_cuda_kernels.py``.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +23,9 @@ from dss_ml_at_scale_tpu_torch.ops import (
     flash_attention,
 )
 from dss_ml_at_scale_tpu_torch.ops.flash_attention import check_kernel_inputs
+
+# The module (the package re-exports its function under the same name).
+fa_mod = importlib.import_module("dss_ml_at_scale_tpu_torch.ops.flash_attention")
 
 ATOL = RTOL = 2e-5
 
@@ -157,3 +162,73 @@ def test_kernel_input_checks(bad):
         v = v.float()
     with pytest.raises(ValueError):
         check_kernel_inputs(q, k, v)
+
+
+# The bf16 kernel's split plan: the three serving buckets (b1 h8), sq < sk,
+# non-causal, on cards of 1, 16 and 132 SMs.
+PLAN_SHAPES = [(8, 128, 128, True), (8, 512, 512, True), (8, 1024, 1024, True),
+               (8, 256, 1024, True), (8, 512, 512, False), (2, 96, 96, True)]
+
+
+@pytest.mark.parametrize("sm_count", [1, 16, 132])
+@pytest.mark.parametrize("bh,sq,sk,causal", PLAN_SHAPES)
+def test_work_items_cover_every_visible_tile_once(bh, sq, sk, causal, sm_count):
+    items = fa_mod.work_items(bh, sq, sk, causal, sm_count)
+    n_kt = -(-sk // 64)
+    want = set()
+    for qt in range(-(-sq // 64)):  # 64-row query tiles, 64-key tiles
+        last_row = min(qt * 64 + 64, sq) - 1
+        for kt in range(n_kt):
+            # A tile is visible when some row of the query tile sees its first key.
+            if not causal or kt * 64 <= last_row + sk - sq:
+                want.add((qt, kt))
+    got = [(qt, kt) for qt, kb, ke, _ in items for kt in range(kb, ke)]
+    assert len(got) == len(set(got)) and set(got) == want
+    lengths = [ke - kb for _, kb, ke, _ in items]
+    assert lengths == sorted(lengths, reverse=True)  # longest first
+    plan = fa_mod.split_plan(bh, sq, sk, causal, sm_count)
+    if plan is None:
+        assert all(slot == -1 for *_, slot in items)
+        return
+    _, combine, n_slots = plan
+    assert bh * -(-sq // 64) < sm_count  # the unsplit grid underfills the card
+    assert bh * len(items) <= 2 * sm_count  # the pieces run in one wave, two CTAs per SM
+    slots = sorted(slot for *_, slot in items if slot >= 0)
+    assert slots == list(range(n_slots))
+    for qt, first, pieces in combine:
+        mine = sorted((slot, kb, ke) for q, kb, ke, slot in items if q == qt)
+        assert [s for s, _, _ in mine] == list(range(first, first + pieces))
+        assert mine[0][1] == 0 and all(a[2] == b[1] for a, b in zip(mine, mine[1:]))
+
+
+def test_only_the_longest_serving_bucket_splits_on_an_h100():
+    # 132 SMs: every bucket underfills the card, but only s1024's tiles
+    # (up to 16 key tiles) are long enough for the split to pay.
+    for s in (128, 512):
+        assert fa_mod.split_plan(8, s, s, True, 132) is None
+    items, combine, _ = fa_mod.split_plan(8, 1024, 1024, True, 132)
+    assert combine and 8 * 16 < 8 * len(items) <= 2 * 132
+
+
+@pytest.mark.parametrize("bh,sq,sk,causal", PLAN_SHAPES)
+def test_split_and_combine_matches_reference(rng, bh, sq, sk, causal):
+    plan = fa_mod.split_plan(bh, sq, sk, causal, 132)
+    if plan is None:
+        plan = (fa_mod.work_items(bh, sq, sk, causal, 132), [], 0)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, b=1, h=bh, sq=sq, sk=sk, d=32))
+    got = fa_mod.split_attention_reference(q, k, v, causal=causal, plan=plan)
+    want = attention_reference(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("sq,sk", [(1024, 1024), (256, 1024)])
+def test_split_and_combine_matches_jax_kernel(rng, sq, sk):
+    plan = fa_mod.split_plan(4, sq, sk, True, 132)
+    assert plan is not None and plan[1]
+    q, k, v = _qkv(rng, b=1, h=4, sq=sq, sk=sk, d=32)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                causal=True, block_q=128, block_k=128))
+    got = fa_mod.split_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=True,
+        plan=plan).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)

@@ -169,3 +169,20 @@ def test_dw_splits_cover_m_in_whole_chunks():
     for m, k, n in ((664832, 64, 256), (10388, 512, 2048), (4133, 72, 200), (1, 8, 8)):
         splits, chunk = fm.dw_splits(m, k, n, 132)
         assert chunk % 32 == 0 and splits * chunk >= m > (splits - 1) * chunk
+
+
+@pytest.mark.parametrize("sm_count", [1, 16, 132])
+@pytest.mark.parametrize("m,n", [(664832, 256), (166208, 512), (41552, 1024), (10388, 2048),
+                                 (4133, 200), (1, 8), (129, 257)])
+def test_fwd_tile_walk_covers_every_output_tile_once(m, n, sm_count):
+    walk = fm.fwd_tile_walk(m, n, sm_count)
+    tiles_m, tiles_n = -(-m // 128), -(-n // 256)
+    assert len(walk) == min(sm_count, tiles_m * tiles_n)
+    got = [tile for cta in walk for tile in cta]
+    want = {(r, c) for r in range(0, m, 128) for c in range(0, n, 256)}
+    assert len(got) == len(want) and set(got) == want
+    # M first within a band of N: a CTA's next tile is further down, or the
+    # first rows of the next band.
+    for cta in walk:
+        for (r0, c0), (r1, c1) in zip(cta, cta[1:]):
+            assert (c1, r1) > (c0, r0)

@@ -85,6 +85,7 @@ def test_port_serves_a_generation_without_jax():
 
 def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "scripts" / "compare_torch_kernels.py",
                                          ROOT / "scripts" / "profile_torch_lm.py",
                                          ROOT / "scripts" / "profile_torch_train.py",
                                          ROOT / "scripts" / "resnet_grad_sensitivity.py"]
