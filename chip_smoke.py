@@ -643,7 +643,12 @@ def main() -> int:
     k4, k1 = fa._kernel(), fm._kernel()
     print(f"dynamic shared memory per CTA: K4 d128 {k4.dsst_flash_attention_smem_bytes(128)} B, "
           f"K1 K512 {k1.dsst_bn_relu_matmul_fwd_smem_bytes(512, 0)} B "
-          f"(+res {k1.dsst_bn_relu_matmul_fwd_smem_bytes(512, 1)} B); {SM_COUNT} SMs", flush=True)
+          f"(+res {k1.dsst_bn_relu_matmul_fwd_smem_bytes(512, 1)} B), "
+          f"K2 64/128 channels {[k1.dsst_bn_relu_matmul_bwd_da_smem_bytes(b, 0) for b in (64, 128)]} B "
+          f"(+res {[k1.dsst_bn_relu_matmul_bwd_da_smem_bytes(b, 1) for b in (64, 128)]} B), "
+          f"K3 64/128 channels {[k1.dsst_bn_relu_matmul_bwd_dw_smem_bytes(b, 0) for b in (64, 128)]} B "
+          f"(+res {[k1.dsst_bn_relu_matmul_bwd_dw_smem_bytes(b, 1) for b in (64, 128)]} B); "
+          f"{SM_COUNT} SMs", flush=True)
 
     cases = kernel_phase(torch, F)
     fused = fused_kernel_phase(torch)

@@ -10,41 +10,43 @@
 //   K3 _bwd_dw_kernel  dW[K,N]  = sum_M bf16(relu(y*s + t [+ res]))^T @ g
 // with s = gamma * rsqrt(var + eps) and t = beta - mean * s given per
 // channel. The normalized activation a = relu(y*s + t) never reaches device
-// memory: K1 and K3 build it in the prologue of the A tile, between the
-// global load and the store to shared memory; K2 recomputes the ReLU mask in
-// its epilogue.
+// memory: K1 and K3 build it in registers, from the y tile in shared memory to
+// the register A operand of the product; K2 recomputes the ReLU mask in its
+// epilogue.
 //
-// Design. K1 is a persistent, warp-specialised wgmma kernel (its section
-// below): TMA loads into a ring of stages driven by mbarriers, the prologue
-// applied to a register A operand, a TMA-store epilogue. K2 and K3 are one
-// CTA of 8 warps per output tile with bf16 mma.sync m16n8k16 (f32
-// accumulate), operands staged through shared memory (rows padded by 16
-// bytes, read with ldmatrix, free of bank conflicts), a reduction depth of 32
-// per stage, and the next stage's global loads issued into registers before
-// the current stage's products. Every kernel takes any M and masks the
-// ragged edge; K and N must be multiples of 8 (16-byte rows for TMA and
-// vector loads).
-//   K1: 128 x 256 tiles of out, one CTA per SM walking them.
-//   K2: 128 x 64 tiles of gt; grid (K tiles, M tiles). The TPU kernel carries
-//       the two channel sums across its sequential grid; GPU blocks run in no
-//       order, so each CTA writes its column sums to a [M tiles, 2K] f32
-//       scratch and a second pass adds the rows in a fixed order: the sums,
-//       and so the gradients, are the same from run to run.
-//   K3: 64 x 128 tiles of dW; grid (N tiles, K tiles, M splits). A reduction
-//       over M (664,832 rows at stage 1 against 2 output tiles): each CTA
-//       sums one M chunk into a [splits, K, N] f32 scratch, and the same
-//       fixed-order pass adds the splits.
+// Design. All three are warp-specialised wgmma kernels built on one
+// machinery: TMA loads into a ring of stages driven by mbarriers, fed by
+// one thread of a producer warpgroup that hands its registers to two
+// consumer warpgroups (setmaxnreg), every tile in the 128-byte swizzle of
+// hopper.cuh, out-of-bounds rows and columns zero-filled by TMA. Every
+// kernel takes any M and masks the ragged edge; K and N must be multiples
+// of 8 (16-byte rows for TMA).
+//   K1: 128 x 256 tiles of out, one CTA per SM walking them (its section).
+//   K2: 128-row tiles of gt, BN = 64 or 128 channels wide (the wrapper's
+//       choice, da_tile_n); one CTA per SM walking them, the channel bands
+//       of an M band first. The TPU kernel
+//       carries the two channel sums across its sequential grid; here each
+//       CTA carries them across its walk in a private [2K] row of f32 partials
+//       and a second pass adds the rows in a fixed order.
+//   K3: 128 x 256 or 64 x 256 tiles of dW (the wrapper's choice, dw_tile_k:
+//       64 channels at K <= 64); a reduction over M (664,832 rows at stage 1
+//       against one output tile), so each tile's rows
+//       are split over CTAs, each summing a run of M into a [splits, K, N] f32
+//       scratch that the same fixed-order pass adds; one CTA per (tile, run),
+//       the runs chosen to fill the SMs once.
+// No atomics anywhere: the sums, and so the gradients, are the same from run
+// to run.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): each ResNet-50
 // bottleneck site does M*K*N = 1.09e10 multiply-adds at batch 212. K1 moves
 // y and out (2*M*(K+N) bytes): at stage 1 (K=64, N=256) that is 425 MB, so
 // bytes bound it (0.127 ms) and not operations (0.022 ms); at stage 4 (K=512,
 // N=2048, M=10,388) operations bound it. K2 reads g and y and writes gt; K3
-// reads y and g: both are bytes-bound at stage 1. K1 reads y once per 256
-// columns of out (once in all at stage 1) and keeps loads, products and
-// stores in flight together. K2 and K3 read each input tile once per output
-// tile; they do not yet overlap loads with products beyond the register
-// prefetch, nor reach the wgmma rate: later work, on K1's machinery.
+// reads y and g: both are bytes-bound at stages 1-3. K1 and K3 read their
+// [M,K] operand once per 256 columns of N; K2 reads g from device memory
+// once (the channel bands of an M band run side by side, so all but one
+// read it from L2). All three keep loads, products and stores in flight
+// together.
 
 #include <algorithm>
 
@@ -59,64 +61,23 @@ namespace {
 
 using namespace hopper;
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kBK = 32;        // reduction depth of one shared-memory stage
-constexpr int kPad = 8;        // bf16 elements of padding per shared row
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bf16 matrices; lane l gives the address of a row of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// The same, each matrix transposed on the way into registers.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ uint4 ld16(const bf16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 p = __bfloat1622float2(h[i]);
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return u;
-}
+constexpr int kSmemLimit = 232448;  // what one CTA may opt in to on an H100
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// Four 8x8 bf16 matrices from shared memory, each transposed on the way into
+// the registers; lane l gives the address of a row of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 // z = y*s + t (+ res), rounded after each operation as the plain version's
@@ -124,30 +85,6 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 // the rounded a of K1/K3 then match the plain version bit for bit.
 __device__ __forceinline__ float bn_pre(float y, float s, float t) {
   return __fadd_rn(__fmul_rn(y, s), t);
-}
-
-// The prologue: a = bf16(relu(y*s + t [+ res])) for the 8 channels
-// [k, k+8) of the element at `off`, in f32 as the TPU kernel computes it.
-template <bool RES>
-__device__ __forceinline__ uint4 bn_relu8(const bf16* __restrict__ y, const bf16* __restrict__ res,
-                                          const float* __restrict__ s,
-                                          const float* __restrict__ t, size_t off, int k) {
-  float a[8], r[8];
-  unpack8(ld16(y + off), a);
-  if (RES) unpack8(ld16(res + off), r);
-  const float4 s0 = __ldg(reinterpret_cast<const float4*>(s + k));
-  const float4 s1 = __ldg(reinterpret_cast<const float4*>(s + k + 4));
-  const float4 t0 = __ldg(reinterpret_cast<const float4*>(t + k));
-  const float4 t1 = __ldg(reinterpret_cast<const float4*>(t + k + 4));
-  const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-  const float tv[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float z = bn_pre(a[i], sv[i], tv[i]);
-    if (RES) z = __fadd_rn(z, r[i]);
-    a[i] = fmaxf(z, 0.f);
-  }
-  return pack8(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -175,8 +112,6 @@ constexpr int kFwdThreads = kFwdConsumerWarps * 32 + 128;
 constexpr int kFwdYBytes = kFwdBM * kFwdBK * 2;  // 16 KB, one SW128 block of 128 rows
 constexpr int kFwdWBytes = kFwdBK * kFwdBN * 2;  // 32 KB, four SW128 blocks of 64 rows
 constexpr int kFwdStageBytes = kFwdBM * kFwdBN * 2;  // 64 KB, two warpgroups' 64 x 256
-constexpr int kSmemLimit = 232448;  // what one CTA may opt in to on an H100
-
 // Bytes of dynamic shared memory for `stages` ring stages.
 __host__ __device__ constexpr int fwd_smem_bytes(int stages, bool res, int k_pad) {
   return 1024 + stages * (kFwdYBytes * (res ? 2 : 1) + kFwdWBytes) + kFwdStageBytes +
@@ -342,285 +277,461 @@ fwd_kernel(const __grid_constant__ CUtensorMap tm_y, const __grid_constant__ CUt
 }
 
 // ---------------------------------------------------------------------------
-// K2: gt = (g @ W^T) * [y*s + t (+ res) > 0], stored bf16; per-CTA column
-// sums of the f32 gt and of gt * x_hat into partial[M tile][2K].
+// K2: gt = (g @ W^T) * [y*s + t (+ res) > 0], stored bf16, and the column
+// sums of the f32 gt and of gt * x_hat.  g [M,N]; W [K,N]; y, res, gt [M,K].
+//
+// wgmma m64nBNk16 with A = the g tile (n, the reduction, contiguous: K-major,
+// from a shared-memory descriptor) and B = W's rows [k][n] (K-major too).
+// Persistent: one CTA per SM walks 128 x BN tiles of gt, the channel bands
+// of an M band first, so neighbouring CTAs read the same rows of g at the
+// same time and all but one of them find it in L2. The producer thread keeps
+// a ring of 64-deep stages full (a 128 x 64 g tile and a BN x 64 W tile) and,
+// once per tile, loads the y tile (and res tile) of the output tile into an
+// epilogue buffer, after the first ring's worth of the tile's stages so the
+// previous tile's epilogue does not hold up the ring. The epilogue reads y
+// from that buffer, applies the ReLU mask with bn_pre's rounding, writes the
+// bf16 gt over y in place (the same thread reads and writes each element) and
+// TMA-stores it; the buffer goes back to the producer when the store has read
+// it. Each warp sums its 16 rows of each column (shuffles over the 8 row
+// groups of a lane quad), the 8 warps' sums are added in a fixed order
+// through shared memory, and each CTA adds them, tile by tile in walk order,
+// to its own [2K] row of partials in device memory: one row per CTA (at most
+// one per SM) for the fixed-order second pass.
 // ---------------------------------------------------------------------------
-constexpr int kDaBM = 128, kDaBN = 64;
+constexpr int kDaBM = 128;
+constexpr int kDaThreads = 8 * 32 + 128;
+constexpr int kDaABytes = kDaBM * 64 * 2;  // 16 KB: 128 rows x 64 columns of g
 
-template <bool RES>
-__global__ void __launch_bounds__(kThreads)
-bwd_da_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w, const bf16* __restrict__ y,
-              const bf16* __restrict__ res, const float* __restrict__ s,
+__host__ __device__ constexpr int da_epi_bytes(int bn, bool res) {
+  return kDaBM * bn * 2 * (res ? 2 : 1);  // the y tile, then the res tile
+}
+
+// Bytes of dynamic shared memory: alignment slack, the ring, the epilogue
+// buffer, the 8 warps' column sums, the barriers.
+__host__ __device__ constexpr int da_smem_bytes(int bn, bool res, int stages) {
+  return 1024 + stages * (kDaABytes + bn * 128) + da_epi_bytes(bn, res) + 8 * 2 * bn * 4 +
+         (2 * stages + 2) * 8;
+}
+
+// As many ring stages as fit, up to 6 (faster than 4 at the four stage
+// shapes: scripts/compare_torch_kernels.py). The ring needs two: a consumer
+// frees a slot only once the next stage's products are issued.
+int da_stages(int bn, bool res) {
+  return std::min(6, (kSmemLimit - da_smem_bytes(bn, res, 0)) / (kDaABytes + bn * 128 + 16));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_kmajor_ss(float (&d)[BN / 2], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  static_assert(BN == 64 || BN == 128, "K2 tiles are 64 or 128 channels wide");
+  if constexpr (BN == 64) {
+    wgmma_m64n64k16_ss<0>(d, a, b, scale_d);
+  } else {
+    wgmma_m64n128k16_ss<0>(d, a, b, scale_d);
+  }
+}
+
+template <int BN, bool RES>
+__global__ void __launch_bounds__(kDaThreads, 1)
+bwd_da_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_constant__ CUtensorMap tm_w,
+              const __grid_constant__ CUtensorMap tm_y, const __grid_constant__ CUtensorMap tm_res,
+              const __grid_constant__ CUtensorMap tm_gt, const float* __restrict__ s,
               const float* __restrict__ t, const float* __restrict__ mean,
-              const float* __restrict__ inv, bf16* __restrict__ gt, float* __restrict__ partial,
-              int M, int K, int N) {
-  constexpr int BM = kDaBM, BN = kDaBN, WM = 32, WN = 32, MI = WM / 16, NI = WN / 8;
-  constexpr int WARPS_M = BM / WM;  // 4 x 2 warps
-  constexpr int LDA = kBK + kPad, LDB = kBK + kPad;
-  __shared__ __align__(16) bf16 As[BM * LDA];  // g tile [m][n]
-  __shared__ __align__(16) bf16 Bs[BN * LDB];  // W tile [k][n]: the B operand W^T, column-major
-  __shared__ float red[2][WARPS_M][BN];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int k0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+              const float* __restrict__ inv, float* __restrict__ partial, int M, int K, int N,
+              int stages) {
+  constexpr int kStage = kDaABytes + BN * 128;
+  constexpr int kYBytes = kDaBM * BN * 2;  // the y tile: BN / 64 SW128 blocks of 128 rows
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  const uint32_t s_ring = smem_u32(smem);
+  const uint32_t s_epi = s_ring + stages * kStage;
+  float* red = reinterpret_cast<float*>(smem + stages * kStage + da_epi_bytes(BN, RES));
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 8 * 2 * BN);
+  uint64_t* empty = full + stages;
+  uint64_t* epi_full = empty + stages;
+  uint64_t* epi_empty = epi_full + 1;
+  const int tiles_k = (K + BN - 1) / BN;
+  const int tiles = (M + kDaBM - 1) / kDaBM * tiles_k;
+  const int n_kb = (N + 63) / 64;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
-
-  uint4 ra[2], rb;
-  auto load = [&](int nr0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * kThreads, r = v >> 2, c = (v & 3) * 8;
-      const int gm = m0 + r, gn = nr0 + c;
-      ra[i] = (gm < M && gn < N) ? ld16(g + static_cast<size_t>(gm) * N + gn) : zero;
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
     }
-    const int r = tid >> 2, c = (tid & 3) * 8;
-    const int gk = k0 + r, gn = nr0 + c;
-    rb = (gk < K && gn < N) ? ld16(w + static_cast<size_t>(gk) * N + gn) : zero;
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * kThreads;
-      *reinterpret_cast<uint4*>(&As[(v >> 2) * LDA + (v & 3) * 8]) = ra[i];
-    }
-    *reinterpret_cast<uint4*>(&Bs[(tid >> 2) * LDB + (tid & 3) * 8]) = rb;
-  };
-
-  const int n_k = (N + kBK - 1) / kBK;
-  load(0);
-  for (int kt = 0; kt < n_k; ++kt) {
-    store();
-    __syncthreads();
-    if (kt + 1 < n_k) load((kt + 1) * kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        ldsm_x4(af[mi], &As[(wm * WM + mi * 16 + (lane & 15)) * LDA + kk + (lane >> 4) * 8]);
-#pragma unroll
-      for (int j = 0; j < NI / 2; ++j) {
-        uint32_t bfr[4];
-        ldsm_x4(bfr, &Bs[(wn * WN + j * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDB + kk +
-                         ((lane >> 3) & 1) * 8]);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          mma_16816(acc[mi][2 * j], af[mi], bfr[0], bfr[1]);
-          mma_16816(acc[mi][2 * j + 1], af[mi], bfr[2], bfr[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: ReLU mask, store, and the column sums of the f32 gt.
-  const int gr = lane >> 2, tq = lane & 3;
-  float cs_g[NI][2], cs_gx[NI][2];
-#pragma unroll
-  for (int ni = 0; ni < NI; ++ni) cs_g[ni][0] = cs_g[ni][1] = cs_gx[ni][0] = cs_gx[ni][1] = 0.f;
-#pragma unroll
-  for (int ni = 0; ni < NI; ++ni) {
-    const int col = k0 + wn * WN + ni * 8 + tq * 2;
-    if (col >= K) continue;
-    const float2 sc = *reinterpret_cast<const float2*>(s + col);
-    const float2 tc = *reinterpret_cast<const float2*>(t + col);
-    const float2 mc = *reinterpret_cast<const float2*>(mean + col);
-    const float2 ic = *reinterpret_cast<const float2*>(inv + col);
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * WM + mi * 16 + gr + half * 8;
-        if (row >= M) continue;
-        const size_t off = static_cast<size_t>(row) * K + col;
-        const float2 yv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(y + off));
-        float z0 = bn_pre(yv.x, sc.x, tc.x), z1 = bn_pre(yv.y, sc.y, tc.y);
-        if (RES) {
-          const float2 rv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res + off));
-          z0 = __fadd_rn(z0, rv.x);
-          z1 = __fadd_rn(z1, rv.y);
-        }
-        const float g0 = z0 > 0.f ? acc[mi][ni][2 * half] : 0.f;
-        const float g1 = z1 > 0.f ? acc[mi][ni][2 * half + 1] : 0.f;
-        *reinterpret_cast<uint32_t*>(gt + off) = pack2(g0, g1);
-        cs_g[ni][0] += g0;
-        cs_g[ni][1] += g1;
-        cs_gx[ni][0] += g0 * ((yv.x - mc.x) * ic.x);
-        cs_gx[ni][1] += g1 * ((yv.y - mc.y) * ic.y);
-      }
-    }
-  }
-  // Sum over the 8 row groups of the warp (lane bits 2..4), then over the
-  // warps of the CTA's rows, each in a fixed order.
-#pragma unroll
-  for (int ni = 0; ni < NI; ++ni) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        cs_g[ni][e] += __shfl_xor_sync(0xffffffffu, cs_g[ni][e], off);
-        cs_gx[ni][e] += __shfl_xor_sync(0xffffffffu, cs_gx[ni][e], off);
-      }
-    }
-  }
-  if (gr == 0) {
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = wn * WN + ni * 8 + tq * 2 + e;
-        red[0][wm][c] = cs_g[ni][e];
-        red[1][wm][c] = cs_gx[ni][e];
-      }
-    }
+    mbar_init(epi_full, 1);
+    mbar_init(epi_empty, 1);
+    mbar_fence_init();
   }
   __syncthreads();
-  if (tid < 2 * BN) {
-    const int which = tid / BN, c = tid % BN, col = k0 + c;
-    if (col < K) {
-      float v = 0.f;
-#pragma unroll
-      for (int i = 0; i < WARPS_M; ++i) v += red[which][i][c];
-      partial[static_cast<size_t>(blockIdx.y) * 2 * K + which * K + col] = v;
-    }
-  }
-}
 
-// ---------------------------------------------------------------------------
-// K3: partial[z] = sum over M chunk z of bf16(relu(y*s + t [+ res]))^T @ g,
-// a [K,N] f32 slab per chunk.
-// ---------------------------------------------------------------------------
-constexpr int kDwBM = 64, kDwBN = 128;
-
-template <bool RES>
-__global__ void __launch_bounds__(kThreads)
-bwd_dw_kernel(const bf16* __restrict__ y, const bf16* __restrict__ res, const float* __restrict__ s,
-              const float* __restrict__ t, const bf16* __restrict__ g,
-              float* __restrict__ partial, int M, int K, int N, int chunk) {
-  constexpr int BM = kDwBM, BN = kDwBN, WM = 32, WN = 32, MI = WM / 16, NI = WN / 8;
-  constexpr int LDA = BM + kPad, LDB = BN + kPad;
-  __shared__ __align__(16) bf16 As[kBK * LDA];  // a tile [m][k]: the A operand a^T, read transposed
-  __shared__ __align__(16) bf16 Bs[kBK * LDB];  // g tile [m][n]
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 32 x 32
-  const int n0 = blockIdx.x * BN, k0 = blockIdx.y * BM;
-  const int m_begin = blockIdx.z * chunk;
-  const int m_end = min(M, m_begin + chunk);
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
-
-  uint4 ra, rb[2];
-  auto load = [&](int mr0) {
-    {
-      const int r = tid >> 3, c = (tid & 7) * 8;
-      const int gm = mr0 + r, gk = k0 + c;
-      ra = (gm < m_end && gk < K) ? bn_relu8<RES>(y, res, s, t, static_cast<size_t>(gm) * K + gk, gk)
-                                  : zero;
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * kThreads, r = v >> 4, c = (v & 15) * 8;
-      const int gm = mr0 + r, gn = n0 + c;
-      rb[i] = (gm < m_end && gn < N) ? ld16(g + static_cast<size_t>(gm) * N + gn) : zero;
-    }
-  };
-  auto store = [&]() {
-    *reinterpret_cast<uint4*>(&As[(tid >> 3) * LDA + (tid & 7) * 8]) = ra;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * kThreads;
-      *reinterpret_cast<uint4*>(&Bs[(v >> 4) * LDB + (v & 15) * 8]) = rb[i];
-    }
-  };
-
-  const int n_m = m_end > m_begin ? (m_end - m_begin + kBK - 1) / kBK : 0;
-  if (n_m > 0) load(m_begin);
-  for (int mt = 0; mt < n_m; ++mt) {
-    store();
-    __syncthreads();
-    if (mt + 1 < n_m) load(m_begin + (mt + 1) * kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        ldsm_x4_t(af[mi], &As[(kk + (lane & 7) + ((lane >> 4) << 3)) * LDA + wm * WM + mi * 16 +
-                              ((lane >> 3) & 1) * 8]);
-#pragma unroll
-      for (int j = 0; j < NI / 2; ++j) {
-        uint32_t bfr[4];
-        ldsm_x4_t(bfr, &Bs[(kk + (lane & 15)) * LDB + wn * WN + j * 16 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          mma_16816(acc[mi][2 * j], af[mi], bfr[0], bfr[1]);
-          mma_16816(acc[mi][2 * j + 1], af[mi], bfr[2], bfr[3]);
+  if (warp >= 8) {
+    // Producer: one thread issues every TMA load of this CTA's tiles.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 8 && lane == 0) {
+      const int pre = min(stages, n_kb);
+      int it = 0, lt = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++lt) {
+        const int m0 = (tile / tiles_k) * kDaBM, k0 = (tile % tiles_k) * BN;
+        const int y_blocks = min(BN / 64, (K - k0 + 63) / 64);  // blocks wholly past K stay out
+        for (int kb = 0; kb < n_kb; ++kb, ++it) {
+          const int st = it % stages;
+          mbar_wait(&empty[st], ((it / stages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[st], kStage);
+          const uint32_t base = s_ring + st * kStage;
+          tma_load_2d(base, &tm_g, &full[st], kb * 64, m0);
+          tma_load_2d(base + kDaABytes, &tm_w, &full[st], kb * 64, k0);
+          if (kb == pre - 1) {
+            mbar_wait(epi_empty, (lt & 1) ^ 1);
+            mbar_arrive_expect_tx(epi_full, y_blocks * 16384 * (RES ? 2 : 1));
+            for (int b = 0; b < y_blocks; ++b) {
+              tma_load_2d(s_epi + b * 16384, &tm_y, epi_full, k0 + b * 64, m0);
+              if (RES) tma_load_2d(s_epi + kYBytes + b * 16384, &tm_res, epi_full, k0 + b * 64, m0);
+            }
+          }
         }
       }
     }
-    __syncthreads();
+    return;
   }
 
-  float* slab = partial + static_cast<size_t>(blockIdx.z) * K * N;
-  const int gr = lane >> 2, tq = lane & 3;
+  // Consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp / 4, wl = warp % 4;
+  const int g = lane >> 2, tq = lane & 3;
+  // This CTA's row of partials: (sum_g, sum_gx) of column k at [k], [K + k].
+  // Entry (which, k) is always added to by thread (which * BN + k % BN) % 256,
+  // which zeroes it here: each entry is one thread's, in walk order.
+  float* part = partial + static_cast<size_t>(blockIdx.x) * 2 * K;
+  for (int band = 0; band < tiles_k; ++band)
+    for (int idx = tid; idx < 2 * BN; idx += 256) {
+      const int k = band * BN + idx % BN;
+      if (k < K) part[(idx / BN) * K + k] = 0.f;
+    }
+  float* red_w = red + warp * 2 * BN;  // this warp's [sum_g | sum_gx] of the tile's columns
+  float acc[BN / 2];
+  int it = 0, lt = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++lt) {
+    const int m0 = (tile / tiles_k) * kDaBM, k0 = (tile % tiles_k) * BN;
+    int prev = 0;
+    for (int kb = 0; kb < n_kb; ++kb, ++it) {
+      const int st = it % stages;
+      mbar_wait(&full[st], (it / stages) & 1);
+      const uint32_t base = s_ring + st * kStage;
+      wgmma_fence();
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_kmajor_ss<BN>(acc, sw128_desc(base + wg * 8192 + ks * 32, 16, 1024),
+                            sw128_desc(base + kDaABytes + ks * 32, 16, 1024), (kb | ks) != 0);
+      wgmma_commit();
+      if (kb > 0) {  // the previous stage's products are done: its slot is free
+        wgmma_wait<1>();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = st;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    // Epilogue: the mask from the y tile, gt over y in place, column sums.
+    mbar_wait(epi_full, lt & 1);
+    const int r0 = wg * 64 + wl * 16 + g;
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const int col = n0 + wn * WN + ni * 8 + tq * 2;
-      if (col >= N) continue;
+    for (int i = 0; i < BN / 8; ++i) {
+      const int c = k0 + 8 * i + 2 * tq;
+      float2 sc = make_float2(0.f, 0.f), tc = sc, mc = sc, ic = sc;
+      if (c < K) {
+        sc = *reinterpret_cast<const float2*>(s + c);
+        tc = *reinterpret_cast<const float2*>(t + c);
+        mc = *reinterpret_cast<const float2*>(mean + c);
+        ic = *reinterpret_cast<const float2*>(inv + c);
+      }
+      float pg0 = 0.f, pg1 = 0.f, px0 = 0.f, px1 = 0.f;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int row = k0 + wm * WM + mi * 16 + gr + half * 8;
-        if (row < K) {
-          *reinterpret_cast<float2*>(slab + static_cast<size_t>(row) * N + col) =
-              make_float2(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
+        const uint32_t addr = s_epi + (i / 8) * 16384 + sw128(r0 + 8 * half, i % 8) + tq * 4;
+        uint32_t yv;
+        asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(yv) : "r"(addr));
+        const float2 yf = unpack2(yv);
+        float z0 = bn_pre(yf.x, sc.x, tc.x), z1 = bn_pre(yf.y, sc.y, tc.y);
+        if (RES) {
+          uint32_t rv;
+          asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(rv) : "r"(addr + kYBytes));
+          const float2 rf = unpack2(rv);
+          z0 = __fadd_rn(z0, rf.x);
+          z1 = __fadd_rn(z1, rf.y);
         }
+        const float g0 = z0 > 0.f ? acc[4 * i + 2 * half] : 0.f;
+        const float g1 = z1 > 0.f ? acc[4 * i + 2 * half + 1] : 0.f;
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(pack2(g0, g1)));
+        pg0 += g0;
+        pg1 += g1;
+        px0 += g0 * ((yf.x - mc.x) * ic.x);
+        px1 += g1 * ((yf.y - mc.y) * ic.y);
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        pg0 += __shfl_xor_sync(0xffffffffu, pg0, off);
+        pg1 += __shfl_xor_sync(0xffffffffu, pg1, off);
+        px0 += __shfl_xor_sync(0xffffffffu, px0, off);
+        px1 += __shfl_xor_sync(0xffffffffu, px1, off);
+      }
+      if (g == 0) {
+        *reinterpret_cast<float2*>(red_w + 8 * i + 2 * tq) = make_float2(pg0, pg1);
+        *reinterpret_cast<float2*>(red_w + BN + 8 * i + 2 * tq) = make_float2(px0, px1);
       }
     }
+    fence_proxy_async();  // gt in shared memory, visible to the TMA store
+    named_bar_sync(1, 256);
+    if (tid == 0) {
+      for (int b = 0; b < BN / 64; ++b)
+        if (k0 + b * 64 < K) tma_store_2d(&tm_gt, s_epi + b * 16384, k0 + b * 64, m0);
+      bulk_commit();
+      bulk_wait_read<0>();  // the store has read the buffer: the next y tile may land
+      mbar_arrive(epi_empty);
+    }
+    for (int idx = tid; idx < 2 * BN; idx += 256) {
+      const int which = idx / BN, c = idx % BN, k = k0 + c;
+      if (k < K) {
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) v += red[(w * 2 + which) * BN + c];
+        part[which * K + k] += v;
+      }
+    }
+    named_bar_sync(1, 256);  // the column sums are read: the next tile may write them
+  }
+  if (tid == 0) bulk_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// K3: partial[z] = sum over run z of M of bf16(relu(y*s + t [+ res]))^T @ g,
+// a [K,N] f32 slab per run.  y, res [M,K]; g [M,N].
+//
+// wgmma m64n256k16 with dW's rows (the channels k) as its M dimension, 64 per
+// consumer warpgroup, N as its N dimension and the rows m of the batch as the
+// reduction. One work item per CTA: one output tile (128 channels x 256
+// columns, or 64 x 256: tile_k) summed over one run of M, the runs a
+// multiple of the ring's 64 rows so no stage crosses into the next run (TMA
+// zero-fills only at the tensor's edge). The plan (ops/fused_matmul.py,
+// dw_plan) splits M so that the grid fills the SMs once. The producer thread
+// keeps a ring of stages full: the y tile (and res tile) of 64 rows x the
+// tile's channels and the g tile of 64 rows x 256 columns. The A operand
+// a^T comes from the y tile by a transposed ldmatrix, the BN prologue is
+// applied in registers (each lane's fragment covers two channels: their s
+// and t are four registers), and g is the MN-major B operand, as W is K1's.
+// With 64-channel tiles (ALT) the two warpgroups share the one tile and take
+// alternate stages; warpgroup 1's sums then pass through shared memory and
+// warpgroup 0 adds them to its own, in that order. Rows past M add nothing
+// only because g's zero-filled rows multiply them (relu(0*s + t) is not 0).
+// ---------------------------------------------------------------------------
+constexpr int kDwBM = 64, kDwBN = 256;  // rows of M per stage; output tile width
+constexpr int kDwThreads = 8 * 32 + 128;
+constexpr int kDwBox = kDwBM * 64 * 2;  // 8 KB: 64 rows x 64 columns, one SW128 block
+constexpr int kDwGBytes = kDwBM * kDwBN * 2;  // 32 KB
+
+__host__ __device__ constexpr int dw_y_bytes(bool alt, bool res) {
+  return kDwBox * (alt ? 1 : 2) * (res ? 2 : 1);
+}
+
+__host__ __device__ constexpr int dw_smem_bytes(bool alt, bool res, int stages) {
+  return 1024 + stages * (dw_y_bytes(alt, res) + kDwGBytes + 16);
+}
+
+// As many ring stages as fit, up to 4; an even number when the warpgroups
+// take alternate stages, so each keeps its own slots.
+int dw_stages(bool alt, bool res) {
+  const int n = std::min(4, (kSmemLimit - 1024) / (dw_y_bytes(alt, res) + kDwGBytes + 16));
+  return alt ? n & ~1 : n;
+}
+
+template <bool RES, bool ALT>
+__global__ void __launch_bounds__(kDwThreads, 1)
+bwd_dw_kernel(const __grid_constant__ CUtensorMap tm_y, const __grid_constant__ CUtensorMap tm_res,
+              const __grid_constant__ CUtensorMap tm_g, const float* __restrict__ s,
+              const float* __restrict__ t, float* __restrict__ partial, int M, int K, int N,
+              int chunk, int stages) {
+  constexpr int kTileK = ALT ? 64 : 128;
+  constexpr int kYHalf = kDwBox * (ALT ? 1 : 2);  // the y blocks; the res blocks follow
+  constexpr int kYStage = dw_y_bytes(ALT, RES);
+  constexpr int kStage = kYStage + kDwGBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  const uint32_t s_ring = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * kStage);
+  uint64_t* empty = full + stages;
+  // Work item blockIdx.x: run z of output tile `tile`; the tiles of one run
+  // are neighbours, so CTAs that run together read the same rows of y and g.
+  const int tiles_k = (K + kTileK - 1) / kTileK;
+  const int tiles = tiles_k * ((N + kDwBN - 1) / kDwBN);
+  const int z = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int k0 = (tile % tiles_k) * kTileK, n0 = (tile / tiles_k) * kDwBN;
+  const int m_begin = z * chunk;
+  const int n_st = max(0, (min(M, m_begin + chunk) - m_begin + kDwBM - 1) / kDwBM);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], ALT ? 4 : 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 8 && lane == 0) {
+      // Blocks wholly past K or N stay out: the rows of dW and the columns
+      // they would feed are never stored, and no other depends on them.
+      const int y_boxes = ALT ? 1 : (k0 + 64 < K ? 2 : 1);
+      const int g_boxes = min(4, (N - n0 + 63) / 64);
+      const uint32_t bytes = (y_boxes * (RES ? 2 : 1) + g_boxes) * kDwBox;
+      for (int j = 0; j < n_st; ++j) {
+        const int st = j % stages, m = m_begin + j * kDwBM;
+        mbar_wait(&empty[st], ((j / stages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], bytes);
+        const uint32_t base = s_ring + st * kStage;
+        for (int b = 0; b < y_boxes; ++b) {
+          tma_load_2d(base + b * kDwBox, &tm_y, &full[st], k0 + b * 64, m);
+          if (RES) tma_load_2d(base + kYHalf + b * kDwBox, &tm_res, &full[st], k0 + b * 64, m);
+        }
+        for (int b = 0; b < g_boxes; ++b)
+          tma_load_2d(base + kYStage + b * 8192, &tm_g, &full[st], n0 + b * 64, m);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp / 4, wt = tid % 128, wl = warp % 4;
+  const int g = lane >> 2, tq = lane & 3;
+  // The lane's A fragment: channels c_lo (rows g of its warp's 16) and
+  // c_lo + 8; s and t zero past K, so the padded a is 0.
+  const int c_lo = k0 + (ALT ? 0 : wg * 64) + wl * 16 + g, c_hi = c_lo + 8;
+  const float s_lo = c_lo < K ? s[c_lo] : 0.f, t_lo = c_lo < K ? t[c_lo] : 0.f;
+  const float s_hi = c_hi < K ? s[c_hi] : 0.f, t_hi = c_hi < K ? t[c_hi] : 0.f;
+  const float2 sl = make_float2(s_lo, s_lo), tl = make_float2(t_lo, t_lo);
+  const float2 sh = make_float2(s_hi, s_hi), th = make_float2(t_hi, t_hi);
+  // Transposed ldmatrix: lane l gives row l % 8 of matrix l / 8. Matrices 0
+  // and 1 hold rows 0-7 of the 16-row step, 2 and 3 rows 8-15; 0 and 2 the
+  // warp's channels [16 wl, 16 wl + 8), 1 and 3 the next 8. Transposed, they
+  // are the a0..a3 registers of the m64k16 A fragment of a^T.
+  const int l_row = ((lane >> 4) << 3) + (lane & 7), l_chunk = wl * 2 + ((lane >> 3) & 1);
+  const uint32_t y_off = ALT ? 0u : static_cast<uint32_t>(wg * kDwBox);
+  float acc[kDwBN / 2];
+#pragma unroll
+  for (int i = 0; i < kDwBN / 2; ++i) acc[i] = 0.f;
+  for (int j = ALT ? wg : 0; j < n_st; j += ALT ? 2 : 1) {
+    const int st = j % stages;
+    mbar_wait(&full[st], (j / stages) & 1);
+    const uint32_t base = s_ring + st * kStage;
+    uint32_t a[2][4];
+#pragma unroll
+    for (int ks = 0; ks < kDwBM / 16; ++ks) {
+      const uint32_t off = y_off + sw128(ks * 16 + l_row, l_chunk);
+      uint32_t yv[4];
+      ldsm_x4_trans(yv, base + off);
+      uint32_t(&av)[4] = a[ks & 1];
+      if (RES) {
+        uint32_t rv[4];
+        ldsm_x4_trans(rv, base + kYHalf + off);
+        av[0] = bn_relu2(yv[0], sl, tl, rv[0]);
+        av[1] = bn_relu2(yv[1], sh, th, rv[1]);
+        av[2] = bn_relu2(yv[2], sl, tl, rv[2]);
+        av[3] = bn_relu2(yv[3], sh, th, rv[3]);
+      } else {
+        av[0] = bn_relu2(yv[0], sl, tl);
+        av[1] = bn_relu2(yv[1], sh, th);
+        av[2] = bn_relu2(yv[2], sl, tl);
+        av[3] = bn_relu2(yv[3], sh, th);
+      }
+      wgmma_fence();
+      wgmma_m64n256k16_rs<1>(acc, av, sw128_desc(base + kYStage + ks * 2048, 8192, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the product before this one is done: its A buffer is free
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  if (ALT) {
+    // Both warpgroups are done with the ring; it now carries warpgroup 1's
+    // sums to warpgroup 0.
+    float* xfer = reinterpret_cast<float*>(smem);
+    named_bar_sync(1, 256);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < kDwBN / 2; ++i) xfer[i * 128 + wt] = acc[i];
+    }
+    named_bar_sync(1, 256);
+    if (wg == 1) return;
+#pragma unroll
+    for (int i = 0; i < kDwBN / 2; ++i) acc[i] += xfer[i * 128 + wt];
+  }
+  float* slab = partial + static_cast<size_t>(z) * K * N;
+  const int row = k0 + (ALT ? 0 : wg * 64) + wl * 16 + g;
+#pragma unroll
+  for (int i = 0; i < kDwBN / 8; ++i) {
+    const int col = n0 + 8 * i + 2 * tq;
+    if (col >= N) continue;
+    if (row < K)
+      *reinterpret_cast<float2*>(slab + static_cast<size_t>(row) * N + col) =
+          make_float2(acc[4 * i], acc[4 * i + 1]);
+    if (row + 8 < K)
+      *reinterpret_cast<float2*>(slab + static_cast<size_t>(row + 8) * N + col) =
+          make_float2(acc[4 * i + 2], acc[4 * i + 3]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// The second pass of K2 and K3: out[c] = sum_r part[r, c], in a fixed order
-// (row group rg adds rows rg, rg + 16, ... in turn; the 16 groups are added
-// in index order), so the result does not depend on how blocks were run.
+// The second pass of K2 and K3: out[c] = sum_r part[r, c] in a fixed order,
+// so the result does not depend on how blocks were run. Row group rg of G
+// adds rows rg, rg + G, ... in turn and the groups are added in index order;
+// G = 1 (each thread adds its column's rows in turn) below 32 rows, where
+// most of the 16 row groups would idle: K3 at stages 3-4 took 14% and 42%
+// less time with it, and from 32 rows it is the slower form (PERF.md).
 // ---------------------------------------------------------------------------
-constexpr int kRedCols = 32, kRedGroups = 16;
-
-__global__ void __launch_bounds__(kRedCols * kRedGroups)
+template <int COLS, int G>
+__global__ void __launch_bounds__(COLS * G)
 sum_rows_kernel(const float* __restrict__ part, float* __restrict__ out, int rows, long long cols) {
-  __shared__ float sh[kRedGroups][kRedCols];
-  const int lane = threadIdx.x % kRedCols, rg = threadIdx.x / kRedCols;
-  const long long c = static_cast<long long>(blockIdx.x) * kRedCols + lane;
+  __shared__ float sh[G][COLS];
+  const int lane = threadIdx.x % COLS, rg = threadIdx.x / COLS;
+  const long long c = static_cast<long long>(blockIdx.x) * COLS + lane;
   float acc = 0.f;
   if (c < cols) {
-    for (int r = rg; r < rows; r += kRedGroups) acc += part[static_cast<long long>(r) * cols + c];
+    for (int r = rg; r < rows; r += G) acc += part[static_cast<long long>(r) * cols + c];
+  }
+  if (G == 1) {
+    if (c < cols) out[c] = acc;
+    return;
   }
   sh[rg][lane] = acc;
   __syncthreads();
   if (rg == 0 && c < cols) {
     float v = 0.f;
 #pragma unroll
-    for (int i = 0; i < kRedGroups; ++i) v += sh[i][lane];
+    for (int i = 0; i < G; ++i) v += sh[i][lane];
     out[c] = v;
   }
 }
 
 int sum_rows(const float* part, float* out, int rows, long long cols, cudaStream_t st) {
-  const long long blocks = (cols + kRedCols - 1) / kRedCols;
-  sum_rows_kernel<<<static_cast<unsigned>(blocks), kRedCols * kRedGroups, 0, st>>>(part, out, rows,
-                                                                                  cols);
+  if (rows < 32) {
+    const long long blocks = (cols + 255) / 256;
+    sum_rows_kernel<256, 1><<<static_cast<unsigned>(blocks), 256, 0, st>>>(part, out, rows, cols);
+  } else {
+    const long long blocks = (cols + 31) / 32;
+    sum_rows_kernel<32, 16><<<static_cast<unsigned>(blocks), 512, 0, st>>>(part, out, rows, cols);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -709,56 +820,112 @@ extern "C" int dsst_bn_relu_matmul_fwd_smem_bytes(int K, int with_res) {
   return stages < 2 ? -1 : fwd_smem_bytes(stages, with_res, k_pad);
 }
 
-// K2. gt [M,K] bf16; partial [ceil(M/128), 2K] f32 scratch; sums [2K] f32
-// (sum_g, then sum_gx).
+// K2. gt [M,K] bf16; bn the tile width, 64 or 128 (the wrapper's da_tile_n
+// decides); partial [min(tiles, sm_count), 2K] f32 scratch, one row per CTA;
+// sums [2K] f32 (sum_g, then sum_gx).
 extern "C" int dsst_bn_relu_matmul_bwd_da(const void* g, const void* w, const void* y,
                                           const void* res, const void* s, const void* t,
                                           const void* mean, const void* inv, void* gt,
-                                          void* partial, void* sums, int M, int K, int N,
-                                          void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles_m = (M + kDaBM - 1) / kDaBM;
-  const dim3 grid((K + kDaBN - 1) / kDaBN, tiles_m);
-  const auto* gp = static_cast<const bf16*>(g);
-  const auto* wp = static_cast<const bf16*>(w);
-  const auto* yp = static_cast<const bf16*>(y);
-  const auto* rp = static_cast<const bf16*>(res);
+                                          void* partial, void* sums, int M, int K, int N, int bn,
+                                          int sm_count, void* stream) {
+  const bool with_res = res != nullptr;
+  if (bn != 64 && bn != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const int stages = da_stages(bn, with_res);
+  CUtensorMap tm_g, tm_w, tm_y, tm_res, tm_gt;
+  int rc = make_map(&tm_g, g, N, M, 64, kDaBM);
+  if (rc == 0) rc = make_map(&tm_w, w, N, K, 64, bn);
+  if (rc == 0) rc = make_map(&tm_y, y, K, M, 64, kDaBM);
+  if (rc == 0) rc = make_map(&tm_res, with_res ? res : y, K, M, 64, kDaBM);
+  if (rc == 0) rc = make_map(&tm_gt, gt, K, M, 64, kDaBM);
+  if (rc != 0) return rc;
+  const int tiles = (M + kDaBM - 1) / kDaBM * ((K + bn - 1) / bn);
+  const int grid = std::min(tiles, sm_count);
+  const int bytes = da_smem_bytes(bn, with_res, stages);
   const auto* sp = static_cast<const float*>(s);
   const auto* tp = static_cast<const float*>(t);
   const auto* mp = static_cast<const float*>(mean);
   const auto* ip = static_cast<const float*>(inv);
-  auto* gtp = static_cast<bf16*>(gt);
   auto* pp = static_cast<float*>(partial);
-  if (res != nullptr) {
-    bwd_da_kernel<true><<<grid, kThreads, 0, st>>>(gp, wp, yp, rp, sp, tp, mp, ip, gtp, pp, M, K, N);
-  } else {
-    bwd_da_kernel<false><<<grid, kThreads, 0, st>>>(gp, wp, yp, rp, sp, tp, mp, ip, gtp, pp, M, K, N);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  decltype(&bwd_da_kernel<64, false>) kernel;
+  const int variant = (bn == 128) * 2 + with_res;
+  switch (variant) {
+    case 0: kernel = bwd_da_kernel<64, false>; break;
+    case 1: kernel = bwd_da_kernel<64, true>; break;
+    case 2: kernel = bwd_da_kernel<128, false>; break;
+    default: kernel = bwd_da_kernel<128, true>; break;
   }
-  const int rc = static_cast<int>(cudaGetLastError());
+  static bool configured[4] = {};  // more than 48 KB needs the opt-in
+  if (!configured[variant]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured[variant] = true;
+  }
+  kernel<<<grid, kDaThreads, bytes, st>>>(tm_g, tm_w, tm_y, tm_res, tm_gt, sp, tp, mp, ip, pp, M,
+                                          K, N, stages);
+  rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  return sum_rows(pp, static_cast<float*>(sums), tiles_m, 2LL * K, st);
+  return sum_rows(pp, static_cast<float*>(sums), grid, 2LL * K, st);
 }
 
-// K3. partial [splits, K, N] f32 scratch, chunk rows of M per split
-// (splits = ceil(M / chunk)); dw [K,N] f32.
+// Dynamic shared memory of one K2 CTA of tile width bn (-1: no such tile).
+extern "C" int dsst_bn_relu_matmul_bwd_da_smem_bytes(int bn, int with_res) {
+  if (bn != 64 && bn != 128) return -1;
+  return da_smem_bytes(bn, with_res, da_stages(bn, with_res));
+}
+
+// K3. tile_k the output tile's channels, 64 (the two warpgroups on
+// alternate stages) or 128 (the wrapper's dw_tile_k decides); partial
+// [splits, K, N] f32 scratch, chunk rows of M per split (a multiple of 64;
+// splits = ceil(M / chunk)), one CTA per output tile and split; dw [K,N] f32.
 extern "C" int dsst_bn_relu_matmul_bwd_dw(const void* y, const void* res, const void* s,
                                           const void* t, const void* g, void* partial, void* dw,
-                                          int M, int K, int N, int splits, int chunk,
+                                          int M, int K, int N, int tile_k, int splits, int chunk,
                                           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kDwBN - 1) / kDwBN, (K + kDwBM - 1) / kDwBM, splits);
-  const auto* yp = static_cast<const bf16*>(y);
-  const auto* rp = static_cast<const bf16*>(res);
+  const bool with_res = res != nullptr, alt = tile_k == 64;
+  if ((tile_k != 64 && tile_k != 128) || splits < 1 || chunk < 1 || chunk % kDwBM != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int stages = dw_stages(alt, with_res);
+  CUtensorMap tm_y, tm_res, tm_g;
+  int rc = make_map(&tm_y, y, K, M, 64, kDwBM);
+  if (rc == 0) rc = make_map(&tm_res, with_res ? res : y, K, M, 64, kDwBM);
+  if (rc == 0) rc = make_map(&tm_g, g, N, M, 64, kDwBM);
+  if (rc != 0) return rc;
+  const long long tiles =
+      static_cast<long long>((K + tile_k - 1) / tile_k) * ((N + kDwBN - 1) / kDwBN);
+  const long long grid = tiles * splits;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = dw_smem_bytes(alt, with_res, stages);
   const auto* sp = static_cast<const float*>(s);
   const auto* tp = static_cast<const float*>(t);
-  const auto* gp = static_cast<const bf16*>(g);
   auto* pp = static_cast<float*>(partial);
-  if (res != nullptr) {
-    bwd_dw_kernel<true><<<grid, kThreads, 0, st>>>(yp, rp, sp, tp, gp, pp, M, K, N, chunk);
-  } else {
-    bwd_dw_kernel<false><<<grid, kThreads, 0, st>>>(yp, rp, sp, tp, gp, pp, M, K, N, chunk);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int variant = alt * 2 + with_res;
+  decltype(&bwd_dw_kernel<false, false>) kernel;
+  switch (variant) {
+    case 0: kernel = bwd_dw_kernel<false, false>; break;
+    case 1: kernel = bwd_dw_kernel<true, false>; break;
+    case 2: kernel = bwd_dw_kernel<false, true>; break;
+    default: kernel = bwd_dw_kernel<true, true>; break;
   }
-  const int rc = static_cast<int>(cudaGetLastError());
+  static bool configured[4] = {};  // more than 48 KB needs the opt-in
+  if (!configured[variant]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured[variant] = true;
+  }
+  kernel<<<static_cast<unsigned>(grid), kDwThreads, bytes, st>>>(tm_y, tm_res, tm_g, sp, tp, pp, M,
+                                                                 K, N, chunk, stages);
+  rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   return sum_rows(pp, static_cast<float*>(dw), splits, static_cast<long long>(K) * N, st);
+}
+
+// Dynamic shared memory of one K3 CTA of tile_k channels (-1: no such tile).
+extern "C" int dsst_bn_relu_matmul_bwd_dw_smem_bytes(int tile_k, int with_res) {
+  if (tile_k != 64 && tile_k != 128) return -1;
+  const bool alt = tile_k == 64;
+  return dw_smem_bytes(alt, with_res, dw_stages(alt, with_res));
 }

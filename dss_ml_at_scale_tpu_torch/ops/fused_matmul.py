@@ -37,14 +37,18 @@ import math
 
 import torch
 
-# Tile constants of csrc/fused_matmul.cu that size the scratch the wrappers
-# allocate: K2 writes one row of channel sums per 128-row tile of M (kDaBM);
-# K3 splits M into chunks that are multiples of its reduction depth (kBK).
-# K1 walks 128 x 256 output tiles (kFwdBM, kFwdBN).
-_DA_TILE_M = 128
-_DW_TILE_K, _DW_TILE_N, _DW_DEPTH = 64, 128, 32
+# Tile constants of csrc/fused_matmul.cu that the plans below and the
+# scratch the wrappers allocate follow. K1 walks 128 x 256 output tiles
+# (kFwdBM, kFwdBN). K2 walks 128-row tiles of gt (kDaBM), ``da_tile_n``
+# channels wide, and writes one row of channel sums per CTA. K3 sums M in
+# runs that are multiples of its ring's 64 rows (kDwBM) for ``dw_tile_k``
+# x 256 tiles of dW (kDwBN). The tile widths are chosen here and passed to
+# the kernels, which take no other.
 _FWD_TILE_M, _FWD_TILE_N = 128, 256
-_MAX_GRID_Y = 65535
+_DA_TILE_M = 128
+_DW_TILE_N, _DW_DEPTH = 256, 64
+# TMA coordinates and the kernels' row indices are 32-bit signed integers.
+_MAX_ROWS = 2 ** 31 - 1
 
 _lib = None
 
@@ -97,8 +101,12 @@ def _kernel():
         lib.dsst_bn_relu_matmul_fwd.argtypes = [p] * 6 + [i] * 4 + [p]
         lib.dsst_bn_relu_matmul_fwd_smem_bytes.argtypes = [i, i]
         lib.dsst_bn_relu_matmul_fwd_smem_bytes.restype = i
-        lib.dsst_bn_relu_matmul_bwd_da.argtypes = [p] * 11 + [i] * 3 + [p]
-        lib.dsst_bn_relu_matmul_bwd_dw.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.dsst_bn_relu_matmul_bwd_da.argtypes = [p] * 11 + [i] * 5 + [p]
+        lib.dsst_bn_relu_matmul_bwd_dw.argtypes = [p] * 7 + [i] * 6 + [p]
+        lib.dsst_bn_relu_matmul_bwd_da_smem_bytes.argtypes = [i, i]
+        lib.dsst_bn_relu_matmul_bwd_dw_smem_bytes.argtypes = [i, i]
+        lib.dsst_bn_relu_matmul_bwd_da_smem_bytes.restype = i
+        lib.dsst_bn_relu_matmul_bwd_dw_smem_bytes.restype = i
         for fn in (lib.dsst_bn_relu_matmul_fwd, lib.dsst_bn_relu_matmul_bwd_da,
                    lib.dsst_bn_relu_matmul_bwd_dw):
             fn.restype = ctypes.c_int
@@ -110,7 +118,7 @@ def check_kernel_inputs(m: int, k: int, n: int, *, bf16=(), f32=(), shapes=()) -
     """Raise ``ValueError`` for what the kernels do not take: tensors on
     different devices, bf16 operands of another dtype, channel vectors
     other than f32, a wrong shape, strided or misaligned storage, K or N
-    not a multiple of 8, or more rows than the grid holds."""
+    not a multiple of 8, or more rows than 32-bit row indices hold."""
     tensors = [x for x in bf16 + f32 if x is not None]
     devices = {x.device for x in tensors}
     if len(devices) != 1:
@@ -131,8 +139,8 @@ def check_kernel_inputs(m: int, k: int, n: int, *, bf16=(), f32=(), shapes=()) -
             raise ValueError("fused matmul kernels need 16-byte aligned storage")
     if k % 8 or n % 8:
         raise ValueError(f"fused matmul kernels need K and N multiples of 8, got K={k}, N={n}")
-    if m < 1 or (m + _DA_TILE_M - 1) // _DA_TILE_M > _MAX_GRID_Y:
-        raise ValueError(f"fused matmul kernels take 1..{_MAX_GRID_Y * _DA_TILE_M} rows, got {m}")
+    if not 1 <= m <= _MAX_ROWS:
+        raise ValueError(f"fused matmul kernels take 1..{_MAX_ROWS} rows, got {m}")
 
 
 def _ptr(x):
@@ -190,9 +198,30 @@ def bn_relu_matmul_fwd(y2, s, t, w, res=None) -> torch.Tensor:
     return out
 
 
+def da_tile_n(k: int) -> int:
+    """K2's tile width, the wgmma N dimension: 64 channels at K <= 64, else
+    128 (256-wide tiles ran slower at stages 3-4: PERF.md)."""
+    return 64 if k <= 64 else 128
+
+
+def da_tile_walk(m: int, k: int, bn: int, sm_count: int) -> list[list[tuple[int, int]]]:
+    """K2's persistent walk: for each of its ``min(tiles, sm_count)`` CTAs,
+    the ``(row, channel)`` origins of the 128 x ``bn`` tiles of gt it
+    computes, in order. Tile ``i`` is channel band ``i % tiles_k`` of row
+    tile ``i // tiles_k`` (the bands of an M band first), and CTA ``c`` takes
+    tiles ``c, c + grid, ...``, as the kernel does. It is a fixed function of
+    its arguments, so each CTA's row of channel sums is added in the same
+    order on every run."""
+    tiles_k = -(-k // bn)
+    tiles = -(-m // _DA_TILE_M) * tiles_k
+    grid = min(tiles, sm_count)
+    return [[((i // tiles_k) * _DA_TILE_M, (i % tiles_k) * bn) for i in range(c, tiles, grid)]
+            for c in range(grid)]
+
+
 def bn_relu_matmul_bwd_da(g, w, y2, s, t, mean, inv, res=None):
-    """K2 on the card (then its fixed-order second pass over the per-tile
-    sums), or its plain version for CPU tensors."""
+    """K2 on the card (then its fixed-order second pass over the CTAs' rows
+    of channel sums), or its plain version for CPU tensors."""
     if not g.is_cuda:
         _on_cpu_or_raise(g, "bn_relu_matmul_bwd_da")
         return bn_relu_matmul_bwd_da_reference(g, w, y2, s, t, mean, inv, res)
@@ -201,33 +230,57 @@ def bn_relu_matmul_bwd_da(g, w, y2, s, t, mean, inv, res=None):
     check_kernel_inputs(m, k, n, bf16=(g, w, y2, res), f32=(s, t, mean, inv),
                         shapes=((g, (m, n)), (w, (k, n)), (res, (m, k)), (s, (k,)),
                                 (t, (k,)), (mean, (k,)), (inv, (k,))))
+    bn = da_tile_n(k)
+    sm_count = _sm_count(y2)
+    grid = min(-(-m // _DA_TILE_M) * -(-k // bn), sm_count)
     gt = torch.empty((m, k), dtype=y2.dtype, device=y2.device)
-    tiles_m = (m + _DA_TILE_M - 1) // _DA_TILE_M
-    partial = torch.empty((tiles_m, 2 * k), dtype=torch.float32, device=y2.device)
+    partial = torch.empty((grid, 2 * k), dtype=torch.float32, device=y2.device)
     sums = torch.empty((2, k), dtype=torch.float32, device=y2.device)
     lib = _kernel()
     with torch.cuda.device(y2.device):
         rc = lib.dsst_bn_relu_matmul_bwd_da(
             g.data_ptr(), w.data_ptr(), y2.data_ptr(), _ptr(res), s.data_ptr(),
             t.data_ptr(), mean.data_ptr(), inv.data_ptr(), gt.data_ptr(),
-            partial.data_ptr(), sums.data_ptr(), m, k, n, _stream(y2))
+            partial.data_ptr(), sums.data_ptr(), m, k, n, bn, sm_count, _stream(y2))
     _raise_if(rc, "bn_relu_matmul_bwd_da")
     bn_relu_matmul_bwd_da.launches += 1
     return gt, sums[0], sums[1]
 
 
-def dw_splits(m: int, k: int, n: int, sm_count: int) -> tuple[int, int]:
-    """``(splits, chunk)``: K3 sums M in ``splits`` chunks of ``chunk`` rows
-    (a multiple of its reduction depth), enough CTAs for about four per SM
-    and at least 256 rows per chunk."""
-    tiles = math.ceil(n / _DW_TILE_N) * math.ceil(k / _DW_TILE_K)
-    splits = max(1, min(math.ceil(4 * sm_count / tiles), math.ceil(m / 256)))
-    chunk = math.ceil(math.ceil(m / splits) / _DW_DEPTH) * _DW_DEPTH
-    return math.ceil(m / chunk), chunk
+def dw_tile_k(k: int) -> int:
+    """K3's output tile height, the channels of dW per CTA: 64 at K <= 64
+    (the kernel's two warpgroups then share the tile, on alternate ring
+    stages), else 128 (64 each)."""
+    return 64 if k <= 64 else 128
+
+
+def dw_plan(m: int, k: int, n: int, sm_count: int) -> tuple[int, int]:
+    """``(splits, chunk)``: K3 sums M in ``splits`` runs of ``chunk`` rows,
+    a multiple of its ring's 64-row depth (no ring stage crosses into the
+    next run: TMA zero-fills only at the tensor's edge), for every
+    ``dw_tile_k(k)`` x 256 output tile. As many runs as fill the SMs once
+    with one CTA per (tile, run), at least one ring stage each."""
+    tiles = -(-k // dw_tile_k(k)) * -(-n // _DW_TILE_N)
+    splits = max(1, min(sm_count // tiles, -(-m // _DW_DEPTH)))
+    chunk = -(-(-(-m // splits)) // _DW_DEPTH) * _DW_DEPTH
+    return -(-m // chunk), chunk
+
+
+def dw_work(m: int, k: int, n: int, sm_count: int) -> list[tuple[int, int, int, int]]:
+    """K3's work items in CTA order: ``(channel, column, first row, end
+    row)`` of each CTA's output tile and run of M, the tiles of one run
+    neighbours, as the kernel reads ``blockIdx.x``."""
+    splits, chunk = dw_plan(m, k, n, sm_count)
+    tile_k = dw_tile_k(k)
+    tiles_k = -(-k // tile_k)
+    tiles = tiles_k * -(-n // _DW_TILE_N)
+    return [((b % tiles % tiles_k) * tile_k, (b % tiles // tiles_k) * _DW_TILE_N,
+             (b // tiles) * chunk, min(m, (b // tiles + 1) * chunk))
+            for b in range(tiles * splits)]
 
 
 def bn_relu_matmul_bwd_dw(y2, s, t, g, res=None) -> torch.Tensor:
-    """K3 on the card (then its fixed-order second pass over the M splits),
+    """K3 on the card (then its fixed-order second pass over the M runs),
     or its plain version for CPU tensors. Returns dW in f32."""
     if not y2.is_cuda:
         _on_cpu_or_raise(y2, "bn_relu_matmul_bwd_dw")
@@ -236,14 +289,15 @@ def bn_relu_matmul_bwd_dw(y2, s, t, g, res=None) -> torch.Tensor:
     n = g.shape[1]
     check_kernel_inputs(m, k, n, bf16=(y2, g, res), f32=(s, t),
                         shapes=((g, (m, n)), (res, (m, k)), (s, (k,)), (t, (k,))))
-    splits, chunk = dw_splits(m, k, n, _sm_count(y2))
+    splits, chunk = dw_plan(m, k, n, _sm_count(y2))
     partial = torch.empty((splits, k, n), dtype=torch.float32, device=y2.device)
     dw = torch.empty((k, n), dtype=torch.float32, device=y2.device)
     lib = _kernel()
     with torch.cuda.device(y2.device):
         rc = lib.dsst_bn_relu_matmul_bwd_dw(
             y2.data_ptr(), _ptr(res), s.data_ptr(), t.data_ptr(), g.data_ptr(),
-            partial.data_ptr(), dw.data_ptr(), m, k, n, splits, chunk, _stream(y2))
+            partial.data_ptr(), dw.data_ptr(), m, k, n, dw_tile_k(k), splits, chunk,
+            _stream(y2))
     _raise_if(rc, "bn_relu_matmul_bwd_dw")
     bn_relu_matmul_bwd_dw.launches += 1
     return dw

@@ -1,31 +1,46 @@
 #!/usr/bin/env python3
-"""This tree's K4 and K1-K3 against an earlier build of the same kernels, on one card.
+"""This tree's K2 and K3 against an earlier build of the same kernels, on one card.
 
 Run from the root of a checkout, on the machine with the card, after
-putting the earlier sources in a directory (the card's machine has no git):
+putting the earlier source in a directory (the card's machine has no git):
 
-    git show <rev>:dss_ml_at_scale_tpu_torch/csrc/flash_attention.cu > build/old/flash_attention.cu
     git show <rev>:dss_ml_at_scale_tpu_torch/csrc/fused_matmul.cu > build/old/fused_matmul.cu
     python3 scripts/compare_torch_kernels.py --old build/old [--out FILE]
 
-The earlier sources must have the C signatures of the first designs of the
-port (K4: no split plan; K1: no SM count). Both builds run in one process
-on one card, in turns (old, new, new, old; device time of 20 launches
-behind a GPU sleep, median of 3, ``chip_smoke.device_ms``):
+The earlier source must have the C signatures of the mma.sync designs of
+K2 and K3 (K2 without a tile width or an SM count, K3 without a tile
+height; K3 split by their plan, ``old_dw_splits`` below). Every build runs
+in one process on one card, in turns (old, new, ..., new, old; device time
+of 20 launches behind a GPU sleep, median of 3, ``chip_smoke.device_ms``),
+at the four ResNet-50 stage shapes without a residual:
 
-- K4, causal b1 h8 d128 at the serving buckets 128/512/1024: the old
-  kernel, this kernel as the wrapper launches it (with its key-split plan
-  where it has one), without the plan, and with a plan made as if every
-  tile were long enough to split (``_MAX_UNSPLIT`` lifted), which shows
-  where the split stops paying;
-- K1 at the four ResNet-50 stage shapes, with and without a residual: the
-  old kernel, this kernel, and this kernel built with a one-stage ring
-  (its loads then wait for the previous stage's products), which shows
-  what the copy ring contributes; each held against the plain version;
-- K2 and K3 at the same shapes without a residual: times of both builds,
-  and whether their outputs agree bit for bit.
+- K3: the old kernel, this kernel, and this kernel built with the
+  shortest ring it can run on (``new_short_ring``: one stage, or one per
+  warpgroup where the two take alternate stages), whose loads then wait
+  for the previous stage's products: what the ring contributes; and this
+  kernel with the second pass in the form the tree does not take at its
+  row count: the 32 x 16 form where the plan has fewer than 32 runs of M
+  (stages 3-4, ``new_sum_rows_32x16``), one thread per column elsewhere
+  (``new_sum_rows_per_column``);
+- K2: the same three (its shortest ring is two stages: a slot is freed only
+  once the next stage's products are issued), this kernel with its ring
+  capped at 4 stages instead of 6 (``new_4_stages``), and with its second
+  pass (132 rows at every stage shape) one thread per column;
+- each held against the plain version (2^-7 of its max-abs).
 
-One JSON line per measurement; all of them to ``--out`` (default
+What should agree bit for bit is checked in every build, with and without
+a residual: K2's ReLU mask and K3's ``a``. The mask: gt is zero wherever
+the plain mask is off; with g and W positive (no sum can cancel) gt is
+nonzero exactly where it is on; with random W and four draws of g
+(``MASK_DRAWS``), every element where the mask is on and one of gt and the
+plain gt is zero and the other not is listed with its z, both values and
+the exact product (in f64, where bf16 products and their sums are exact):
+a sum that cancels in one order and not in the other, not a mask that
+differs. ``a`` is read back from dW
+with ``g`` the identity (each entry of dW one product, so no summation
+order). gt, the sums and dW themselves change their summation order.
+
+One JSON line per shape; all of them to ``--out`` (default
 ``chiprun_out/compare_torch_kernels.json``).
 """
 
@@ -33,8 +48,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import importlib
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -45,36 +60,69 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 P, I = ctypes.c_void_p, ctypes.c_int
+MASK_DRAWS = 4  # draws of g for the mask check
+
+
+def old_dw_splits(m: int, k: int, n: int, sm_count: int) -> tuple[int, int]:
+    """The mma.sync design's K3 plan: 64 x 128 tiles, about four CTAs per SM,
+    chunks of whole 32-row stages and at least 256 rows."""
+    tiles = math.ceil(n / 128) * math.ceil(k / 64)
+    splits = max(1, min(math.ceil(4 * sm_count / tiles), math.ceil(m / 256)))
+    chunk = math.ceil(math.ceil(m / splits) / 32) * 32
+    return math.ceil(m / chunk), chunk
+
+
+# Builds of this tree's source with one decision changed: name -> (what the
+# source says, what the variant says instead).
+VARIANTS = {
+    # The shortest rings the kernels run on.
+    "fused_matmul_short_ring": (
+        ("return std::min(6, (kSmemLimit - da_smem_bytes(bn, res, 0))",
+         "return std::min(2, (kSmemLimit - da_smem_bytes(bn, res, 0))"),
+        ("return alt ? n & ~1 : n;", "return alt ? 2 : 1;")),
+    # K2's ring capped at 4 stages, as K1's is.
+    "fused_matmul_k2_4_stages": (
+        ("return std::min(6, (kSmemLimit - da_smem_bytes(bn, res, 0))",
+         "return std::min(4, (kSmemLimit - da_smem_bytes(bn, res, 0))"),),
+    # The second pass in one form at every row count: 32 x 16, or one
+    # thread per column.
+    "fused_matmul_sum_rows_32x16": (("  if (rows < 32) {", "  if (false) {"),),
+    "fused_matmul_sum_rows_per_column": (("  if (rows < 32) {", "  if (true) {"),),
+}
 
 
 def build(old: Path) -> dict[str, ctypes.CDLL]:
-    """The old sources and this tree's K1 with a one-stage ring, built
-    beside them with this tree's flags; this tree's kernels as usual."""
+    """The old source and the variants of this tree's, built beside them
+    with this tree's flags; this tree's kernels as usual."""
     from dss_ml_at_scale_tpu_torch.ops import _build
 
     src = (_build.CSRC / "fused_matmul.cu").read_text()
-    fn = src[src.index("int fwd_stages(int K, bool res) {"):]
-    fn = fn[:fn.index("\n}\n") + 3]
-    one_stage = src.replace(fn, "int fwd_stages(int K, bool res) { return 1; }\n").replace(
-        "if (stages < 2) return static_cast<int>(cudaErrorInvalidValue);", "")
-    (old / "fused_matmul_one_stage.cu").write_text(one_stage)
+    for name, edits in VARIANTS.items():
+        text = src
+        for before, after in edits:
+            if before not in text:
+                chip_smoke.fail(f"variant {name}: {before!r} not in fused_matmul.cu")
+            text = text.replace(before, after)
+        (old / f"{name}.cu").write_text(text)
     jobs = {name: subprocess.Popen(
         [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
          "-o", str(old / f"{name}.so"), str(old / f"{name}.cu")],
         stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
-        for name in ("flash_attention", "fused_matmul", "fused_matmul_one_stage")}
+        for name in ("fused_matmul", *VARIANTS)}
     _build.build_all()
     libs = {}
     for name, job in jobs.items():
         if job.wait() != 0:
             chip_smoke.fail(f"nvcc failed on {old / name}.cu")
-        libs[name] = ctypes.CDLL(str(old / f"{name}.so"))
-    libs["flash_attention"].dsst_flash_attention_fwd.argtypes = [P] * 4 + [I] * 6 + [P]
-    old_fm = libs["fused_matmul"]
-    old_fm.dsst_bn_relu_matmul_fwd.argtypes = [P] * 6 + [I] * 3 + [P]
-    old_fm.dsst_bn_relu_matmul_bwd_da.argtypes = [P] * 11 + [I] * 3 + [P]
-    old_fm.dsst_bn_relu_matmul_bwd_dw.argtypes = [P] * 7 + [I] * 5 + [P]
-    libs["fused_matmul_one_stage"].dsst_bn_relu_matmul_fwd.argtypes = [P] * 6 + [I] * 4 + [P]
+        lib = libs[name] = ctypes.CDLL(str(old / f"{name}.so"))
+        lib.dsst_bn_relu_matmul_bwd_da.argtypes = [P] * 11 + [I] * 5 + [P]
+        lib.dsst_bn_relu_matmul_bwd_dw.argtypes = [P] * 7 + [I] * 6 + [P]
+        for fn in (lib.dsst_bn_relu_matmul_bwd_da, lib.dsst_bn_relu_matmul_bwd_dw):
+            fn.restype = I
+    # The old design's K2 takes no tile width and no SM count, its K3 no
+    # tile height.
+    libs["fused_matmul"].dsst_bn_relu_matmul_bwd_da.argtypes = [P] * 11 + [I] * 3 + [P]
+    libs["fused_matmul"].dsst_bn_relu_matmul_bwd_dw.argtypes = [P] * 7 + [I] * 5 + [P]
     return libs
 
 
@@ -87,12 +135,45 @@ def turns(fns: dict) -> dict[str, list[float]]:
     return times
 
 
+def mask_check(torch, fm, k2: dict, gs: list, w, y, s_, t_, mean, inv, res) -> dict:
+    """K2's ReLU mask in every build, as the docstring says, over the draws
+    of g in ``gs`` (the positive-operand check on the first); raises through
+    ``chip_smoke.check`` if a mask differs."""
+    mask = fm._z(y, s_, t_, res) > 0
+    out = {}
+    for what, fn in k2.items():
+        positive_same = torch.equal(fn(gs[0].abs(), w.abs(), res)[0] != 0, mask)
+        off_zero, count, big, listed = True, 0, 0, []
+        for draw, g in enumerate(gs):
+            gt = fn(g, w, res)[0]
+            off_zero &= not gt[~mask].any()
+            da = torch.matmul(g.float(), w.float().t())  # the plain version's product
+            plain = torch.where(mask, da, torch.zeros_like(da))
+            differ = mask & ((gt == 0) != (plain == 0))
+            count += int(differ.sum().item())
+            # Only a sum near zero may cancel: none past the tolerance.
+            big += int((differ & (plain.abs() > chip_smoke.FUSED_REL * plain.abs().max()))
+                       .sum().item())
+            for r, c in differ.nonzero()[:8 - len(listed)].tolist():
+                z = fm._z(y[r:r + 1], s_, t_, None if res is None else res[r:r + 1])[0, c]
+                listed.append({"draw": draw, "row": r, "col": c, "z": z.item(),
+                               "gt": gt[r, c].item(), "plain_gt": plain[r, c].item(),
+                               "exact": torch.dot(g[r].double(), w[c].double()).item()})
+            del gt, da, plain, differ
+        out[what] = {"off_zero": off_zero, "positive_operands_same": positive_same,
+                     "on_zero_in_one_only": count, "of_them_past_tolerance": big,
+                     "listed": listed}
+        chip_smoke.check(off_zero and positive_same and big == 0,
+                         f"K2 {what}: the ReLU mask differs")
+    return out
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--old", type=Path, required=True,
-                        help="directory with the earlier flash_attention.cu and fused_matmul.cu")
+                        help="directory with the earlier fused_matmul.cu")
     parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out/compare_torch_kernels.json")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -100,66 +181,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
 
-    fa = importlib.import_module("dss_ml_at_scale_tpu_torch.ops.flash_attention")
     card = chip_smoke.card_line()
     print(card, flush=True)
     libs = build(args.old)
+    old_fm, short_fm = libs["fused_matmul"], libs["fused_matmul_short_ring"]
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    rows = []
-
-    def emit(row):
-        print(json.dumps(row), flush=True)
-        rows.append(row)
-
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for s in (128, 512, 1024):
-        q, k, v = (torch.randn(1, 8, s, 128, generator=gen, device="cuda",
-                               dtype=torch.bfloat16) for _ in range(3))
-
-        def old_k4():
-            out = torch.empty_like(q)
-            rc = libs["flash_attention"].dsst_flash_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 8, s, s, 128, 1, 1,
-                stream())
-            chip_smoke.check(rc == 0, f"old K4 launch: CUDA error {rc}")
-            return out
-
-        ref = fa.attention_reference(q, k, v, causal=True).float()
-        for name, fn in (("old", old_k4), ("split", lambda: fa._launch(q, k, v, True)),
-                         ("no split", lambda: fa._launch(q, k, v, True, split=False))):
-            err = (fn().float() - ref).abs().max().item()
-            chip_smoke.check(err <= chip_smoke.ATOL, f"K4 {name} s{s}: max abs err {err}")
-        plan = fa.split_plan(8, s, s, True, sm_count)
-        fns = {"old": old_k4,
-               "new": lambda: fa.flash_attention(q, k, v, causal=True),
-               "new_nosplit": lambda: fa._launch(q, k, v, True, split=False)}
-        unsplit, fa._MAX_UNSPLIT = fa._MAX_UNSPLIT, 0
-        fa._plans.clear()  # the plan cache holds the wrapper's plans only
-        forced = fa._device_plan(8, s, s, True, q.device)
-        fa._plans.clear()
-        if forced is not None:
-
-            def forced_k4():
-                items, combine, n_items, n_combine, n_slots = forced
-                out = torch.empty_like(q)
-                po = torch.empty((8, n_slots, 64, 128), dtype=torch.float32, device="cuda")
-                pl = torch.empty((8, n_slots, 64), dtype=torch.float32, device="cuda")
-                rc = fa._kernel().dsst_flash_attention_fwd(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 8, s, s, 128, 1, 1,
-                    items.data_ptr(), n_items, combine.data_ptr(), n_combine, po.data_ptr(),
-                    pl.data_ptr(), n_slots, stream())
-                chip_smoke.check(rc == 0, f"K4 forced split launch: CUDA error {rc}")
-                return out
-
-            err = (forced_k4().float() - ref).abs().max().item()
-            chip_smoke.check(err <= chip_smoke.ATOL, f"K4 forced split s{s}: max abs err {err}")
-            fns["new_forced_split"] = forced_k4
-        fa._MAX_UNSPLIT = unsplit
-        emit({"kernel": "K4", "shape": f"causal b1 h8 s{s} d128", "card": card,
-              "split_items": None if plan is None else len(plan[0]),
-              "forced_split_items": None if forced is None else forced[2], **turns(fns)})
-
+    rows = []
     for name, m, k, n in chip_smoke.FUSED_SHAPES[:4]:
         y = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
         mean = y.float().mean(0)
@@ -168,60 +198,93 @@ def main() -> int:
         t_ = torch.randn(k, generator=gen, device="cuda") * 0.2 - mean * s_
         w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(torch.bfloat16)
         g = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
-        for res in (None, torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)):
-            rp = None if res is None else res.data_ptr()
+        res = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        bn, tile_k = fm.da_tile_n(k), fm.dw_tile_k(k)
+        plan = fm.dw_plan(m, k, n, sm_count)
+        old_plan = old_dw_splits(m, k, n, sm_count)
 
-            def k1(lib, *extra):
-                out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
-                rc = lib.dsst_bn_relu_matmul_fwd(y.data_ptr(), rp, s_.data_ptr(), t_.data_ptr(),
-                                                 w.data_ptr(), out.data_ptr(), m, k, n, *extra,
-                                                 stream())
-                chip_smoke.check(rc == 0, f"K1 variant launch: CUDA error {rc}")
-                return out
-
-            fns = {"old": lambda: k1(libs["fused_matmul"]),
-                   "new": lambda: fm.bn_relu_matmul_fwd(y, s_, t_, w, res),
-                   "new_one_stage": lambda: k1(libs["fused_matmul_one_stage"], sm_count)}
-            ref = fm.bn_relu_matmul_fwd_reference(y, s_, t_, w, res).float()
-            for what, fn in fns.items():
-                diff = (fn().float() - ref).abs()
-                bad = int((diff > chip_smoke.FUSED_ATOL + chip_smoke.FUSED_RTOL * ref.abs()).sum())
-                chip_smoke.check(bad == 0, f"K1 {what} {name}: {bad} elements out of tolerance")
-            emit({"kernel": "K1", "shape": f"{name} M{m} K{k} N{n}" + (" +res" if rp else ""),
-                  "card": card, **turns(fns)})
-        old_fm = libs["fused_matmul"]
-
-        def old_k2():
-            tiles = (m + 127) // 128
+        def k2_with(lib, gg, ww, rr, new=True):
+            rows_p = min(-(-m // 128) * -(-k // bn), sm_count) if new else -(-m // 128)
             gt = torch.empty(m, k, dtype=torch.bfloat16, device="cuda")
-            part = torch.empty(tiles, 2 * k, device="cuda")
+            part = torch.empty(rows_p, 2 * k, device="cuda")
             sums = torch.empty(2, k, device="cuda")
-            rc = old_fm.dsst_bn_relu_matmul_bwd_da(
-                g.data_ptr(), w.data_ptr(), y.data_ptr(), None, s_.data_ptr(), t_.data_ptr(),
-                mean.data_ptr(), inv.data_ptr(), gt.data_ptr(), part.data_ptr(), sums.data_ptr(),
-                m, k, n, stream())
-            chip_smoke.check(rc == 0, f"old K2 launch: CUDA error {rc}")
+            tail = (bn, sm_count) if new else ()
+            rc = lib.dsst_bn_relu_matmul_bwd_da(
+                gg.data_ptr(), ww.data_ptr(), y.data_ptr(), ptr(rr), s_.data_ptr(),
+                t_.data_ptr(), mean.data_ptr(), inv.data_ptr(), gt.data_ptr(), part.data_ptr(),
+                sums.data_ptr(), m, k, n, *tail, stream())
+            chip_smoke.check(rc == 0, f"K2 build launch: CUDA error {rc}")
             return gt, sums[0], sums[1]
 
-        def old_k3():
-            splits, chunk = fm.dw_splits(m, k, n, sm_count)
+        def k3_with(lib, gg, rr, new=True):
+            splits, chunk = plan if new else old_plan
             part = torch.empty(splits, k, n, device="cuda")
             dw = torch.empty(k, n, device="cuda")
-            rc = old_fm.dsst_bn_relu_matmul_bwd_dw(
-                y.data_ptr(), None, s_.data_ptr(), t_.data_ptr(), g.data_ptr(), part.data_ptr(),
-                dw.data_ptr(), m, k, n, splits, chunk, stream())
-            chip_smoke.check(rc == 0, f"old K3 launch: CUDA error {rc}")
+            tile = (tile_k,) if new else ()
+            rc = lib.dsst_bn_relu_matmul_bwd_dw(
+                y.data_ptr(), ptr(rr), s_.data_ptr(), t_.data_ptr(), gg.data_ptr(),
+                part.data_ptr(), dw.data_ptr(), m, k, n, *tile, splits, chunk, stream())
+            chip_smoke.check(rc == 0, f"K3 build launch: CUDA error {rc}")
             return dw
 
-        new_k2 = lambda: fm.bn_relu_matmul_bwd_da(g, w, y, s_, t_, mean, inv)  # noqa: E731
-        new_k3 = lambda: fm.bn_relu_matmul_bwd_dw(y, s_, t_, g)  # noqa: E731
-        same = (all(torch.equal(a, b) for a, b in zip(old_k2(), new_k2()))
-                and torch.equal(old_k3(), new_k3()))
-        emit({"kernel": "K2/K3", "shape": f"{name} M{m} K{k} N{n}", "card": card,
-              "bit_identical": same,
-              "K2": turns({"old": old_k2, "new": new_k2}),
-              "K3": turns({"old": old_k3, "new": new_k3})})
-        del y, g, w
+        # Each build as a function of (g, W, res) for K2 and (g, res) for K3.
+        k2_fns = {
+            "old": lambda gg, ww, rr: k2_with(old_fm, gg, ww, rr, new=False),
+            "new": lambda gg, ww, rr: fm.bn_relu_matmul_bwd_da(gg, ww, y, s_, t_, mean, inv, rr),
+            "new_short_ring": lambda gg, ww, rr: k2_with(short_fm, gg, ww, rr),
+            "new_4_stages": lambda gg, ww, rr: k2_with(libs["fused_matmul_k2_4_stages"], gg, ww, rr),
+            "new_sum_rows_per_column": lambda gg, ww, rr: k2_with(
+                libs["fused_matmul_sum_rows_per_column"], gg, ww, rr),
+        }
+        k3_fns = {
+            "old": lambda gg, rr: k3_with(old_fm, gg, rr, new=False),
+            "new": lambda gg, rr: fm.bn_relu_matmul_bwd_dw(y, s_, t_, gg, rr),
+            "new_short_ring": lambda gg, rr: k3_with(short_fm, gg, rr),
+        }
+        # The second pass in the form the tree does not use at this row count.
+        other = "32x16" if plan[0] < 32 else "per_column"
+        k3_fns[f"new_sum_rows_{other}"] = lambda gg, rr: k3_with(
+            libs[f"fused_matmul_sum_rows_{other}"], gg, rr)
+
+        rgt, rsg, rsgx = fm.bn_relu_matmul_bwd_da_reference(g, w, y, s_, t_, mean, inv)
+        rdw = fm.bn_relu_matmul_bwd_dw_reference(y, s_, t_, g)
+        errs = {}
+        for what, fn in k2_fns.items():
+            gt, sg, sgx = fn(g, w, None)
+            errs[f"K2 {what}"] = max(chip_smoke._rel(a, b) for a, b in
+                                     ((gt, rgt), (sg, rsg), (sgx, rsgx)))
+        for what, fn in k3_fns.items():
+            errs[f"K3 {what}"] = chip_smoke._rel(fn(g, None), rdw)
+        for what, e in errs.items():
+            chip_smoke.check(e <= chip_smoke.FUSED_REL, f"{what} {name}: max-abs err {e}")
+        del rgt, rsg, rsgx, rdw
+        # A sum that cancels to exactly zero is rare: MASK_DRAWS draws of g.
+        gs = [g] + [torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+                    for _ in range(MASK_DRAWS - 1)]
+        masks = {"no_res": mask_check(torch, fm, k2_fns, gs, w, y, s_, t_, mean, inv, None),
+                 "res": mask_check(torch, fm, k2_fns, gs, w, y, s_, t_, mean, inv, res)}
+        del gs
+        # a, bit for bit: with g the identity on its first rows, dW[:, j]
+        # is row j of a (one product each, no sum).
+        rows_a = min(m, n)
+        eye = torch.zeros(m, n, dtype=torch.bfloat16, device="cuda")
+        eye[:rows_a, :rows_a] = torch.eye(rows_a, dtype=torch.bfloat16, device="cuda")
+        a_same = {}
+        for rr, tag in ((None, ""), (res, " +res")):
+            a = torch.clamp_min(fm._z(y[:rows_a], s_, t_, None if rr is None else rr[:rows_a]),
+                                0.0).to(torch.bfloat16).float()
+            for what, fn in k3_fns.items():
+                a_same[what + tag] = torch.equal(fn(eye, rr)[:, :rows_a].t(), a)
+        del eye
+        row = {"shape": f"{name} M{m} K{k} N{n}", "card": card, "k2_tile_n": bn,
+               "dw_tile_k": tile_k, "dw_plan": plan, "old_dw_plan": old_plan,
+               "relu_masks": masks, "a_bit_identical": a_same, "rel_err": errs,
+               "K2": turns({what: (lambda f=f: f(g, w, None)) for what, f in k2_fns.items()}),
+               "K3": turns({what: (lambda f=f: f(g, None)) for what, f in k3_fns.items()})}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        chip_smoke.check(all(a_same.values()), f"{name}: a differs between builds")
+        del y, g, w, res
         torch.cuda.empty_cache()
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(rows, indent=1))

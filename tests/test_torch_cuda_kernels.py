@@ -70,13 +70,22 @@ def test_flash_split_path_is_deterministic_and_matches_unsplit(cuda, sq, sk):
 def test_kernels_opt_in_to_more_than_48kb_of_shared_memory(cuda):
     fa = importlib.import_module("dss_ml_at_scale_tpu_torch.ops.flash_attention")
     assert fa._kernel().dsst_flash_attention_smem_bytes(128) > 48 * 1024
-    assert fm._kernel().dsst_bn_relu_matmul_fwd_smem_bytes(512, 1) > 48 * 1024
+    lib = fm._kernel()
+    assert lib.dsst_bn_relu_matmul_fwd_smem_bytes(512, 1) > 48 * 1024
+    for tile in (64, 128):
+        for with_res in (0, 1):
+            assert lib.dsst_bn_relu_matmul_bwd_da_smem_bytes(tile, with_res) > 48 * 1024
+            assert lib.dsst_bn_relu_matmul_bwd_dw_smem_bytes(tile, with_res) > 48 * 1024
     q = torch.randn(1, 2, 128, 128, generator=cuda, device="cuda", dtype=torch.bfloat16)
     out = flash_attention(q, q, q, causal=True)  # raises if the launch is refused
-    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, 300, 512, 256, True)
-    got = fm.bn_relu_matmul_fwd(y, s, t, w, res)
+    outs = [out]
+    for k, with_res in ((512, True), (512, False), (64, True)):
+        y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, 300, k, 256, with_res)
+        outs += [fm.bn_relu_matmul_fwd(y, s, t, w, res),
+                 *fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res),
+                 fm.bn_relu_matmul_bwd_dw(y, s, t, g, res)]
     torch.cuda.synchronize()
-    assert torch.isfinite(out).all() and torch.isfinite(got).all()
+    assert all(torch.isfinite(x).all() for x in outs)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
@@ -171,8 +180,84 @@ def test_fused_matmul_kernels_match_plain_versions(cuda, m, k, n, with_res):
         assert err <= 2.0 ** -7 * want.float().abs().max().item()
 
 
+def _check_backward(cuda, m, k, n, with_res):
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, n, with_res)
+    gt, sg, sgx = fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res)
+    dw = fm.bn_relu_matmul_bwd_dw(y, s, t, g, res)
+    torch.cuda.synchronize()
+    rgt, rsg, rsgx = fm.bn_relu_matmul_bwd_da_reference(g, w, y, s, t, mean, inv, res)
+    rdw = fm.bn_relu_matmul_bwd_dw_reference(y, s, t, g, res)
+    for got, want in ((gt, rgt), (sg, rsg), (sgx, rsgx), (dw, rdw)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * want.float().abs().max().item()
+    # The ReLU mask agrees bit for bit: gt is zero wherever the plain mask is
+    # off, and nonzero wherever it is on and the plain gt is not near zero
+    # (a sum may cancel to exactly zero in one summation order only).
+    mask = fm._z(y, s, t, res) > 0
+    assert not gt[~mask].any()
+    big = mask & (rgt.float().abs() > 2.0 ** -7 * rgt.float().abs().max())
+    assert gt[big].ne(0).all()
+
+
+# K2 and K3 on and off their tile edges: K2's 128-row tiles and 64/128
+# channel bands, K3's 64 x 256 / 128 x 256 tiles of dW and its 64-row ring
+# stages. K = 64 with N = 256 is stage 1's single output tile of K3; K = 264
+# leaves K2 a band with one 64-channel block wholly past K and K3 a tile
+# with one; N = 264 leaves K3 a tile with three blocks past N.
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 64, 256), (64, 64, 256), (65, 64, 256), (128, 128, 512), (129, 136, 264),
+    (1000, 264, 520), (3000, 256, 1024), (257, 512, 2048), (8191, 72, 200),
+])
+def test_fused_backward_kernels_on_tile_edges(cuda, m, k, n, with_res):
+    _check_backward(cuda, m, k, n, with_res)
+
+
+# K3's runs of M: M = 64 q + r ends the last run inside a ring stage (rows
+# past M zero-filled), and at M = 20000 the plan's runs of 192 rows end where
+# a run of ceil(M / splits) = 152 rows would fall inside a stage.
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("m,k,n", [(20000, 64, 256), (8485, 64, 256), (6437, 128, 512)])
+def test_fused_backward_kernels_on_split_edges(cuda, m, k, n, with_res):
+    splits, chunk = fm.dw_plan(m, k, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert splits > 1 and chunk % 64 == 0
+    _check_backward(cuda, m, k, n, with_res)
+
+
+# K3's prologue rounds as the plain version does: with g the identity on its
+# first rows, each entry of dW is one product, a * 1, so dW^T is a itself.
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("m,k,n", [(256, 64, 256), (700, 136, 520), (2048, 512, 2048)])
+def test_dw_prologue_is_the_plain_a_bit_for_bit(cuda, m, k, n, with_res):
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, n, with_res)
+    rows = min(m, n)
+    eye = torch.zeros(m, n, dtype=torch.bfloat16, device="cuda")
+    eye[:rows, :rows] = torch.eye(rows, dtype=torch.bfloat16, device="cuda")
+    dw = fm.bn_relu_matmul_bwd_dw(y, s, t, eye, res)
+    torch.cuda.synchronize()
+    a = torch.clamp_min(fm._z(y, s, t, res), 0.0).to(torch.bfloat16).float()
+    assert torch.equal(dw[:, :rows].t(), a[:rows])
+
+
+# K2's ReLU mask is the plain version's bit for bit: with g and W positive,
+# g @ W^T is positive everywhere (no sum cancels), so gt is nonzero exactly
+# where the plain mask is on.
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("m,k,n", [(300, 64, 256), (1000, 264, 520), (2048, 512, 2048)])
+def test_da_mask_is_the_plain_mask_bit_for_bit(cuda, m, k, n, with_res):
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, n, with_res)
+    gt = fm.bn_relu_matmul_bwd_da(g.abs(), w.abs(), y, s, t, mean, inv, res)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(gt != 0, fm._z(y, s, t, res) > 0)
+
+
 def test_fused_matmul_kernels_are_deterministic(cuda):
-    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, 20000, 64, 256, True)
+    # K2's walk gives each CTA several tiles (782 tiles on at most 132 CTAs);
+    # K3 splits M over as many CTAs as the card has SMs.
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fm.dw_plan(100000, 64, 256, sm_count)[0] > 100
+    assert len(fm.da_tile_walk(100000, 64, 64, sm_count)[0]) > 3
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, 100000, 64, 256, True)
     first = fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res)
     again = fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res)
     for a, b in zip(first, again):

@@ -166,9 +166,71 @@ def test_cpu_runs_the_plain_versions_and_launches_nothing():
 
 
 def test_dw_splits_cover_m_in_whole_chunks():
+    # K3's plan: runs of whole 64-row ring stages that cover M.
     for m, k, n in ((664832, 64, 256), (10388, 512, 2048), (4133, 72, 200), (1, 8, 8)):
-        splits, chunk = fm.dw_splits(m, k, n, 132)
-        assert chunk % 32 == 0 and splits * chunk >= m > (splits - 1) * chunk
+        splits, chunk = fm.dw_plan(m, k, n, 132)
+        assert chunk % 64 == 0 and splits * chunk >= m > (splits - 1) * chunk
+
+
+_PLAN_SHAPES = [(664832, 64, 256), (166208, 128, 512), (41552, 256, 1024), (10388, 512, 2048),
+                (4133, 72, 200), (1, 8, 8), (129, 136, 264), (5000, 64, 520)]
+
+
+@pytest.mark.parametrize("sm_count", [1, 16, 132])
+@pytest.mark.parametrize("m,k,n", _PLAN_SHAPES)
+def test_dw_work_covers_every_output_tile_and_row_once(m, k, n, sm_count):
+    work = fm.dw_work(m, k, n, sm_count)
+    tile_k = fm.dw_tile_k(k)
+    tiles = {(r, c) for r in range(0, k, tile_k) for c in range(0, n, 256)}
+    # One CTA per (tile, run); the grid fills the SMs at most once unless
+    # there are more output tiles than SMs.
+    assert len(work) <= max(sm_count, len(tiles))
+    runs = {}
+    for k0, n0, begin, end in work:
+        assert (k0, n0) in tiles
+        # Runs start on whole ring stages, so no stage reads the next run's rows.
+        assert begin % 64 == 0 and begin < end <= m
+        runs.setdefault((k0, n0), []).append((begin, end))
+    assert set(runs) == tiles
+    for spans in runs.values():
+        spans.sort()
+        assert spans[0][0] == 0 and spans[-1][1] == m
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    # The tiles of one run are neighbours in CTA order.
+    assert [w[2] for w in work] == sorted(w[2] for w in work)
+
+
+@pytest.mark.parametrize("sm_count", [1, 16, 132])
+@pytest.mark.parametrize("m,k,n", _PLAN_SHAPES)
+def test_da_tile_walk_covers_every_tile_of_gt_once(m, k, n, sm_count):
+    bn = fm.da_tile_n(k)
+    walk = fm.da_tile_walk(m, k, bn, sm_count)
+    tiles_k = -(-k // bn)
+    tiles = -(-m // 128) * tiles_k
+    assert len(walk) == min(sm_count, tiles)
+    got = [tile for cta in walk for tile in cta]
+    want = {(r, c) for r in range(0, m, 128) for c in range(0, k, bn)}
+    assert len(got) == len(want) and set(got) == want
+    # Channel bands first within an M band: a CTA's next tile is in a
+    # later band of the same rows or further down.
+    for cta in walk:
+        for (r0, c0), (r1, c1) in zip(cta, cta[1:]):
+            assert (r1, c1) > (r0, c0)
+    # CTAs that start together cover the bands of one M band side by side.
+    firsts = [cta[0] for cta in walk]
+    assert firsts == sorted(firsts)
+
+
+@pytest.mark.parametrize("k,want", [
+    (8, 64), (64, 64), (72, 128), (128, 128), (136, 128), (256, 128), (512, 128), (2048, 128),
+])
+def test_da_tile_n_is_the_wgmma_width(k, want):
+    assert fm.da_tile_n(k) == want
+
+
+@pytest.mark.parametrize("k,want", [(8, 64), (64, 64), (72, 128), (256, 128), (2048, 128)])
+def test_dw_tile_k_is_one_or_two_warpgroups_of_channels(k, want):
+    assert fm.dw_tile_k(k) == want
 
 
 @pytest.mark.parametrize("sm_count", [1, 16, 132])
