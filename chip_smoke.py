@@ -16,8 +16,10 @@ Phases (any failure exits non-zero; there is no CPU path):
    dynamic shared memory of K4 and K1.
 2. kernels: the flash attention kernel (K4) against its plain version on the
    card, in bf16, at the serving shapes (b=1, h=8, d=128, causal, seq 128,
-   512, 1024) plus a non-causal, an ``sq < sk`` and a d=64 case; atol
-   2e-2, and a mean error under one bf16 spacing of the mean output. One
+   512, 1024), the LM training shape (causal b8 h8 s2048 d128) plus a
+   non-causal, an ``sq < sk``, a d=64 and a d=32 case (the ``lm``
+   command's default head dim); atol 2e-2, and a mean error under one bf16
+   spacing of the mean output. One
    f32 case holds the kernel's f32 variant, which serving does not take,
    to atol 2e-5. Median times (CUDA events) of the kernel, the plain version and
    ``scaled_dot_product_attention`` (the library yardstick, never called
@@ -62,7 +64,26 @@ Phases (any failure exits non-zero; there is no CPU path):
    at a time; checks the streams, the kernel launch count, the kernel's
    prefill logits against reference attention, and concurrent == solo
    tokens.
-7. a ``kernels`` JSON line, the card line, and the device JSON line last.
+7. LM training: the port's ``lm`` entry at full width (vocab 8192, dim
+   1024, 8 heads of 128, 4 layers, seq 2048, batch 8, f32 params with bf16
+   compute, flash attention, Adam 3e-4, concentration 0.05, seeded
+   weights). Run 1: 2 epochs of 6 steps, 2 val batches, a cosine schedule,
+   checkpoints, ``--sample 16``; run 2: ``--resume`` with 3 epochs, which
+   continues from step 12 to 18. Checks K4's launches exactly (4 per train
+   step and per val batch, plus the 4 of the ``--sample`` prefill), finite
+   metrics, run 1's ``val_loss`` falling epoch over epoch and below the
+   untrained model's on the same val batches (it stays above ln 8192 at
+   this length: the model first sheds its initial logit scale, PERF.md),
+   every checkpoint's manifest intact;
+   prints steady tokens/s, step ms and data wait per step of run 1's
+   second epoch.
+8. LM parity at the same width on one seeded batch: the flash-attention LM
+   against the reference-attention LM with the same weights (logits and
+   loss within 2e-2 of max-abs; every block's qkv weight gradient nonzero
+   and within 5e-2 of max-abs), and the flash Function's dq/dk/dv at b8 h8
+   s2048 d128 bf16 against autograd through the plain version (within 2e-2
+   of max-abs, nonzero).
+9. a ``kernels`` JSON line, the card line, and the device JSON line last.
 """
 
 from __future__ import annotations
@@ -105,6 +126,12 @@ FUSED_REL = 2.0 ** -7  # gt, sums, dW: one bf16 spacing of the plain max-abs
 PARITY_LOGITS = 2e-2  # pallas vs fused model: logits and loss, of max-abs
 PARITY_GRADS = 5e-2  # conv3 and middle-BN gradients, of max-abs
 TRAIN_ROWS, VAL_ROWS, BATCH, STEPS = 848, 212, 212, 4
+# The LM training configuration: bench.py child_lm (the repo's full-width LM).
+LM_TRAIN = ["--vocab", "8192", "--dim", "1024", "--heads", "8", "--layers", "4",
+            "--seq", "2048", "--batch-size", "8", "--learning-rate", "3e-4",
+            "--concentration", "0.05", "--steps-per-epoch", "6", "--limit-val-batches", "2"]
+LM_STEPS, LM_VAL, LM_SAMPLE = 6, 2, 16
+LM_GRADS = 5e-2  # per-block qkv weight gradients, flash vs reference, of max-abs
 SM_COUNT = 132  # set from the card in main()
 
 
@@ -178,20 +205,23 @@ def kernel_phase(torch, F) -> list[dict]:
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        ("causal b1 h8 s128 d128", 128, 128, 128, True, bf16),
-        ("causal b1 h8 s512 d128", 512, 512, 128, True, bf16),
-        ("causal b1 h8 s1024 d128", 1024, 1024, 128, True, bf16),
-        ("non-causal b1 h8 s512 d128", 512, 512, 128, False, bf16),
-        ("causal b1 h8 sq256 sk1024 d128", 256, 1024, 128, True, bf16),
-        ("causal b1 h8 s512 d64", 512, 512, 64, True, bf16),
+        ("causal b1 h8 s128 d128", 1, 128, 128, 128, True, bf16),
+        ("causal b1 h8 s512 d128", 1, 512, 512, 128, True, bf16),
+        ("causal b1 h8 s1024 d128", 1, 1024, 1024, 128, True, bf16),
+        ("non-causal b1 h8 s512 d128", 1, 512, 512, 128, False, bf16),
+        ("causal b1 h8 sq256 sk1024 d128", 1, 256, 1024, 128, True, bf16),
+        ("causal b1 h8 s512 d64", 1, 512, 512, 64, True, bf16),
+        ("causal b1 h8 s1024 d32", 1, 1024, 1024, 32, True, bf16),
+        # The LM training shape.
+        ("causal b8 h8 s2048 d128", 8, 2048, 2048, 128, True, bf16),
         # The f32 kernel: off the serving path, held to the f32 contract.
-        ("f32 causal b1 h8 s512 d128", 512, 512, 128, True, f32),
+        ("f32 causal b1 h8 s512 d128", 1, 512, 512, 128, True, f32),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for name, sq, sk, d, causal, dtype in cases:
+    for name, b, sq, sk, d, causal, dtype in cases:
         def mk(s):
-            return torch.randn(1, 8, s, d, generator=gen, device="cuda",
+            return torch.randn(b, 8, s, d, generator=gen, device="cuda",
                                dtype=dtype)
 
         q, k, v = mk(sq), mk(sk), mk(sk)
@@ -213,8 +243,8 @@ def kernel_phase(torch, F) -> list[dict]:
             mask = (torch.arange(sq, device="cuda")[:, None] + (sk - sq)
                     >= torch.arange(sk, device="cuda")[None, :])
         pairs = sq * (sk - sq + 1) + sq * (sq - 1) // 2 if causal else sq * sk
-        flops = 4 * 8 * d * pairs  # Q·Kᵀ and P·V over the visible pairs
-        nbytes = 8 * d * (2 * sq + 2 * sk) * q.element_size()  # q, k, v read; o written
+        flops = 4 * b * 8 * d * pairs  # Q·Kᵀ and P·V over the visible pairs
+        nbytes = b * 8 * d * (2 * sq + 2 * sk) * q.element_size()  # q, k, v read; o written
         t_ops = flops / PEAK_FLOPS[str(dtype).removeprefix("torch.")]
         t_bytes = nbytes / PEAK_BYTES
         row = {
@@ -224,7 +254,7 @@ def kernel_phase(torch, F) -> list[dict]:
             "atol": atol,
             "mean_rel_err": mean_rel,
         }
-        if dtype == bf16 and causal and sq == sk:
+        if dtype == bf16 and causal and sq == sk and b == 1:
             # A serving bucket: the split plan's launch against one CTA per
             # query tile, both held to the same limits; the split output
             # must be the same from run to run.
@@ -236,7 +266,7 @@ def kernel_phase(torch, F) -> list[dict]:
             check(werr.max().item() <= atol, f"{name}: unsplit max abs err {werr.max().item()}")
             check(werr.mean().item() / ref.float().abs().mean().item() <= MEAN_REL,
                   f"{name}: unsplit mean abs err over the limit")
-            plan = fa.split_plan(8, sq, sk, causal, SM_COUNT)
+            plan = fa.split_plan(b * 8, sq, sk, causal, SM_COUNT)
             row["split_items"] = None if plan is None else len(plan[0])
             row["split_ms"] = device_ms(lambda: fa._launch(q, k, v, causal, split=True))
             row["nosplit_ms"] = device_ms(lambda: fa._launch(q, k, v, causal, split=False))
@@ -252,6 +282,8 @@ def kernel_phase(torch, F) -> list[dict]:
         })
         print("kernel-case " + json.dumps(row), flush=True)
         rows.append(row)
+        del q, k, v, out, ref, diff
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -604,6 +636,154 @@ def slice_phase(torch) -> dict:
     }
 
 
+def lm_train_phase(torch, card: str) -> dict:
+    """The port's lm entry at full width: run 1 with checkpoints, run 2
+    resumed from them; K4's launches counted over each run."""
+    from dss_ml_at_scale_tpu_torch.config import cli
+    from dss_ml_at_scale_tpu_torch.ops.flash_attention import flash_attention
+    from dss_ml_at_scale_tpu_torch.resilience import checkpoint as integrity
+
+    from dss_ml_at_scale_tpu_torch.datagen.tokens import TokenStreamConfig, token_batches
+    from dss_ml_at_scale_tpu_torch.models import seeded_lm
+    from dss_ml_at_scale_tpu_torch.parallel import LMTask
+
+    # The untrained model (the lm entry's seed-0 weights) on the entry's val
+    # batches (chain seed 0, sample seed 100000).
+    stream = TokenStreamConfig(vocab_size=8192, batch_size=8, seq_len=2048,
+                               concentration=0.05, seed=0)
+    task = LMTask(model=seeded_lm(0, device="cuda", attention="flash", **LM))
+    untrained = statistics.mean(
+        float(task.eval_step({"tokens": torch.as_tensor(b["tokens"], device="cuda")})["val_loss"])
+        for b in token_batches(stream, LM_VAL, sample_seed=100_000))
+    del task
+    torch.cuda.empty_cache()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    runs = []
+    for epochs, extra in ((2, ["--lr-schedule", "cosine", "--sample", str(LM_SAMPLE)]),
+                          (3, ["--resume"])):
+        args = cli.build_parser().parse_args(
+            ["lm", *LM_TRAIN, "--epochs", str(epochs), "--checkpoint-dir", ckpt, *extra])
+        # The main path: counts set to 0 just before, read just after.
+        flash_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary = cli.run_lm(args)
+        summary["wall_s"] = time.perf_counter() - t0
+        summary["launches"] = flash_attention.launches
+        summary["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"lm-train run {len(runs) + 1}: " + json.dumps(
+            {k: v for k, v in summary.items() if k not in ("history", "sample_tokens")}
+            | {"val_loss_by_epoch": [h["val_loss"] for h in summary["history"]]}), flush=True)
+        runs.append(summary)
+    first, resumed = runs
+    layers = 4
+    want = [layers * (2 * LM_STEPS + 2 * LM_VAL) + layers,  # + the --sample prefill
+            layers * (LM_STEPS + LM_VAL)]
+    check([r["launches"] for r in runs] == want,
+          f"lm: K4 launched {[r['launches'] for r in runs]} times, want {want}")
+    check(first["steps"] == 2 * LM_STEPS, f"lm run 1 ran {first['steps']} steps")
+    check(resumed["steps"] == 3 * LM_STEPS and [h["epoch"] for h in resumed["history"]] == [2],
+          f"lm --resume ran to step {resumed['steps']}, epochs "
+          f"{[h['epoch'] for h in resumed['history']]}; want step 18 from step 12")
+    for run in runs:
+        for h in run["history"]:
+            for key in ("train_loss", "train_ppl", "grad_norm", "val_loss", "val_ppl"):
+                check(math.isfinite(h[key]), f"lm metric {key}: {h[key]}")
+    val = [h["val_loss"] for h in first["history"]]
+    check(all(a > b for a, b in zip(val, val[1:])) and val[-1] < untrained,
+          f"lm val_loss by epoch {val}: not falling below the untrained model's {untrained}")
+    check(len(first["sample_tokens"]) == 4 + LM_SAMPLE, "lm --sample length")
+    report = integrity.verify_checkpoint_dir(ckpt)
+    check(report and all(r["status"] == "intact" for r in report),
+          f"lm checkpoints not intact: {report}")
+    steady = first["history"][-1]  # run 1's second epoch: kernels built, caches warm
+    for what, value in (("steady tokens/s", steady["steady_tokens_per_sec"]),
+                        ("step ms", steady["steady_step_time_s"] * 1e3),
+                        ("data wait ms per step", steady["steady_data_wait_s"] * 1e3)):
+        print(f"lm-train {what} (steps 2-6 of epoch 1, run 1): {value} ({card})", flush=True)
+    keys = ("steps", "train_loss", "val_loss", "val_ppl", "entropy_floor_nats",
+            "best_checkpoint", "tokens_per_sec", "steady_tokens_per_sec", "lr_schedule",
+            "sample_mean_true_prob", "sample_chance_prob", "wall_s", "launches",
+            "peak_memory_gib")
+    return {
+        "untrained_val_loss": untrained,
+        "ln_vocab": math.log(8192),
+        "runs": [{k: r[k] for k in keys if k in r} for r in runs],
+        "checkpoints": [r["step"] for r in report],
+        "launches": sum(r["launches"] for r in runs),
+        "steady_tokens_per_sec": steady["steady_tokens_per_sec"],
+        "steady_step_ms": steady["steady_step_time_s"] * 1e3,
+        "steady_data_wait_ms": steady["steady_data_wait_s"] * 1e3,
+        "epochs": [{k: h[k] for k in ("epoch", "steps", "epoch_time_s", "tokens_per_sec",
+                                      "steady_tokens_per_sec", "steady_step_time_s",
+                                      "steady_data_wait_s", "train_loss", "val_loss")
+                    if k in h} for r in runs for h in r["history"]],
+    }
+
+
+def lm_parity_phase(torch) -> dict:
+    """The flash-attention LM against the reference-attention LM on one
+    seeded batch at full width, then the flash Function's gradients against
+    autograd through the plain version at the training shape."""
+    from dss_ml_at_scale_tpu_torch.models import next_token_loss, seeded_lm
+    from dss_ml_at_scale_tpu_torch.ops.flash_attention import (
+        attention_reference, flash_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, 8192, (8, 2048), generator=gen, device="cuda")
+    out = {}
+    before = flash_attention.launches
+    for attention in ("flash", "reference"):  # one model at a time
+        model = seeded_lm(0, device="cuda", attention=attention, **LM).train()
+        logits = model(tokens)
+        loss = next_token_loss(logits, tokens)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[attention] = (logits.detach(), loss.detach(),
+                          [b.qkv.weight.grad.clone() for b in model.blocks])
+        del model, logits, loss
+        torch.cuda.empty_cache()
+    check(flash_attention.launches == before + 4, "the flash LM missed the kernel")
+    logits_err = _rel(out["flash"][0], out["reference"][0])
+    loss_err = abs(out["flash"][1].item() - out["reference"][1].item()) / abs(
+        out["reference"][1].item())
+    check(bool(torch.isfinite(out["flash"][0]).all()), "non-finite flash LM logits")
+    check(logits_err <= PARITY_LOGITS, f"LM logits differ by {logits_err} of max-abs")
+    check(loss_err <= PARITY_LOGITS, f"LM loss differs by {loss_err}")
+    qkv_errs = []
+    for i, (a, b) in enumerate(zip(out["flash"][2], out["reference"][2])):
+        check(a.abs().max().item() > 0, f"block {i}: zero qkv gradient through the kernel")
+        qkv_errs.append(_rel(a, b))
+        check(qkv_errs[-1] <= LM_GRADS, f"block {i}: qkv gradient differs by {qkv_errs[-1]}")
+    del out
+    torch.cuda.empty_cache()
+
+    g = torch.randn(8, 8, 2048, 128, generator=gen, device="cuda", dtype=torch.bfloat16)
+    grads = {}
+    for tag in ("flash", "plain"):
+        leaves = [torch.randn(8, 8, 2048, 128, generator=torch.Generator(device="cuda")
+                              .manual_seed(6 + i), device="cuda", dtype=torch.bfloat16)
+                  .requires_grad_() for i in range(3)]
+        fn = flash_attention if tag == "flash" else attention_reference
+        o = fn(*leaves, causal=True)
+        check(o.grad_fn is not None, f"{tag} attention output has no grad_fn")
+        o.backward(g)
+        torch.cuda.synchronize()
+        grads[tag] = [t.grad for t in leaves]
+        del leaves, o
+        torch.cuda.empty_cache()
+    fn_errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), grads["flash"], grads["plain"]):
+        check(a.abs().max().item() > 0, f"flash {name} is zero")
+        fn_errs[name] = _rel(a, b)
+        check(fn_errs[name] <= ATOL, f"flash {name} differs by {fn_errs[name]} of max-abs")
+    del grads
+    torch.cuda.empty_cache()
+    return {"logits_rel_err": logits_err, "loss_rel_err": loss_err,
+            "qkv_grad_rel_err": qkv_errs, "function_grad_rel_err": fn_errs}
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -659,14 +839,25 @@ def main() -> int:
     print(f"parity ({kind}; {card}): " + json.dumps(parity), flush=True)
     serving = slice_phase(torch)
     print(f"serving ({kind}; {card}): " + json.dumps(serving), flush=True)
+    torch.cuda.empty_cache()
+    lm_train = lm_train_phase(torch, card)
+    print(f"lm-train ({kind}; {card}): " + json.dumps(lm_train), flush=True)
+    torch.cuda.empty_cache()
+    lm_parity = lm_parity_phase(torch)
+    print(f"lm-parity ({kind}; {card}): " + json.dumps(lm_parity), flush=True)
 
     head = cases[2]  # causal s1024: the largest prefill bucket of the path
+    train_case = next(c for c in cases if c["shape"] == "causal b8 h8 s2048 d128")
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "dss_ml_at_scale_tpu_torch/csrc/flash_attention.cu",
         "replaces": "dss_ml_at_scale_tpu/ops/flash_attention.py:70",
-        "launches": serving["launches"],
+        "launches": serving["launches"] + lm_train["launches"],
+        "launches_by_path": {"serving": serving["launches"], "lm_train": lm_train["launches"]},
+        "training": {k: train_case[k] for k in ("shape", "max_abs_err", "mean_rel_err", "ms",
+                                                "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

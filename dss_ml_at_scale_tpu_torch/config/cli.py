@@ -7,9 +7,17 @@ Ports of the JAX package's commands (``config/commands.py``):
 - ``datagen images``: the synthetic JPEG-grating Delta table.
 - ``train``: single-card image-classifier training from a Delta table,
   with the JAX command's flags that the port supports (names and
-  defaults kept), plus ``--device``. Checkpointing, resume, health,
-  tracking, profiling, augmentation, the pretrained loader, the ViT models
-  and multi-host training wait for their ports.
+  defaults kept), plus ``--device``; ``--checkpoint-dir`` and ``--resume``
+  as in ``lm``. Health, tracking, profiling, augmentation, the pretrained
+  loader, the ViT models and multi-host training wait for their ports.
+- ``lm``: single-card TransformerLM training on the seeded Markov token
+  stream, with the JAX command's flags and defaults, plus ``--device``:
+  flash or reference attention, a constant or cosine learning rate (the
+  trajectory persisted as ``dsst_lm.json`` beside the checkpoints, for a
+  flag-less ``--resume``), checkpoints, resume, and ``--sample`` scoring.
+  ``--ffn moe``, ``--resume-auto``, the health flags, the tracking flags
+  (``--no-tracking`` is what the port does anyway) and ``--coordinator``
+  raise an error naming the later slice that brings them.
 
 ``--device`` defaults to ``cuda``; a missing card is an error, never a
 silent CPU run.
@@ -20,6 +28,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from pathlib import Path
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -100,6 +109,7 @@ def build_parser() -> argparse.ArgumentParser:
     sv.set_defaults(fn=_cmd_serve_lm)
     _register_datagen(sub)
     _register_train(sub)
+    _register_lm(sub)
     return parser
 
 
@@ -198,9 +208,22 @@ def _register_train(sub) -> None:
     tr.add_argument("--shuffle", action=argparse.BooleanOptionalAction, default=True,
                     help="shuffle row groups per epoch (seeded)")
     tr.add_argument("--limit-val-batches", type=int, default=5)
+    _add_checkpoint_args(tr)
     tr.add_argument("--device", default="cuda",
                     help="torch device of the model (cuda, cuda:N, or cpu)")
     tr.set_defaults(fn=_cmd_train)
+
+
+def _add_checkpoint_args(parser) -> None:
+    parser.add_argument(
+        "--checkpoint-dir", default=None,
+        help="save <dir>/<step>/ once per epoch (torch state, metrics, a "
+        "SHA-256 manifest), keeping the 2 best by the validation metric "
+        "(the newest without validation data)")
+    parser.add_argument(
+        "--resume", action="store_true",
+        help="continue from the newest intact step under --checkpoint-dir, "
+        "falling back past corrupt ones")
 
 
 def run_train(args: argparse.Namespace) -> dict:
@@ -239,6 +262,7 @@ def run_train(args: argparse.Namespace) -> dict:
                           eval_topk=tuple(args.eval_topk))
     trainer = Trainer(TrainerConfig(max_epochs=args.epochs, total_train_rows=rows,
                                     limit_val_batches=args.limit_val_batches,
+                                    checkpoint_dir=args.checkpoint_dir, resume=args.resume,
                                     feeder_depth=args.feeder_depth), device=device)
     val_factory = None
     if args.val_data:
@@ -260,6 +284,7 @@ def run_train(args: argparse.Namespace) -> dict:
         "train_loss": last.get("train_loss"),
         "val_acc": last.get("val_acc"),
         **{f"val_top{k}_acc": last.get(f"val_top{k}_acc") for k in args.eval_topk},
+        "best_checkpoint": result.best_checkpoint_path,
         "decode_backend": spec.backend,
         "decode_substitutions": spec.substitutions.count,
         "device": str(device),
@@ -274,6 +299,208 @@ def _cmd_train(args: argparse.Namespace) -> int:
         summary = run_train(args)
     except ValueError as e:
         print(e)
+        return 1
+    summary.pop("history")
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+# The lm flags of the JAX command that wait for later slices of the port:
+# (flag, attribute, value that means "not asked for", what brings it).
+_LM_LATER = (
+    ("--ffn moe", "ffn", "dense", "the MoE FFN (ROADMAP Queue 1 item 14)"),
+    ("--resume-auto", "resume_auto", False, "crash-only auto-resume (Queue 1 item 7)"),
+    ("--health-policy", "health_policy", "off", "the health supervisor (Queue 1 item 7)"),
+    ("--spike-zscore", "spike_zscore", None, "the health supervisor (Queue 1 item 7)"),
+    ("--health-warmup", "health_warmup", None, "the health supervisor (Queue 1 item 7)"),
+    ("--max-consecutive-skips", "max_consecutive_skips", None,
+     "the health supervisor (Queue 1 item 7)"),
+    ("--max-rollbacks", "max_rollbacks", None, "the health supervisor (Queue 1 item 7)"),
+    ("--experiment", "experiment", None, "run tracking (Queue 1 item 7)"),
+    ("--tracking-root", "tracking_root", None, "run tracking (Queue 1 item 7)"),
+    ("--coordinator", "coordinator", None, "multi-host training (Queue 1 item 7)"),
+)
+
+
+def _register_lm(sub) -> None:
+    lm = sub.add_parser(
+        "lm",
+        help="train a Transformer LM on a synthetic Markov token stream "
+        "(flash attention) on one card",
+    )
+    lm.add_argument("--vocab", type=int, default=256)
+    lm.add_argument("--dim", type=int, default=128)
+    lm.add_argument("--heads", type=int, default=4)
+    lm.add_argument("--layers", type=int, default=2)
+    lm.add_argument("--seq", type=int, default=128)
+    lm.add_argument("--batch-size", type=int, default=8)
+    lm.add_argument("--epochs", type=int, default=2)
+    lm.add_argument("--steps-per-epoch", type=int, default=50)
+    lm.add_argument("--learning-rate", type=float, default=3e-4)
+    lm.add_argument("--attention", choices=["flash", "reference"], default="flash",
+                    help="flash: the hand-written kernel on the card (its plain "
+                    "version on the CPU); reference: plain attention")
+    lm.add_argument("--ffn", choices=["dense", "moe"], default="dense",
+                    help="moe is not ported yet")
+    lm.add_argument("--num-experts", type=int, default=8, help="with --ffn moe")
+    lm.add_argument("--aux-loss-weight", type=float, default=0.01, help="with --ffn moe")
+    lm.add_argument(
+        "--concentration", type=float, default=0.05,
+        help="Dirichlet concentration of the Markov source's transition "
+        "rows; lower = more predictable = lower entropy floor")
+    lm.add_argument("--seed", type=int, default=0, help="seed of the Markov chain")
+    lm.add_argument("--limit-val-batches", type=int, default=5)
+    lm.add_argument(
+        "--sample", type=int, default=0, metavar="N",
+        help="after training, greedy-generate N tokens from the trained "
+        "model (KV-cached decode) and report the mean TRUE-chain "
+        "probability of the generated transitions (uniform chance is 1/vocab)")
+    lm.add_argument(
+        "--lr-schedule", choices=["constant", "cosine"], default=None,
+        help="cosine: linear warmup then cosine decay to 0 over the run's "
+        "total steps. Default: the value persisted in the checkpoint dir "
+        "(flag-less --resume keeps the trained schedule), else constant")
+    lm.add_argument("--warmup-steps", type=int, default=None,
+                    help="warmup length for --lr-schedule cosine (default: 5%% "
+                    "of total steps)")
+    _add_checkpoint_args(lm)
+    lm.add_argument("--resume-auto", action="store_true", help="not ported yet")
+    lm.add_argument("--feeder-depth", type=int, default=2,
+                    help="bound of the background feeder's on-device batch queue")
+    lm.add_argument("--health-policy", choices=["off", "skip", "rollback", "abort"],
+                    default="off", help="not ported yet: off only")
+    for flag in ("--spike-zscore", "--health-warmup", "--max-consecutive-skips",
+                 "--max-rollbacks"):
+        lm.add_argument(flag, type=float if flag == "--spike-zscore" else int,
+                        default=None, help="not ported yet")
+    lm.add_argument("--experiment", default=None, help="not ported yet")
+    lm.add_argument("--tracking-root", default=None, help="not ported yet")
+    lm.add_argument("--no-tracking", action="store_true",
+                    help="accepted: the port keeps no run store yet")
+    lm.add_argument("--coordinator", default=None, help="not ported yet")
+    lm.add_argument("--device", default="cuda",
+                    help="torch device of the model (cuda, cuda:N, or cpu)")
+    lm.set_defaults(fn=_cmd_lm)
+
+
+def resolve_lr_schedule(args: argparse.Namespace, meta: dict, total_steps: int):
+    """Port of ``config/commands.py::_resolve_lr_schedule``: resolve
+    ``--lr-schedule``/``--warmup-steps`` against persisted metadata.
+
+    Returns the learning rate (a float, or a schedule of the update count)
+    and updates ``meta`` with the full trajectory (``lr_schedule``,
+    ``warmup_steps``, ``decay_steps``): a flag-less ``--resume`` rebuilds
+    the SAME warmup/decay trajectory, so the restored step count lands on
+    the curve it was trained on. Passing ``--lr-schedule`` explicitly
+    redefines the trajectory from this invocation's run length.
+    """
+    from ..parallel.schedules import warmup_cosine_decay_schedule
+
+    explicit = args.lr_schedule is not None
+    schedule = args.lr_schedule if explicit else meta.get("lr_schedule", "constant")
+    if schedule != "cosine":
+        meta["lr_schedule"] = "constant"
+        meta.pop("warmup_steps", None)
+        meta.pop("decay_steps", None)
+        return args.learning_rate
+    if explicit or "decay_steps" not in meta:
+        decay = max(1, total_steps)
+        warmup = args.warmup_steps if args.warmup_steps is not None else max(1, decay // 20)
+    else:
+        decay = int(meta["decay_steps"])
+        warmup = (args.warmup_steps if args.warmup_steps is not None
+                  else int(meta.get("warmup_steps", max(1, decay // 20))))
+    warmup = min(warmup, decay)
+    meta.update(lr_schedule="cosine", warmup_steps=warmup, decay_steps=decay)
+    return warmup_cosine_decay_schedule(args.learning_rate, warmup, decay)
+
+
+def run_lm(args: argparse.Namespace) -> dict:
+    """What ``lm`` does, returning its summary (with the per-epoch history)
+    instead of printing it. Raises ``ValueError`` for flags that do not fit
+    together or that the port does not support yet."""
+    import numpy as np
+    import torch
+
+    from ..datagen.tokens import (
+        TokenStreamConfig, entropy_floor, token_batches, transition_matrix,
+    )
+    from ..models import generate, seeded_lm
+    from ..parallel import LMTask, Trainer, TrainerConfig
+    from ..resilience import durability
+
+    for flag, attr, off, later in _LM_LATER:
+        if getattr(args, attr) != off:
+            raise ValueError(f"lm {flag} is not ported yet: it comes with {later}")
+    if args.sample > 0 and args.seq <= 4:
+        raise ValueError("--sample needs --seq > 4 (4 prompt tokens + at least one "
+                         "generated token must fit in max_seq)")
+    device = torch.device(args.device)
+    stream = TokenStreamConfig(vocab_size=args.vocab, batch_size=args.batch_size,
+                               seq_len=args.seq, concentration=args.concentration,
+                               seed=args.seed)
+    floor = entropy_floor(stream)
+    # Weights from seed 0, as the JAX trainer's default init key.
+    model = seeded_lm(0, device=device, vocab_size=args.vocab, dim=args.dim,
+                      num_heads=args.heads, num_layers=args.layers, max_seq=args.seq,
+                      attention=args.attention)
+    meta_path = Path(args.checkpoint_dir) / "dsst_lm.json" if args.checkpoint_dir else None
+    meta = (json.loads(meta_path.read_text())
+            if meta_path is not None and meta_path.exists() else {})
+    lr = resolve_lr_schedule(args, meta, total_steps=args.steps_per_epoch * args.epochs)
+    if meta_path is not None:
+        meta_path.parent.mkdir(parents=True, exist_ok=True)
+        durability.durable_write_json(meta_path, meta)
+    task = LMTask(model=model, learning_rate=lr)
+    trainer = Trainer(TrainerConfig(
+        max_epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
+        limit_val_batches=args.limit_val_batches, checkpoint_dir=args.checkpoint_dir,
+        resume=args.resume, feeder_depth=args.feeder_depth), device=device)
+    result = trainer.fit(
+        task, token_batches(stream, sample_seed=args.seed + 1),
+        val_data_factory=lambda: token_batches(
+            stream, num_batches=args.limit_val_batches, sample_seed=args.seed + 100_000),
+    )
+    last = result.history[-1] if result.history else {}
+    summary = {
+        "steps": result.steps,
+        "train_loss": last.get("train_loss"),
+        "val_loss": last.get("val_loss"),
+        "val_ppl": last.get("val_ppl"),
+        "entropy_floor_nats": round(floor, 4),
+        "best_checkpoint": result.best_checkpoint_path,
+        "tokens_per_sec": last.get("tokens_per_sec"),
+        "steady_tokens_per_sec": last.get("steady_tokens_per_sec"),
+        "steady_data_wait_s": last.get("steady_data_wait_s"),
+        "lr_schedule": meta["lr_schedule"],
+        "device": str(device),
+    }
+    if args.sample > 0:
+        # KV-cached greedy decode from the trained weights, scored against
+        # the TRUE chain (the generator is the fixture).
+        first = next(token_batches(stream, num_batches=1, sample_seed=args.seed + 200_000))
+        prompt = torch.as_tensor(first["tokens"][:1, :4], dtype=torch.long, device=device)
+        n = min(args.sample, args.seq - 4)
+        if n < args.sample:
+            summary["sample_truncated_to"] = n
+        out = generate(model, prompt, n).cpu().numpy()
+        t = transition_matrix(stream)
+        probs = [float(t[int(out[0, i]), int(out[0, i + 1])])
+                 for i in range(3, out.shape[1] - 1)]
+        summary["sample_tokens"] = out[0].tolist()
+        summary["sample_mean_true_prob"] = round(float(np.mean(probs)), 4)
+        summary["sample_chance_prob"] = round(1.0 / args.vocab, 4)
+    summary["history"] = result.history
+    return summary
+
+
+def _cmd_lm(args: argparse.Namespace) -> int:
+    if _no_card(args.device):
+        return 1
+    try:
+        summary = run_lm(args)
+    except ValueError as e:
+        print(json.dumps({"error": str(e)}), flush=True)
         return 1
     summary.pop("history")
     print(json.dumps(summary), flush=True)

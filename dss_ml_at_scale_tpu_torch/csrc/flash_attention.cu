@@ -50,6 +50,11 @@
 // cutting it. Issuing S of tile j+1 before the softmax of tile j, to overlap
 // the two, made ptxas serialize the wgmmas (C7514/C7515) and ran slower.
 //
+// Head dim 32. A 32-wide bf16 row is 64 bytes, less than the 128-byte
+// swizzle's row, so Q, K and V tiles of D = 32 use the 64-byte swizzle
+// (hopper.cuh, SW64) in the cp.async addresses and the wgmma descriptors;
+// S takes two k-steps and P·V is m64n32k16. D = 64 and 128 are unchanged.
+//
 // A float32 path (one warp per query row, FMA on the CUDA cores) keeps the
 // f32 contract of the JAX function. No path of the port takes it yet;
 // chip_smoke.py holds it to the f32 tolerance and times it.
@@ -78,8 +83,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Shared memory of the bf16 kernel: Q, then the K ring, then the V ring,
-// each a 64 x D SW128 tile of D / 64 blocks of 8 KB; then the ring's
-// barriers. 1 KB of slack aligns the base.
+// each a 64 x D SW128 tile of D / 64 blocks of 8 KB (D = 32: one 4 KB SW64
+// tile); then the ring's barriers. 1 KB of slack aligns the base.
 template <int D>
 struct Smem {
   static constexpr int kTile = kBlockN * D * 2;
@@ -98,7 +103,11 @@ __device__ __forceinline__ void copy_tile(uint32_t dst, const __nv_bfloat16* src
     const int r = i / kChunks, c = i % kChunks;
     const bool valid = row0 + r < n_rows;
     const __nv_bfloat16* p = src + (valid ? static_cast<size_t>(row0 + r) * D + c * 8 : 0);
-    cp_async16(dst + (c / 8) * 8192 + sw128(r, c % 8), p, valid);
+    if constexpr (D == 32) {
+      cp_async16(dst + sw64(r, c), p, valid);
+    } else {
+      cp_async16(dst + (c / 8) * 8192 + sw128(r, c % 8), p, valid);
+    }
   }
 }
 
@@ -118,16 +127,23 @@ __device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t s_q, uint32_t 
   wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
-    const uint32_t off = (ks / 4) * 8192 + (ks % 4) * 32;
-    wgmma_m64n64k16_ss<0>(s, sw128_desc(s_q + off, 16, 1024), sw128_desc(s_k + off, 16, 1024),
-                          ks > 0);
+    if constexpr (D == 32) {
+      const uint32_t off = ks * 32;
+      wgmma_m64n64k16_ss<0>(s, sw64_desc(s_q + off, 16, 512), sw64_desc(s_k + off, 16, 512),
+                            ks > 0);
+    } else {
+      const uint32_t off = (ks / 4) * 8192 + (ks % 4) * 32;
+      wgmma_m64n64k16_ss<0>(s, sw128_desc(s_q + off, 16, 1024), sw128_desc(s_k + off, 16, 1024),
+                            ks > 0);
+    }
   }
   wgmma_commit();
   fence_regs(s);
 }
 
 // O += P·V over the 64 keys of a tile, in 4 steps of 16: P from registers,
-// V [key][d] as the MN-major B, each step 16 key rows (2 KB) further on.
+// V [key][d] as the MN-major B, each step 16 key rows (2 KB; SW64 1 KB)
+// further on.
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pa)[4][4],
                                          uint32_t s_v) {
@@ -135,11 +151,12 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t desc = sw128_desc(s_v + kk * 2048, 8192, 1024);
-    if constexpr (D == 128) {
-      wgmma_m64n128k16_rs<1>(acc, pa[kk], desc, 1);
+    if constexpr (D == 32) {
+      wgmma_m64n32k16_rs<1>(acc, pa[kk], sw64_desc(s_v + kk * 1024, 4096, 512), 1);
+    } else if constexpr (D == 128) {
+      wgmma_m64n128k16_rs<1>(acc, pa[kk], sw128_desc(s_v + kk * 2048, 8192, 1024), 1);
     } else {
-      wgmma_m64n64k16_rs<1>(acc, pa[kk], desc, 1);
+      wgmma_m64n64k16_rs<1>(acc, pa[kk], sw128_desc(s_v + kk * 2048, 8192, 1024), 1);
     }
   }
   wgmma_commit();
@@ -462,6 +479,9 @@ extern "C" int dsst_flash_attention_fwd(const void* q, const void* k, const void
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(d));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
+    if (d == 32)
+      return launch_bf16<32>(q, k, v, o, bh, sq, sk, causal, scale_log2, items, n_items, combine,
+                             n_combine, part_o, part_lse, n_slots, st);
     if (d == 64)
       return launch_bf16<64>(q, k, v, o, bh, sq, sk, causal, scale_log2, items, n_items, combine,
                              n_combine, part_o, part_lse, n_slots, st);
@@ -475,7 +495,9 @@ extern "C" int dsst_flash_attention_fwd(const void* q, const void* k, const void
   const auto* kp = static_cast<const float*>(k);
   const auto* vp = static_cast<const float*>(v);
   auto* op = static_cast<float*>(o);
-  if (d == 64) {
+  if (d == 32) {
+    flash_fwd_f32_kernel<32><<<grid, kThreads, 0, st>>>(qp, kp, vp, op, sq, sk, causal, scale_log2);
+  } else if (d == 64) {
     flash_fwd_f32_kernel<64><<<grid, kThreads, 0, st>>>(qp, kp, vp, op, sq, sk, causal, scale_log2);
   } else if (d == 128) {
     flash_fwd_f32_kernel<128><<<grid, kThreads, 0, st>>>(qp, kp, vp, op, sq, sk, causal, scale_log2);
@@ -487,5 +509,5 @@ extern "C" int dsst_flash_attention_fwd(const void* q, const void* k, const void
 
 // Dynamic shared memory of one CTA of the bf16 kernel at head_dim d.
 extern "C" int dsst_flash_attention_smem_bytes(int d) {
-  return d == 64 ? Smem<64>::kBytes : d == 128 ? Smem<128>::kBytes : -1;
+  return d == 32 ? Smem<32>::kBytes : d == 64 ? Smem<64>::kBytes : d == 128 ? Smem<128>::kBytes : -1;
 }

@@ -10,6 +10,12 @@
 // sits at chunk position c ^ (r % 8). Blocks are 1024-byte aligned. This is
 // what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B and what a wgmma
 // descriptor of layout type 1 reads.
+//
+// Rows of 32 bf16 elements (64 bytes) take the 64-byte swizzle ("SW64"):
+// rows at a 64-byte stride, the 16-byte chunk c of row r at chunk position
+// c ^ ((r / 2) % 4), so byte-address bits 4-5 are XORed with bits 7-8; the
+// pattern repeats every 512 bytes (8 rows), and a tile is 512-byte aligned.
+// A wgmma descriptor of layout type 2 reads it.
 
 #pragma once
 
@@ -25,6 +31,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // Byte offset of (row, 16-byte chunk) in one SW128 block.
 __device__ __forceinline__ uint32_t sw128(int row, int chunk) {
   return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+// Byte offset of (row, 16-byte chunk) in an SW64 tile.
+__device__ __forceinline__ uint32_t sw64(int row, int chunk) {
+  return static_cast<uint32_t>(row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4));
 }
 
 // --- mbarriers -------------------------------------------------------------
@@ -143,6 +154,15 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// The same for an SW64 operand (layout type 2): K-major, sbo = 512 (8 rows
+// of 64 bytes); MN-major, lbo = the stride between 32-wide blocks of the MN
+// dimension, sbo = 512 (8 reduction rows of 64 bytes).
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -213,6 +233,20 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
 template <int TRANS_B>

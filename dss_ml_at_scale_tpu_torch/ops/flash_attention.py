@@ -12,8 +12,15 @@ tensor (bf16 on the tensor cores, f32 on the CUDA cores) or raises. It takes
 the plain version, :func:`attention_reference`, only for a tensor on the
 CPU, which is where the tests run it. The block sizes are the TPU kernel's
 tiling and are checked for the contract only: the CUDA kernel tiles by its
-own 64 x 64 and masks ragged edges itself. Forward only: serving takes no
-gradient, and the training slice brings the backward.
+own 64 x 64 and masks ragged edges itself.
+
+The gradient is the JAX function's custom VJP (``_flash_bwd``): the forward
+saves ``(q, k, v)`` and the backward recomputes attention in query chunks of
+``min(block_q, sq)`` rows, each differentiated on its own, so the backward
+holds one chunk's ``chunk x sk`` scores at a time and never ``sq x sk``
+(:func:`attention_backward`). JAX's backward is XLA, not Pallas, so the
+port's is plain PyTorch on either device. ``launches`` counts the forward
+kernel only.
 
 Where one query tile per CTA would leave the card's SMs idle, as at every
 serving bucket, :func:`split_plan` cuts the longest tiles' key ranges into
@@ -32,7 +39,7 @@ import torch
 
 _NEG_INF = -1e30  # finite "minus infinity": avoids inf-inf NaNs in masking
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_Y = 65535  # the f32 kernel puts batch*heads on grid.y
 _Q_TILE, _K_TILE = 64, 64  # query rows of a bf16 kernel CTA; keys of a key tile
 _CTAS_PER_SM = 2  # bf16 kernel CTAs resident on one SM (shared memory bounds it)
@@ -80,7 +87,7 @@ def attention_reference(
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise ``ValueError`` for what the CUDA kernel does not take: mixed
     devices or dtypes, a dtype other than bf16/f32, a head_dim other than
-    64/128, k and v of different shapes, non-contiguous or misaligned
+    32/64/128, k and v of different shapes, non-contiguous or misaligned
     storage, or more than 65535 batch*heads."""
     if not (q.device == k.device == v.device):
         raise ValueError(
@@ -92,7 +99,7 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
         raise ValueError(f"flash kernel takes bfloat16 or float32, got {q.dtype}")
     if q.shape[-1] not in _KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"flash kernel takes head_dim 64 or 128, got {q.shape[-1]}"
+            f"flash kernel takes head_dim 32, 64 or 128, got {q.shape[-1]}"
         )
     if k.shape != v.shape or k.shape[:2] + k.shape[3:] != q.shape[:2] + q.shape[3:]:
         raise ValueError(
@@ -287,6 +294,71 @@ def _launch(q, k, v, causal: bool, split: bool = True) -> torch.Tensor:
     return out
 
 
+def _masked_scores(q, k, start: int, sk: int, sq: int, causal: bool) -> torch.Tensor:
+    """f32 scores of query rows ``[start, start + rows)`` against every key,
+    scaled by ``1/sqrt(d)``, with the bottom-right causal mask."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+    if causal:
+        qi = torch.arange(start, start + q.shape[-2], device=q.device)[:, None] + (sk - sq)
+        ki = torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(qi < ki, _NEG_INF)
+    return s
+
+
+def attention_backward(q, k, v, g, *, causal: bool, chunk: int):
+    """``(dq, dk, dv)`` of attention at ``(q, k, v)`` for the output
+    cotangent ``g``: the port of the JAX ``_flash_bwd``.
+
+    Each chunk of ``chunk`` query rows is recomputed as ``_chunked_reference``
+    computes it (f32 scores times ``1/sqrt(d)``, the bottom-right mask at
+    ``start + sk - sq`` filled with -1e30, f32 softmax, ``P @ v`` in f32,
+    the result cast to ``q.dtype``) and differentiated with
+    ``torch.autograd.grad``. ``dk`` and ``dv`` are summed over the chunks in
+    f32 and cast once; JAX sums them in the transpose of its ``lax.map``.
+    Only one chunk's ``chunk x sk`` scores are alive at a time.
+    """
+    sq, sk = q.shape[-2], k.shape[-2]
+    if sq % chunk:
+        raise ValueError(f"sq={sq} is no multiple of the chunk {chunk}")
+    kf = k.detach().float().requires_grad_()
+    vf = v.detach().float().requires_grad_()
+    dq = torch.empty_like(q)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for start in range(0, sq, chunk):
+        with torch.enable_grad():
+            qc = q[..., start:start + chunk, :].detach().float().requires_grad_()
+            p = torch.softmax(_masked_scores(qc, kf, start, sk, sq, causal), dim=-1)
+            out = torch.matmul(p, vf).to(q.dtype)
+            dqc, dkc, dvc = torch.autograd.grad(out, (qc, kf, vf), g[..., start:start + chunk, :])
+        dq[..., start:start + chunk, :] = dqc
+        dk += dkc
+        dv += dvc
+        del p, out, dqc, dkc, dvc
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel (or, for a CPU tensor, the plain version) forward and the
+    chunked recompute backward, as the JAX ``_flash`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, chunk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.chunk = causal, chunk
+        if q.is_cuda:
+            return _launch(q, k, v, causal)
+        if q.device.type != "cpu":
+            raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
+        return attention_reference(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, g, causal=ctx.causal, chunk=ctx.chunk)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -298,9 +370,10 @@ def flash_attention(
 ) -> torch.Tensor:
     """Blockwise flash attention over ``[batch, heads, seq, head_dim]``.
 
-    bf16 or f32 in, the same dtype out, f32 softmax statistics. A CUDA
-    tensor goes through the hand-written kernel (``launches`` counts each
-    launch); a CPU tensor through :func:`attention_reference`.
+    bf16 or f32 in, the same dtype out, f32 softmax statistics;
+    differentiable (the backward recomputes in chunks of ``block_q`` rows).
+    A CUDA tensor goes through the hand-written kernel (``launches`` counts
+    each launch); a CPU tensor through :func:`attention_reference`.
     """
     if q.ndim != 4:
         raise ValueError(f"expected [batch, heads, seq, head_dim], got {tuple(q.shape)}")
@@ -319,11 +392,7 @@ def flash_attention(
             f"seq lengths ({sq}, {sk}) must be multiples of blocks "
             f"({block_q}, {block_k}); pad upstream"
         )
-    if q.is_cuda:
-        return _launch(q, k, v, causal)
-    if q.device.type != "cpu":
-        raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
-    return attention_reference(q, k, v, causal=causal)
+    return _FlashAttention.apply(q, k, v, causal, block_q)
 
 
 flash_attention.launches = 0

@@ -1,5 +1,7 @@
 """Training loop of the port (single card)."""
 
-from .trainer import ClassifierTask, FitResult, Trainer, TrainerConfig
+from .schedules import warmup_cosine_decay_schedule
+from .trainer import ClassifierTask, FitResult, LMTask, Trainer, TrainerConfig
 
-__all__ = ["ClassifierTask", "FitResult", "Trainer", "TrainerConfig"]
+__all__ = ["ClassifierTask", "FitResult", "LMTask", "Trainer", "TrainerConfig",
+           "warmup_cosine_decay_schedule"]

@@ -42,6 +42,16 @@ order). gt, the sums and dW themselves change their summation order.
 
 One JSON line per shape; all of them to ``--out`` (default
 ``chiprun_out/compare_torch_kernels.json``).
+
+``--flash`` compares K4 instead: this tree's ``flash_attention.cu`` against
+the earlier one in ``--old`` (with the ``hopper.cuh`` it includes beside
+it; the C interface must be this tree's), at every bf16 head dim both
+builds take, causal, at the serving shapes and the LM training shape: the
+outputs bit for bit, and the times in turns (old, new, new, old).
+
+    git show <rev>:dss_ml_at_scale_tpu_torch/csrc/flash_attention.cu > build/old/flash_attention.cu
+    git show <rev>:dss_ml_at_scale_tpu_torch/csrc/hopper.cuh > build/old/hopper.cuh
+    python3 scripts/compare_torch_kernels.py --old build/old --flash
 """
 
 from __future__ import annotations
@@ -168,6 +178,52 @@ def mask_check(torch, fm, k2: dict, gs: list, w, y, s_, t_, mean, inv, res) -> d
     return out
 
 
+# K4 cases of --flash: (b, h, s, d), causal.
+FLASH_SHAPES = ((1, 8, 128, 128), (1, 8, 512, 128), (1, 8, 1024, 128), (1, 8, 512, 64),
+                (8, 8, 2048, 128), (8, 8, 2048, 64))
+
+
+def flash_compare(torch, old: Path) -> list[dict]:
+    """K4 of this tree against the build of ``old/flash_attention.cu``."""
+    import importlib
+
+    from dss_ml_at_scale_tpu_torch.ops import _build
+
+    fa = importlib.import_module("dss_ml_at_scale_tpu_torch.ops.flash_attention")
+    out = old / "flash_attention.so"
+    job = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                          str(old / "flash_attention.cu")], capture_output=True, text=True)
+    if job.returncode != 0:
+        chip_smoke.fail(f"nvcc failed on {old}/flash_attention.cu:\n{job.stdout}{job.stderr}")
+    new_lib = fa._kernel()
+    old_lib = ctypes.CDLL(str(out))
+    old_lib.dsst_flash_attention_fwd.argtypes = new_lib.dsst_flash_attention_fwd.argtypes
+    old_lib.dsst_flash_attention_fwd.restype = I
+
+    def launch(lib, q, k, v):
+        # _launch with another library: the wrapper's checks, plan and
+        # scratch are this tree's either way.
+        saved, fa._lib = fa._lib, lib
+        try:
+            return fa._launch(q, k, v, True)
+        finally:
+            fa._lib = saved
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for b, h, s_, d in FLASH_SHAPES:
+        q, k, v = (torch.randn(b, h, s_, d, generator=gen, device="cuda", dtype=torch.bfloat16)
+                   for _ in range(3))
+        same = torch.equal(launch(old_lib, q, k, v), launch(new_lib, q, k, v))
+        row = {"shape": f"causal b{b} h{h} s{s_} d{d}", "bit_identical": same,
+               **turns({"old": lambda: launch(old_lib, q, k, v),
+                        "new": lambda: launch(new_lib, q, k, v)})}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        chip_smoke.check(same, f"K4 {row['shape']}: output differs between builds")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -175,10 +231,18 @@ def main() -> int:
     parser.add_argument("--old", type=Path, required=True,
                         help="directory with the earlier fused_matmul.cu")
     parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out/compare_torch_kernels.json")
+    parser.add_argument("--flash", action="store_true",
+                        help="compare K4 (flash_attention.cu) instead of K2 and K3")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         chip_smoke.fail("torch.cuda.is_available() is false: this script needs the card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.flash:
+        print(chip_smoke.card_line(), flush=True)
+        rows = flash_compare(torch, args.old)
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(rows, indent=1))
+        return 0
     from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
 
     card = chip_smoke.card_line()

@@ -47,11 +47,13 @@ def busy_ms(events) -> float:
     return total / 1e3  # trace timestamps are µs
 
 
-def profile(torch, name: str, fn, out_dir: Path, top: int = 8) -> dict:
+def profile(torch, name: str, fn, out_dir: Path, top: int = 8,
+            record_shapes: bool = False) -> dict:
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()

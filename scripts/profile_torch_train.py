@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of the port's ResNet-50 train step goes, on one NVIDIA card.
+"""Where the time of the port's ResNet-50 or LM train step goes, on one NVIDIA card.
 
 Run from the root of a checkout, on the machine with the card:
 
-    python3 scripts/profile_torch_train.py [--out DIR] [--reader-sweep]
+    python3 scripts/profile_torch_train.py [--out DIR] [--reader-sweep | --lm]
 
 Builds the full-width ResNet-50 of ``chip_smoke.py``'s training phase
 (1000 classes, bf16, seeded weights) at the fused BN level and at the
@@ -18,6 +18,18 @@ libraries, reductions, copies and casts, other elementwise), and the
 kernels that took the most device time. One JSON line per
 measurement; Chrome traces go to ``--out`` (default
 ``build/profile_torch_train``).
+
+``--lm`` profiles the LM training step instead: the full-width LM of
+``chip_smoke.py``'s LM-training phase (vocab 8192, dim 1024, 8 heads of
+128, 4 layers, seq 2048, batch 8, bf16 compute, flash attention, Adam
+3e-4, seeded weights) on one seeded token batch already on the card. Step
+times: 2 warm-up steps, then 5 between synchronizes; then 2 steps under
+``torch.profiler`` (with shapes): host wall, device busy time, idle share,
+launches per step, and device ms per step by kind: K4 (the flash forward
+kernel), the attention backward (every kernel launched inside
+``attention_backward``, the chunked f32 recompute), bf16 products, f32
+products (the ``lm_head``: the model's only f32 matrix products outside
+the attention backward), and elementwise and other work.
 
 ``--reader-sweep`` runs the port's ``train`` entry on real data instead:
 ``chip_smoke.py``'s 848-row table (``datagen images``, 256 px, 1000
@@ -75,6 +87,93 @@ def by_kind(trace: Path, steps: int) -> tuple[dict[str, float], float]:
     return dict(sorted(totals.items(), key=lambda kv: -kv[1])), launches / steps
 
 
+MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def lm_kinds(trace: Path, steps: int, region: str) -> tuple[dict[str, float], float]:
+    """Device ms per step by kind for the LM step, and launches per step.
+
+    A kernel's launch is found by its correlation id; a kernel launched
+    inside a ``region`` annotation is the attention backward's; otherwise
+    the innermost matrix-product op around its launch (inputs recorded
+    with the profile's shapes) says bf16 or f32 product."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    launch_at: dict = {}
+    regions, products = [], []
+    for e in events:
+        cat, args = e.get("cat"), e.get("args", {})
+        if str(cat).startswith("cuda_") and "correlation" in args:  # the launch API calls
+            launch_at[args["correlation"]] = (e.get("tid"), e["ts"])
+        elif cat == "user_annotation" and e.get("name") == region:
+            regions.append((e["ts"], e["ts"] + e["dur"]))
+        elif cat == "cpu_op" and e.get("name") in MATMULS:
+            products.append((e.get("tid"), e["ts"], e["ts"] + e["dur"],
+                             " ".join(str(t) for t in args.get("Input type", []))))
+    totals: dict[str, float] = {}
+    launches = 0
+    for e in events:
+        if e.get("cat") != "kernel" or "dur" not in e:
+            continue
+        launches += 1
+        tid, ts = launch_at.get(e.get("args", {}).get("correlation"), (None, None))
+        if "flash_fwd" in e["name"] or "flash_combine" in e["name"]:
+            k = "K4"
+        elif ts is not None and any(a <= ts <= b for a, b in regions):
+            k = "attention backward (chunked f32 recompute)"
+        else:
+            around = [p for p in products if p[0] == tid and ts is not None and p[1] <= ts <= p[2]]
+            if not around:
+                k = "elementwise and other"
+            else:
+                types = min(around, key=lambda p: p[2] - p[1])[3]
+                k = "bf16 products" if "BFloat16" in types else "f32 products (lm_head)"
+        totals[k] = totals.get(k, 0.0) + e["dur"] / 1e3 / steps
+    return dict(sorted(totals.items(), key=lambda kv: -kv[1])), launches / steps
+
+
+def lm_profile(torch, out_dir: Path) -> None:
+    import importlib
+
+    from dss_ml_at_scale_tpu_torch.models import seeded_lm
+    from dss_ml_at_scale_tpu_torch.parallel import LMTask
+
+    fa = importlib.import_module("dss_ml_at_scale_tpu_torch.ops.flash_attention")
+    inner = fa.attention_backward
+
+    def annotated(*args, **kwargs):  # marks the recompute's kernels in the trace
+        with torch.profiler.record_function("attention_backward"):
+            return inner(*args, **kwargs)
+
+    fa.attention_backward = annotated
+    model = seeded_lm(0, device="cuda", attention="flash", vocab_size=8192, dim=1024,
+                      num_heads=8, num_layers=4, max_seq=2048)
+    task = LMTask(model=model, learning_rate=3e-4)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, 8192, (8, 2048), generator=gen, device="cuda")}
+    for _ in range(2):
+        task.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        task.train_step(batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(json.dumps({"lm_step_ms": step_ms, "tokens_per_sec": 8 * 2048 / step_ms * 1e3,
+                      "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}),
+          flush=True)
+
+    def steps():
+        for _ in range(2):
+            task.train_step(batch)
+
+    row = profile(torch, "lm_train_2_steps", steps, out_dir, top=12, record_shapes=True)
+    row["step_ms"] = row["wall_ms"] / 2
+    row["device_ms_per_step_by_kind"], row["launches_per_step"] = lm_kinds(
+        out_dir / "lm_train_2_steps.json", 2, "attention_backward")
+    print(json.dumps(row), flush=True)
+
+
 def reader_sweep(torch) -> None:
     import tempfile
 
@@ -104,6 +203,8 @@ def main() -> int:
                         help="directory for the Chrome traces")
     parser.add_argument("--reader-sweep", action="store_true",
                         help="time the train entry on real data under several reader settings")
+    parser.add_argument("--lm", action="store_true",
+                        help="profile the full-width LM train step instead of ResNet-50")
     args = parser.parse_args()
     import torch
 
@@ -124,6 +225,10 @@ def main() -> int:
         return 0
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
+    if args.lm:
+        lm_profile(torch, out_dir)
+        print(f"card: {card}", flush=True)
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = {"image": torch.randn(BATCH, CROP, CROP, 3, generator=gen, device="cuda"),
              "label": torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda")}

@@ -30,12 +30,15 @@ def cuda():
 
 # bf16: the JAX package's bf16 tolerance (tests/test_flash_attention.py:41);
 # f32: its f32 tolerance (:23). The serving buckets (b1 h8 d128 causal,
-# 128/512/1024) and sq < sk take the split path in bf16 on an H100.
+# 128/512/1024) and sq < sk take the split path in bf16 on an H100; b8 h8
+# s2048 d128 is the LM training shape; head_dim 32 is the lm CLI's default.
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
 @pytest.mark.parametrize("b,h,sq,sk,d,causal", [
     (2, 4, 128, 128, 128, True), (2, 4, 64, 192, 64, True), (2, 4, 96, 96, 128, False),
     (2, 4, 32, 32, 64, True), (1, 8, 128, 128, 128, True), (1, 8, 512, 512, 128, True),
     (1, 8, 1024, 1024, 128, True), (1, 8, 256, 1024, 128, True),
+    (2, 4, 128, 128, 32, True), (2, 4, 96, 96, 32, False), (2, 4, 64, 192, 32, True),
+    (1, 8, 1024, 1024, 32, True), (8, 8, 2048, 2048, 128, True),
 ])
 def test_flash_kernel_matches_plain_version(cuda, dtype, atol, b, h, sq, sk, d, causal):
     def mk(s):
@@ -65,6 +68,52 @@ def test_flash_split_path_is_deterministic_and_matches_unsplit(cuda, sq, sk):
     ref = attention_reference(q, k, v, causal=True).float()
     for out in (first, whole):
         assert (out.float() - ref).abs().max().item() <= 2e-2
+
+
+# The Function's backward (the chunked recompute) against autograd through
+# the plain version, in bf16: 2e-2 of max-abs, the forward's bf16 tolerance.
+@pytest.mark.parametrize("b,h,s,d", [(2, 4, 128, 32), (2, 4, 512, 64), (1, 4, 1024, 128),
+                                     (8, 8, 2048, 128), (2, 4, 2048, 32)])
+def test_flash_gradients_match_autograd_through_reference(cuda, b, h, s, d):
+    def leaves():
+        torch.manual_seed(s + d)
+        return [torch.randn(b, h, s, d, device="cuda", dtype=torch.bfloat16).requires_grad_()
+                for _ in range(3)]
+
+    g = torch.randn(b, h, s, d, generator=cuda, device="cuda", dtype=torch.bfloat16)
+    q, k, v = leaves()
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is not None
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1  # the backward launches no forward
+    rq, rk, rv = leaves()
+    attention_reference(rq, rk, rv, causal=True).backward(g)
+    for got, want in ((q.grad, rq.grad), (k.grad, rk.grad), (v.grad, rv.grad)):
+        assert got.dtype == torch.bfloat16 and got.abs().max().item() > 0
+        assert _rel(got, want) <= 2e-2
+    del q, k, v, rq, rk, rv, out
+    torch.cuda.empty_cache()
+
+
+def test_lm_training_grads_through_kernel_match_reference(cuda):
+    """Every block's qkv gradient reaches the kernel's caller: nonzero and
+    within 5e-2 of max-abs of the reference-attention model's."""
+    from dss_ml_at_scale_tpu_torch.models import next_token_loss, seeded_lm
+
+    kw = dict(vocab_size=512, dim=256, num_heads=2, num_layers=2, max_seq=256)
+    flash = seeded_lm(0, device="cuda", attention="flash", **kw)
+    ref = seeded_lm(0, device="cuda", attention="reference", **kw)
+    tokens = torch.randint(0, 512, (2, 256), generator=cuda, device="cuda")
+    before = flash_attention.launches
+    for model in (flash, ref):
+        next_token_loss(model(tokens), tokens).backward()
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    for fb, rb in zip(flash.blocks, ref.blocks):
+        assert fb.qkv.weight.grad.abs().max().item() > 0
+        assert _rel(fb.qkv.weight.grad, rb.qkv.weight.grad) <= 5e-2
 
 
 def test_kernels_opt_in_to_more_than_48kb_of_shared_memory(cuda):

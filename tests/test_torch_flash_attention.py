@@ -7,10 +7,18 @@ version, which is what a CPU tensor takes). Tolerance: 2e-5 in f32, the
 JAX package's own (``tests/test_flash_attention.py:23``). The CUDA kernel
 itself is held against the plain version on the card by ``chip_smoke.py``
 and by ``tests/test_torch_cuda_kernels.py``.
+
+The gradients: the port's autograd Function against ``jax.vjp`` of the JAX
+function (its custom VJP, the chunked recompute), with the same numpy
+cotangent: atol/rtol 1e-4 in f32 (the JAX test's gradient tolerance,
+``tests/test_flash_attention.py:44-56``) and 2e-2 of the max-abs in bf16
+(JAX sums the chunks' dk/dv in the transpose of its ``lax.map``, the port in
+f32, cast once).
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -232,3 +240,101 @@ def test_split_and_combine_matches_jax_kernel(rng, sq, sk):
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=True,
         plan=plan).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def _jax_grads(q, k, v, g, **kw):
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash(q, k, v, **kw),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    return [np.asarray(x, np.float32) for x in vjp(jnp.asarray(g))]
+
+
+def _port_grads(q, k, v, g, **kw):
+    leaves = [torch.from_numpy(np.asarray(a)).requires_grad_() for a in (q, k, v)]
+    out = flash_attention(*leaves, **kw)
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(np.asarray(g)))
+    return [t.grad.float().numpy() for t in leaves]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_gradients_match_jax_several_chunks(rng, causal, d):
+    # block_q 64 at seq 256: four chunks in the backward on both sides.
+    q, k, v = _qkv(rng, sq=256, d=d)
+    g = rng.normal(size=q.shape).astype(np.float32)
+    kw = dict(causal=causal, block_q=64, block_k=64)
+    for got, want in zip(_port_grads(q, k, v, g, **kw), _jax_grads(q, k, v, g, **kw)):
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_gradients_match_jax_sq_lt_sk(rng, causal):
+    q, k, v = _qkv(rng, sq=64, sk=256, d=32)
+    g = rng.normal(size=q.shape).astype(np.float32)
+    kw = dict(causal=causal, block_q=32, block_k=64)
+    for got, want in zip(_port_grads(q, k, v, g, **kw), _jax_grads(q, k, v, g, **kw)):
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_gradients_match_jax_bf16(rng, d):
+    q, k, v = (a.astype(jnp.bfloat16) for a in _qkv(rng, sq=128, d=d))
+    g = rng.normal(size=q.shape).astype(jnp.bfloat16)
+    kw = dict(causal=True, block_q=64, block_k=64)
+    tq, tk, tv, tg = (torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+                      for a in (q, k, v, g))
+    leaves = [t.requires_grad_() for t in (tq, tk, tv)]
+    flash_attention(*leaves, **kw).backward(tg)
+    for t, want in zip(leaves, _jax_grads(q, k, v, g, **kw)):
+        assert t.grad.dtype == torch.bfloat16
+        err = np.abs(t.grad.float().numpy() - want).max()
+        assert err <= 2e-2 * np.abs(want).max()
+
+
+def test_backward_holds_one_chunk_of_scores(rng):
+    """Peak memory is O(chunk x sk): no tensor the backward makes is larger
+    than one chunk's scores (sq x sk is four times that here)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Largest(TorchDispatchMode):
+        numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in torch.utils._pytree.tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    self.numel = max(self.numel, t.numel())
+            return out
+
+    b, h, s, d, chunk = 1, 2, 256, 32, 64
+    leaves = [torch.from_numpy(a).requires_grad_() for a in _qkv(rng, b=b, h=h, sq=s, d=d)]
+    out = flash_attention(*leaves, causal=True, block_q=chunk, block_k=64)
+    with Largest() as mode:
+        out.backward(torch.ones_like(out))
+    assert b * h * chunk * s >= mode.numel >= b * h * s * d
+    assert mode.numel < b * h * s * s
+
+
+def test_backward_is_the_recompute_not_the_forward(rng, monkeypatch):
+    """The backward neither launches the kernel nor calls the forward's
+    plain version, so ``launches`` counts forward launches only."""
+    leaves = [torch.from_numpy(a).requires_grad_() for a in _qkv(rng, sq=128, d=32)]
+    before = flash_attention.launches
+    out = flash_attention(*leaves, causal=True, block_q=64)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the backward ran the forward")
+
+    monkeypatch.setattr(fa_mod, "_launch", forbidden)
+    monkeypatch.setattr(fa_mod, "attention_reference", forbidden)
+    out.sum().backward()
+    assert flash_attention.launches == before
+    assert all(t.grad is not None and t.grad.abs().max() > 0 for t in leaves)
+
+
+def test_no_graph_under_inference_mode(rng):
+    """Serving runs the Function with no autograd graph."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, sq=64, d=32))
+    with torch.inference_mode():
+        out = flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is None and not out.requires_grad

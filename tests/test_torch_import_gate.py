@@ -4,8 +4,9 @@ Under pytest ``tests/conftest.py`` imports jax first, so the runtime check
 runs in a fresh subprocess: it imports every module of the port, serves one
 generation over HTTP on the CPU through the real model, writes a 16-row
 image table and trains the pallas-level ``tiny-bottleneck`` on it through
-the port's ``train`` entry (crop 32, on the CPU), and then lists what got
-loaded. The static scan reads every source file of the port (and
+the port's ``train`` entry (crop 32, on the CPU), takes one LM train step
+through the ``lm`` entry with a checkpoint and one more after restoring it
+(``--resume``), and then lists what got loaded. The static scan reads every source file of the port (and
 ``chip_smoke.py``) for imports of the same.
 """
 
@@ -54,7 +55,16 @@ with contextlib.redirect_stdout(out):
                      "--pallas-fused", "--batch-size", "8", "--crop", "32",
                      "--num-classes", "4", "--epochs", "1", "--device", "cpu"]) == 0
 train = json.loads(out.getvalue().strip().splitlines()[-1])
-print(json.dumps({"done": lines[-1], "train": train, "modules": sorted(sys.modules)}))
+lm = []
+for epochs, extra in (("1", []), ("2", ["--resume"])):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(["lm", "--vocab", "32", "--dim", "32", "--heads", "2", "--layers", "1",
+                         "--seq", "16", "--batch-size", "2", "--steps-per-epoch", "1",
+                         "--limit-val-batches", "1", "--device", "cpu", "--epochs", epochs,
+                         "--checkpoint-dir", work + "/ck", *extra]) == 0
+    lm.append(json.loads(out.getvalue().strip().splitlines()[-1]))
+print(json.dumps({"done": lines[-1], "train": train, "lm": lm, "modules": sorted(sys.modules)}))
 """
 
 
@@ -77,10 +87,13 @@ def test_port_serves_a_generation_without_jax():
     assert report["done"]["tokens"] == 4
     assert report["train"]["steps"] == 2 and report["train"]["device"] == "cpu"
     assert report["train"]["train_loss"] > 0
+    assert [r["steps"] for r in report["lm"]] == [1, 2]
+    assert report["lm"][1]["best_checkpoint"] is not None
     loaded = [m for m in report["modules"] if _forbidden(m)]
     assert loaded == []
     assert "dss_ml_at_scale_tpu_torch.ops.flash_attention" in report["modules"]
     assert "dss_ml_at_scale_tpu_torch.ops.fused_matmul" in report["modules"]
+    assert "dss_ml_at_scale_tpu_torch.resilience.checkpoint" in report["modules"]
 
 
 def _sources():
