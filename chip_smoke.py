@@ -83,7 +83,34 @@ Phases (any failure exits non-zero; there is no CPU path):
    and within 5e-2 of max-abs), and the flash Function's dq/dk/dv at b8 h8
    s2048 d128 bf16 against autograd through the plain version (within 2e-2
    of max-abs, nonzero).
-9. a ``kernels`` JSON line, the card line, and the device JSON line last.
+9. dp: two processes on the one card, joined by gloo (NCCL takes one rank
+   per card), each at batch 106 of the global 212, against one process at
+   batch 212 on the same seeded data made on the card: the pallas-level
+   ResNet-50 at full width takes one DDP step (loss within 2e-2, global BN
+   running statistics within 2e-2 of max-abs, equal on both ranks; K1-K3
+   16 launches each per rank per step), each of the 16 blocks its
+   gradients (conv3, middle-BN gamma/beta summed over the ranks, within
+   5e-2 of max-abs), and ZeRO-1 on and off two steps each (parameters
+   equal, or within 1e-6 of max-abs). The kernels are built before the
+   ranks start; each rank first checks gloo's all-reduce, broadcast and
+   all-gather of CUDA tensors. Then the time of one step's collectives
+   under gloo at 2 ranks and NCCL in a group of one.
+10. train-flags: ``train --pallas-fused --coordinator`` (NCCL, a group of
+   one) with ``--lr-schedule cosine --augment --shard-opt-state
+   --pretrained <seeded ResNet-50 exported by the port> --profile-dir``
+   on the 848-row table: 4 steps, 1 eval batch; finite metrics, K1-K3
+   launches, the trace file, ``dsst_model.json``, an intact checkpoint
+   with consolidated Adam state, the stem still the file's; prints the
+   resolved decode backend.
+11. augment: the device crop of a 212 x 224 x 224 batch against the CPU
+   run of the same (seed, step), within 1e-4 of max-abs (TF32 off); wall
+   ms per step.
+12. decode: native against PIL images/s on the train table's JPEGs, and
+   whether ``jpeglib.h`` is there (native's load error where it does not
+   build).
+13. lm-dp: ``lm --coordinator`` (NCCL, a group of one) at full width and 2
+   layers, 4 steps and 1 val batch; K4's launches exactly.
+14. a ``kernels`` JSON line, the card line, and the device JSON line last.
 """
 
 from __future__ import annotations
@@ -416,6 +443,7 @@ def train_phase(torch) -> dict:
     want = {"K1": 16 * STEPS + 16, "K2": 16 * STEPS, "K3": 16 * STEPS}
     check(launches == want, f"kernel launches {launches}, want {want}")
     return {
+        "tables": [train, val],
         "launches": launches,
         "datagen_s": datagen_s,
         "wall_s": wall,
@@ -784,7 +812,475 @@ def lm_parity_phase(torch) -> dict:
             "qkv_grad_rel_err": qkv_errs, "function_grad_rel_err": fn_errs}
 
 
+# ---------------------------------------------------------------------------
+# Slice 6: data parallelism, train's remaining flags, augment, decode
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2  # ranks of the dp phase, both on the one card (gloo)
+DP_ZERO_STEPS = 2
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Env:
+    """Environment variables set for a block and restored after it."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        import os
+
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_model(torch):
+    """The pallas-level ResNet-50 at full width, seed-0 weights, the last BN
+    scale of every block nonzero (its zero init hides the backward)."""
+    from dss_ml_at_scale_tpu_torch.models import seeded_resnet
+
+    model = seeded_resnet(0, device="cuda", fused_bn="pallas", stage_sizes=[3, 4, 6, 3],
+                          num_classes=1000, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bn3.weight"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02 + 0.1)
+    return model
+
+
+def dp_batch(torch, step: int = 0):
+    """The global batch of step ``step``: 212 seeded images and labels, made
+    on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(10 + step)
+    x = torch.randn(BATCH, 224, 224, 3, generator=gen, device="cuda")
+    return x, torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda")
+
+
+def allreduce_ms(torch, model, trials: int = 3) -> float:
+    """Host ms of the collectives one data-parallel step of ``model`` issues,
+    issued alone on this process group: every BatchNorm's forward sums
+    (2K+1 floats) and backward sums (2K), then the gradient all-reduce of
+    every parameter in f32 (DDP's buckets, as one tensor)."""
+    import torch.distributed as dist
+
+    from dss_ml_at_scale_tpu_torch.models.resnet import PlainBatchNorm
+    from dss_ml_at_scale_tpu_torch.ops.fused_norm import BatchNorm
+
+    widths = [m.weight.numel() for m in model.modules()
+              if isinstance(m, (BatchNorm, PlainBatchNorm))]
+    small = [torch.zeros(2 * k + 1, device="cuda") for k in widths] + [
+        torch.zeros(2 * k, device="cuda") for k in widths]
+    grads = torch.zeros(sum(p.numel() for p in model.parameters()), device="cuda")
+    times = []
+    for _ in range(trials + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in small:
+            dist.all_reduce(t)
+        dist.all_reduce(grads)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def dp_work(torch, rank: int, world: int) -> dict:
+    """What the dp phase computes on rank ``rank`` of ``world`` (world 1:
+    the one-process reference at the global batch): one train step of the
+    whole model under DDP (loss, running statistics, K1-K3 launches); each
+    of the 16 blocks at its full-width shape with one input and one
+    cotangent (its conv3 and middle-BN gradients, summed over the ranks);
+    with ranks, two steps with ZeRO-1 off and on."""
+    import torch.distributed as dist
+
+    from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
+    from dss_ml_at_scale_tpu_torch.parallel import ClassifierTask, Trainer, TrainerConfig
+
+    rows = slice(rank * BATCH // world, (rank + 1) * BATCH // world)
+    out: dict = {"rank": rank, "world": world, "rows": rows.stop - rows.start}
+
+    def step(task, s=0):
+        x, labels = dp_batch(torch, s)
+        return task.train_step({"image": x[rows].contiguous(), "label": labels[rows].contiguous()})
+
+    task = ClassifierTask(model=dp_model(torch), learning_rate=1e-5)
+    Trainer(TrainerConfig(), device="cuda").data_parallel(task)
+    # The main path of this phase: counts set to 0 just before, read after.
+    fm.bn_relu_matmul_fwd.launches = 0
+    fm.bn_relu_matmul_bwd_da.launches = 0
+    fm.bn_relu_matmul_bwd_dw.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(task)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = {"K1": fm.bn_relu_matmul_fwd.launches,
+                       "K2": fm.bn_relu_matmul_bwd_da.launches,
+                       "K3": fm.bn_relu_matmul_bwd_dw.launches}
+    loss = metrics["train_loss"].float().reshape(1)
+    if world > 1:
+        dist.all_reduce(loss)
+        loss /= world
+    out["loss"] = loss.item()
+    out["running"] = {n: b.float().cpu() for n, b in task.model.named_buffers() if "running" in n}
+    del task
+    torch.cuda.empty_cache()
+
+    model = dp_model(torch)
+    grads = {}
+    for li, count in enumerate((3, 4, 6, 3), start=1):
+        for j in range(count):
+            blk = getattr(model, f"layer{li}")[j]
+            hw = 56 >> (li - 1) if j else 56 >> max(li - 2, 0)  # the block's input
+            gen = torch.Generator(device="cuda").manual_seed(100 * li + j)
+            xb = torch.randn(BATCH, hw, hw, blk.conv1.weight.shape[1], generator=gen,
+                             device="cuda", dtype=torch.bfloat16)
+            blk.zero_grad()
+            yb = blk(xb[rows].contiguous())
+            cot = torch.randn((BATCH, *yb.shape[1:]), generator=gen, device="cuda",
+                              dtype=torch.bfloat16)
+            yb.backward(cot[rows].contiguous())
+            for attr in ("conv3.weight", "bn2.weight", "bn2.bias"):
+                g = blk.get_parameter(attr).grad.float()
+                if world > 1:
+                    dist.all_reduce(g)
+                grads[f"layer{li}.{j}.{attr}"] = g.cpu()
+            del xb, yb, cot
+    out["block_grads"] = grads
+    if world > 1:
+        out["allreduce_ms"] = allreduce_ms(torch, model)
+    del model
+    torch.cuda.empty_cache()
+
+    if world > 1:
+        params, state_bytes, warm_ms = {}, {}, {}
+        for zero in (False, True):
+            task = ClassifierTask(model=dp_model(torch), learning_rate=1e-5)
+            Trainer(TrainerConfig(shard_opt_state=zero), device="cuda").data_parallel(task)
+            for s in range(DP_ZERO_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(task, s)
+                torch.cuda.synchronize()
+                warm_ms[zero] = (time.perf_counter() - t0) * 1e3  # kept: the last step's
+            params[zero] = {n: p.detach().float().cpu() for n, p in task.model.named_parameters()}
+            local = task.optimizer.optim if zero else task.optimizer
+            state_bytes[zero] = sum(t.numel() * t.element_size() for st in local.state.values()
+                                    for t in st.values() if torch.is_tensor(t))
+            del task
+            torch.cuda.empty_cache()
+        out["zero1_rel_err"] = max(_rel(params[True][n], params[False][n]) for n in params[False])
+        out["zero1_exact"] = all(torch.equal(params[True][n], params[False][n])
+                                 for n in params[False])
+        out["adam_state_bytes"] = {"replicated": state_bytes[False], "zero1": state_bytes[True]}
+        out["warm_step_ms"] = {"replicated": warm_ms[False], "zero1": warm_ms[True]}
+    return out
+
+
+def dp_rank_main(rank: int, work: str) -> int:
+    """One rank of the dp phase (``chip_smoke.py --dp-rank R --work DIR``,
+    started by the dp phase): checks gloo's collectives on CUDA tensors,
+    then saves :func:`dp_work`'s result in ``DIR``."""
+    import torch
+    import torch.distributed as dist
+
+    from dss_ml_at_scale_tpu_torch.runtime import initialize_distributed, shutdown_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # Bit-identical gradients from run to run, so ZeRO-1 on and off can be
+    # held to equality.
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    initialize_distributed(f"file://{work}/rdzv", DP_WORLD, rank, backend="gloo", device="cuda")
+    try:
+        t = torch.full((4,), float(rank + 1), device="cuda")
+        dist.all_reduce(t)
+        check(t.tolist() == [3.0] * 4, f"gloo all_reduce of a CUDA tensor gave {t.tolist()}")
+        b = torch.full((3,), float(rank), device="cuda")
+        dist.broadcast(b, src=1)
+        check(b.tolist() == [1.0] * 3, f"gloo broadcast of a CUDA tensor gave {b.tolist()}")
+        parts = [torch.empty(2, device="cuda") for _ in range(DP_WORLD)]
+        dist.all_gather(parts, torch.full((2,), float(rank), device="cuda"))
+        check([p.tolist() for p in parts] == [[0.0, 0.0], [1.0, 1.0]],
+              f"gloo all_gather of CUDA tensors gave {[p.tolist() for p in parts]}")
+        torch.save(dp_work(torch, rank, DP_WORLD), Path(work) / f"dp{rank}.pt")
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def dp_phase(torch, card: str) -> dict:
+    """Two processes on the one card (gloo: NCCL takes one rank per card)
+    against one process at the global batch: loss, global BN running
+    statistics, per-block gradients, K1-K3 launches per rank, ZeRO-1 on and
+    off; then the same collectives' time on NCCL in a group of one."""
+    import os
+
+    from dss_ml_at_scale_tpu_torch.runtime import initialize_distributed, shutdown_distributed
+
+    ref = dp_work(torch, 0, 1)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(r),
+                               "--work", work], env=env) for r in range(DP_WORLD)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(rcs == [0] * DP_WORLD, f"dp ranks exited {rcs}")
+    ranks = [torch.load(Path(work) / f"dp{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+    want = {"K1": 16, "K2": 16, "K3": 16}
+    for r in ranks:
+        check(r["launches"] == want, f"dp rank {r['rank']}: kernel launches {r['launches']}, "
+              f"want {want} per step")
+    loss_err = abs(ranks[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+    check(math.isfinite(ranks[0]["loss"]) and loss_err <= PARITY_LOGITS,
+          f"dp loss {ranks[0]['loss']} vs one process {ref['loss']}")
+    stats_err = max(_rel(ranks[0]["running"][n], v) for n, v in ref["running"].items())
+    check(stats_err <= PARITY_LOGITS, f"dp running statistics differ by {stats_err} of max-abs")
+    check(all(torch.equal(ranks[0]["running"][n], ranks[1]["running"][n]) for n in ref["running"]),
+          "the ranks' running statistics differ")
+    grad_errs = {n: _rel(ranks[0]["block_grads"][n], g) for n, g in ref["block_grads"].items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    check(grad_errs[worst] <= PARITY_GRADS,
+          f"dp {worst}: gradient differs by {grad_errs[worst]} of max-abs")
+    check(min(g.abs().max().item() for g in ranks[0]["block_grads"].values()) > 0,
+          "a block gradient is zero")
+    zero = ranks[0]
+    check(zero["zero1_exact"] or zero["zero1_rel_err"] <= 1e-6,
+          f"ZeRO-1 parameters differ from replicated Adam's by {zero['zero1_rel_err']} of max-abs")
+    port = free_port()
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda")  # NCCL, a group of one
+    try:
+        model = dp_model(torch)
+        nccl_ms = allreduce_ms(torch, model)
+        del model
+    finally:
+        shutdown_distributed()
+    torch.cuda.empty_cache()
+    result = {
+        "ranks": DP_WORLD, "rows_per_rank": ranks[0]["rows"],
+        "launches_per_rank": [r["launches"] for r in ranks],
+        "loss": ranks[0]["loss"], "loss_one_process": ref["loss"], "loss_rel_err": loss_err,
+        "running_stats_rel_err_max": stats_err,
+        "block_grad_rel_err_max": grad_errs[worst], "block_grads_checked": len(grad_errs),
+        "zero1_exact": zero["zero1_exact"], "zero1_rel_err": zero["zero1_rel_err"],
+        "adam_state_bytes_per_rank": zero["adam_state_bytes"],
+        "first_step_ms_two_ranks": [r["step_ms"] for r in ranks],
+        "first_step_ms_one_process": ref["step_ms"],
+        "second_step_ms_two_ranks": [r["warm_step_ms"] for r in ranks],
+        "allreduce_ms_per_step_gloo_2_ranks": [r["allreduce_ms"] for r in ranks],
+        "allreduce_ms_per_step_nccl_1_rank": nccl_ms,
+    }
+    print(f"dp ({card}; two ranks on one card are no scaling result): " + json.dumps(result),
+          flush=True)
+    return result
+
+
+def train_flags_phase(torch, tables, card: str) -> dict:
+    """``train`` through ``--coordinator`` (NCCL, a group of one) with the
+    cosine schedule, on-device augmentation, ZeRO-1, pretrained weights
+    exported from seeded ones, a profiling window and checkpoints."""
+    from dss_ml_at_scale_tpu_torch.config import cli
+    from dss_ml_at_scale_tpu_torch.models import seeded_resnet
+    from dss_ml_at_scale_tpu_torch.models.pretrained import export_torchvision
+    from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
+    from dss_ml_at_scale_tpu_torch.resilience import checkpoint as integrity
+
+    train, val = tables
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_flags_"))
+    source = seeded_resnet(7, device="cpu", stage_sizes=[3, 4, 6, 3], num_classes=1000,
+                           torch_padding=True, fused_bn="pallas")
+    export_torchvision(source, work / "pretrained.npz")
+    args = cli.build_parser().parse_args([
+        "train", "--data", train, "--val-data", val, "--model", "resnet50", "--pallas-fused",
+        "--batch-size", str(BATCH), "--crop", "224", "--num-classes", "1000", "--epochs", "1",
+        "--limit-val-batches", "1", "--coordinator", f"127.0.0.1:{free_port()}",
+        "--lr-schedule", "cosine", "--augment", "--shard-opt-state",
+        "--pretrained", str(work / "pretrained.npz"), "--profile-dir", str(work / "trace"),
+        "--profile-start-step", "1", "--profile-num-steps", "2",
+        "--checkpoint-dir", str(work / "ckpt"),
+    ])
+    # The main path: counts set to 0 just before, read just after.
+    fm.bn_relu_matmul_fwd.launches = 0
+    fm.bn_relu_matmul_bwd_da.launches = 0
+    fm.bn_relu_matmul_bwd_dw.launches = 0
+    t0 = time.perf_counter()
+    with _Env(NUM_PROCESSES="1", PROCESS_ID="0"):
+        summary = cli.run_train(args)
+    wall = time.perf_counter() - t0
+    launches = {"K1": fm.bn_relu_matmul_fwd.launches, "K2": fm.bn_relu_matmul_bwd_da.launches,
+                "K3": fm.bn_relu_matmul_bwd_dw.launches}
+    epoch = summary["history"][0]
+    check(summary["steps"] == STEPS, f"train-flags ran {summary['steps']} steps, want {STEPS}")
+    check(summary["process_count"] == 1, f"train-flags process count {summary['process_count']}")
+    for key in ("train_loss", "train_acc", "grad_norm", "val_loss", "val_acc"):
+        check(key in epoch and math.isfinite(epoch[key]), f"train-flags metric {key}")
+    want = {"K1": 16 * STEPS + 16, "K2": 16 * STEPS, "K3": 16 * STEPS}
+    check(launches == want, f"train-flags kernel launches {launches}, want {want}")
+    traces = sorted(p.name for p in (work / "trace").glob("*.json"))
+    check(traces == ["trace_rank0_steps1-3.json"], f"train-flags traces {traces}")
+    meta = json.loads((work / "ckpt" / "dsst_model.json").read_text())
+    check(meta["torch_padding"] is True and meta["lr_schedule"] == "cosine"
+          and meta["decay_steps"] == STEPS, f"train-flags dsst_model.json {meta}")
+    report = integrity.verify_checkpoint_dir(work / "ckpt")
+    check([r["step"] for r in report] == [STEPS] and report[0]["status"] == "intact",
+          f"train-flags checkpoints {report}")
+    state = torch.load(work / "ckpt" / str(STEPS) / "state.pt", map_location="cpu",
+                       weights_only=True)
+    # Adam moves a weight by a few lr (1e-5) at most in a step: the
+    # trained stem is the pretrained file's within four such steps.
+    drift = (state["model"]["conv1.weight"] - source.state_dict()["conv1.weight"]).abs().max()
+    check(drift.item() <= 4 * 3e-5, f"train-flags stem moved {drift.item()} from the file")
+    check(len(state["optimizer"]["state"]) == len(list(source.parameters())),
+          "the ZeRO-1 checkpoint lacks consolidated optimizer state")
+    print(f"train-flags: decode backend {summary['decode_backend']} (auto resolved)", flush=True)
+    result = {
+        "launches": launches, "wall_s": wall, "decode_backend": summary["decode_backend"],
+        "traces": traces, "trace_bytes": (work / "trace" / traces[0]).stat().st_size,
+        "train_loss": epoch["train_loss"], "val_loss": epoch["val_loss"],
+        "images_per_sec_steps_2_4": epoch.get("steady_images_per_sec"),
+        "step_ms_steps_2_4": epoch.get("steady_step_time_s", math.nan) * 1e3,
+        "stem_drift_from_pretrained": drift.item(),
+    }
+    print(f"train-flags ({card}): " + json.dumps(result), flush=True)
+    return result
+
+
+def augment_phase(torch, card: str) -> dict:
+    """The device crop against the CPU run of the same (seed, step) and
+    batch, TF32 off; wall ms per step (host draws, device crop) and the
+    crop's device ms alone."""
+    from dss_ml_at_scale_tpu_torch.data.augment import (
+        AugmentConfig, ThreefryKey, augment_for_step, crop_flip, draws,
+    )
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(BATCH, 224, 224, 3, generator=gen)
+    want = augment_for_step(3, x, 224)
+    xd = x.cuda()
+    got = augment_for_step(3, xd, 224)
+    torch.cuda.synchronize()
+    err = _rel(got.cpu(), want)
+    check(bool(torch.isfinite(got).all()) and err <= 1e-4,
+          f"augment: device crop differs from the CPU's by {err} of max-abs")
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        augment_for_step(3, xd, 224)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    drawn = [torch.as_tensor(d, device="cuda") for d in
+             draws(ThreefryKey.from_seed(0).fold_in(3), BATCH, 224, 224, AugmentConfig())]
+    result = {"rel_err": err, "wall_ms_per_step": statistics.median(times),
+              "crop_device_ms": device_ms(lambda: crop_flip(xd, 224, *drawn), 10),
+              "batch": BATCH, "crop": 224}
+    print(f"augment ({card}): " + json.dumps(result), flush=True)
+    del xd, got
+    torch.cuda.empty_cache()
+    return result
+
+
+def decode_phase(tables, card: str) -> dict:
+    """Native against PIL decode of the train table's JPEGs on this host;
+    where native does not build, its load error."""
+    import os
+
+    import numpy as np
+    import pyarrow.parquet as pq
+
+    from dss_ml_at_scale_tpu_torch import native
+    from dss_ml_at_scale_tpu_torch.data import DeltaTable
+    from dss_ml_at_scale_tpu_torch.data.transform import decode_resize_crop
+
+    jpegs = pq.read_table(DeltaTable(tables[0]).file_uris(), columns=["content"]).column(
+        "content").to_pylist()
+    result = {"jpeglib_h": Path("/usr/include/jpeglib.h").exists(), "images": len(jpegs),
+              "host_cores": os.cpu_count()}
+    print(f"decode: jpeglib.h {'found' if result['jpeglib_h'] else 'missing'} "
+          "under /usr/include", flush=True)
+    t0 = time.perf_counter()
+    pil = np.stack([decode_resize_crop(b) for b in jpegs[:BATCH]])
+    result["pil_images_per_sec_1_thread"] = BATCH / (time.perf_counter() - t0)
+    if native.native_available():
+        for threads, key in ((1, "native_images_per_sec_1_thread"),
+                             (None, "native_images_per_sec_all_cores")):
+            t0 = time.perf_counter()
+            images, ok = native.decode_jpeg_batch(jpegs, num_threads=threads)
+            result[key] = len(jpegs) / (time.perf_counter() - t0)
+            check(bool(ok.all()), "native decode rejected a JPEG of the table")
+        diff = np.abs(images[:BATCH] - pil)
+        result["native_vs_pil_mean_abs"] = float(diff.mean())
+        result["native_vs_pil_max_abs"] = float(diff.max())
+        check(diff.mean() < 0.01 and diff.max() < 0.15,
+              f"native decode differs from PIL by mean {diff.mean()} max {diff.max()}")
+    else:
+        result["native_load_error"] = native.load_error()
+        print(f"decode: native unavailable: {native.load_error()}", flush=True)
+    print(f"decode ({card}; host CPU): " + json.dumps(result), flush=True)
+    return result
+
+
+def lm_dp_phase(torch, card: str) -> dict:
+    """``lm --coordinator`` on NCCL in a group of one, at full width and half
+    the depth of the LM-training phase: 4 steps and 1 val batch."""
+    from dss_ml_at_scale_tpu_torch.config import cli
+    from dss_ml_at_scale_tpu_torch.ops.flash_attention import flash_attention
+
+    layers, steps = 2, 4
+    argv = [a for a in LM_TRAIN]
+    argv[argv.index("--layers") + 1] = str(layers)
+    argv[argv.index("--steps-per-epoch") + 1] = str(steps)
+    argv[argv.index("--limit-val-batches") + 1] = "1"
+    args = cli.build_parser().parse_args(
+        ["lm", *argv, "--epochs", "1", "--coordinator", f"127.0.0.1:{free_port()}"])
+    # The main path: counts set to 0 just before, read just after.
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    with _Env(NUM_PROCESSES="1", PROCESS_ID="0"):
+        summary = cli.run_lm(args)
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    check(launches == layers * (steps + 1), f"lm-dp: K4 launched {launches} times, "
+          f"want {layers * (steps + 1)}")
+    check(summary["steps"] == steps and summary["process_count"] == 1,
+          f"lm-dp ran {summary['steps']} steps in {summary['process_count']} processes")
+    for key in ("train_loss", "val_loss", "val_ppl"):
+        check(math.isfinite(summary[key]), f"lm-dp metric {key}: {summary[key]}")
+    result = {"launches": launches, "wall_s": wall, "layers": layers,
+              **{k: summary[k] for k in ("steps", "train_loss", "val_loss", "tokens_per_sec",
+                                         "steady_tokens_per_sec", "device")}}
+    print(f"lm-dp ({card}): " + json.dumps(result), flush=True)
+    return result
+
+
 def main() -> int:
+    if "--dp-rank" in sys.argv:  # one rank of the dp phase, started by it
+        return dp_rank_main(int(sys.argv[sys.argv.index("--dp-rank") + 1]),
+                            sys.argv[sys.argv.index("--work") + 1])
     import torch
     import torch.nn.functional as F
 
@@ -837,11 +1333,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     parity = parity_phase(torch)
     print(f"parity ({kind}; {card}): " + json.dumps(parity), flush=True)
+    dp = dp_phase(torch, card)
+    flags = train_flags_phase(torch, training["tables"], card)
+    torch.cuda.empty_cache()
+    augment_phase(torch, card)
+    decode_phase(training["tables"], card)
     serving = slice_phase(torch)
     print(f"serving ({kind}; {card}): " + json.dumps(serving), flush=True)
     torch.cuda.empty_cache()
     lm_train = lm_train_phase(torch, card)
     print(f"lm-train ({kind}; {card}): " + json.dumps(lm_train), flush=True)
+    torch.cuda.empty_cache()
+    lm_dp = lm_dp_phase(torch, card)
     torch.cuda.empty_cache()
     lm_parity = lm_parity_phase(torch)
     print(f"lm-parity ({kind}; {card}): " + json.dumps(lm_parity), flush=True)
@@ -853,8 +1356,9 @@ def main() -> int:
         "route": "cuda",
         "source": "dss_ml_at_scale_tpu_torch/csrc/flash_attention.cu",
         "replaces": "dss_ml_at_scale_tpu/ops/flash_attention.py:70",
-        "launches": serving["launches"] + lm_train["launches"],
-        "launches_by_path": {"serving": serving["launches"], "lm_train": lm_train["launches"]},
+        "launches": serving["launches"] + lm_train["launches"] + lm_dp["launches"],
+        "launches_by_path": {"serving": serving["launches"], "lm_train": lm_train["launches"],
+                             "lm_dp": lm_dp["launches"]},
         "training": {k: train_case[k] for k in ("shape", "max_abs_err", "mean_rel_err", "ms",
                                                 "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")},
@@ -876,7 +1380,11 @@ def main() -> int:
             "route": "cuda",
             "source": "dss_ml_at_scale_tpu_torch/csrc/fused_matmul.cu",
             "replaces": "dss_ml_at_scale_tpu/ops/fused_matmul.py" + line,
-            "launches": training["launches"][key],
+            "launches": (training["launches"][key] + flags["launches"][key]
+                         + sum(r[key] for r in dp["launches_per_rank"])),
+            "launches_by_path": {"train": training["launches"][key],
+                                 "train_flags": flags["launches"][key],
+                                 "dp_per_rank": [r[key] for r in dp["launches_per_rank"]]},
             "max_abs_err": max(c["max_abs_err"] for c in fused[key]),
             "ms": head["ms"],
             "plain_ms": head["plain_ms"],

@@ -5,22 +5,32 @@ Ports of the JAX package's commands (``config/commands.py``):
 - ``serve-lm``: the same flags, plus ``--device``. The run-tracking flags
   wait for the port of the tracking store.
 - ``datagen images``: the synthetic JPEG-grating Delta table.
-- ``train``: single-card image-classifier training from a Delta table,
+- ``train``: data-parallel image-classifier training from a Delta table,
   with the JAX command's flags that the port supports (names and
-  defaults kept), plus ``--device``; ``--checkpoint-dir`` and ``--resume``
-  as in ``lm``. Health, tracking, profiling, augmentation, the pretrained
-  loader, the ViT models and multi-host training wait for their ports.
-- ``lm``: single-card TransformerLM training on the seeded Markov token
-  stream, with the JAX command's flags and defaults, plus ``--device``:
-  flash or reference attention, a constant or cosine learning rate (the
-  trajectory persisted as ``dsst_lm.json`` beside the checkpoints, for a
-  flag-less ``--resume``), checkpoints, resume, and ``--sample`` scoring.
-  ``--ffn moe``, ``--resume-auto``, the health flags, the tracking flags
-  (``--no-tracking`` is what the port does anyway) and ``--coordinator``
-  raise an error naming the later slice that brings them.
+  defaults kept), plus ``--device``: ``--coordinator`` (one process per
+  card, each reading its own shard), ``--shard-opt-state`` (ZeRO-1),
+  ``--lr-schedule``/``--warmup-steps``, on-device ``--augment``,
+  ``--pretrained`` torchvision-layout weights, the native decoder and
+  ``--fast-decode``, ``--profile-dir``, checkpoints and ``--resume``; the
+  model's padding and the learning-rate trajectory persist as
+  ``dsst_model.json`` beside the checkpoints, for a flag-less
+  ``--resume``. Health, tracking and the ViT models wait for their ports.
+- ``lm``: TransformerLM training on the seeded Markov token stream, with
+  the JAX command's flags and defaults, plus ``--device``: flash or
+  reference attention, a constant or cosine learning rate (the trajectory
+  persisted as ``dsst_lm.json`` beside the checkpoints, for a flag-less
+  ``--resume``), checkpoints, resume, ``--sample`` scoring and
+  ``--coordinator`` (each process draws its own trajectory of the chain).
+  ``--ffn moe``, ``--resume-auto``, the health flags and the tracking
+  flags (``--no-tracking`` is what the port does anyway) raise an error
+  naming the later slice that brings them.
 
 ``--device`` defaults to ``cuda``; a missing card is an error, never a
-silent CPU run.
+silent CPU run. With ``--coordinator`` (or ``COORDINATOR_ADDRESS``) the
+command joins a process group of ``NUM_PROCESSES`` processes as
+``PROCESS_ID``; a bare ``--device cuda`` then means the card
+``PROCESS_ID % cards``, and ``--batch-size`` is per process, as in JAX,
+where one process drives every chip of its host.
 """
 
 from __future__ import annotations
@@ -162,19 +172,31 @@ def _register_train(sub) -> None:
     from .checkpoints import CLASSIFIERS
 
     tr = sub.add_parser(
-        "train", help="single-card image-classifier training from a Delta table")
+        "train", help="data-parallel image-classifier training from a Delta table")
     tr.add_argument("--data", required=True, help="train Delta table (content/label_index)")
     tr.add_argument("--val-data", default=None, help="validation Delta table")
     tr.add_argument("--epochs", type=int, default=2)
-    tr.add_argument("--batch-size", type=int, default=212)
+    tr.add_argument("--batch-size", type=int, default=212,
+                    help="rows per step of each process (the global batch is this "
+                    "times the number of processes)")
     tr.add_argument("--learning-rate", type=float, default=1e-5)
+    _add_lr_schedule_args(tr)
     tr.add_argument("--num-classes", type=int, default=1000)
     tr.add_argument("--crop", type=int, default=224)
     tr.add_argument("--model", choices=list(CLASSIFIERS), default="resnet50")
     tr.add_argument(
-        "--torch-padding", action=argparse.BooleanOptionalAction, default=False,
-        help="torchvision-style symmetric stride-2 padding (default: off, "
-        "XLA SAME padding as in the JAX package)",
+        "--pretrained", default=None, metavar="PATH",
+        help="torchvision-layout state dict (.pt/.pth/.npz) to fine-tune "
+        "from instead of cold-starting (reference 2...py:150); builds the "
+        "model with torch_padding=True for numerical parity; a head whose "
+        "class count differs from --num-classes is freshly initialized",
+    )
+    tr.add_argument(
+        "--torch-padding", action=argparse.BooleanOptionalAction, default=None,
+        help="force torchvision-style symmetric stride-2 padding (or "
+        "--no-torch-padding to force it off); default: True with "
+        "--pretrained, else the value persisted in the checkpoint dir, else "
+        "False (XLA SAME padding, as in the JAX package)",
     )
     tr.add_argument(
         "--fused-bn", action=argparse.BooleanOptionalAction, default=True,
@@ -190,10 +212,22 @@ def _register_train(sub) -> None:
     )
     tr.add_argument("--eval-topk", type=int, nargs="*", default=[],
                     help="extra top-k val accuracies (e.g. --eval-topk 5)")
+    tr.add_argument(
+        "--augment", action="store_true",
+        help="on-device train-time RandomResizedCrop + horizontal flip "
+        "inside the train step (data/augment.py), keyed by the training "
+        "step, so resume replays the identical crop schedule; eval never "
+        "augments",
+    )
     tr.add_argument("--workers", type=int, default=2)
     tr.add_argument("--queue-size", type=int, default=20)
     tr.add_argument("--feeder-depth", type=int, default=2,
                     help="bound of the feeder's on-device batch queue")
+    tr.add_argument(
+        "--shard-opt-state", action="store_true",
+        help="ZeRO-1: shard Adam's state over the processes instead of "
+        "replicating it (same math, ~world-size less optimizer memory)",
+    )
     tr.add_argument(
         "--image-dtype", choices=["float32", "uint8"], default="float32",
         help="uint8 ships raw bytes to the device and normalizes inside the "
@@ -201,17 +235,50 @@ def _register_train(sub) -> None:
     )
     tr.add_argument(
         "--decode-backend", choices=["auto", "native", "pil"], default="auto",
-        help="JPEG decode path; the port has the PIL path only, and auto "
-        "resolves to it (reported in the run summary)",
+        help="JPEG decode path: the C++ pool, pure-PIL, or auto (native "
+        "when it compiles, per-image PIL fallback); the resolved backend "
+        "is reported in the run summary",
+    )
+    tr.add_argument(
+        "--fast-decode", action="store_true",
+        help="DCT-domain scaled decode for large sources (PIL draft-mode "
+        "equivalent; native backend only): pixel values slightly off "
+        "full-decode parity",
     )
     tr.add_argument("--on-decode-error", choices=["raise", "substitute"], default="raise")
     tr.add_argument("--shuffle", action=argparse.BooleanOptionalAction, default=True,
                     help="shuffle row groups per epoch (seeded)")
     tr.add_argument("--limit-val-batches", type=int, default=5)
     _add_checkpoint_args(tr)
+    tr.add_argument("--profile-dir", default=None,
+                    help="torch.profiler Chrome trace of a window of steps, one file "
+                    "per process")
+    tr.add_argument("--profile-start-step", type=int, default=5,
+                    help="first step of the --profile-dir window (the JAX trainer's 5)")
+    tr.add_argument("--profile-num-steps", type=int, default=5,
+                    help="steps in the --profile-dir window")
+    _add_coordinator_arg(tr)
     tr.add_argument("--device", default="cuda",
                     help="torch device of the model (cuda, cuda:N, or cpu)")
     tr.set_defaults(fn=_cmd_train)
+
+
+def _add_coordinator_arg(parser) -> None:
+    parser.add_argument(
+        "--coordinator", default=None,
+        help="host:port for multi-process rendezvous (process 0); with "
+        "NUM_PROCESSES and PROCESS_ID from the environment, one process per card")
+
+
+def _add_lr_schedule_args(parser) -> None:
+    parser.add_argument(
+        "--lr-schedule", choices=["constant", "cosine"], default=None,
+        help="cosine: linear warmup then cosine decay to 0 over the run's "
+        "total steps. Default: the value persisted in the checkpoint dir "
+        "(flag-less --resume keeps the trained schedule), else constant")
+    parser.add_argument("--warmup-steps", type=int, default=None,
+                        help="warmup length for --lr-schedule cosine (default: 5%% "
+                        "of total steps)")
 
 
 def _add_checkpoint_args(parser) -> None:
@@ -229,13 +296,9 @@ def _add_checkpoint_args(parser) -> None:
 def run_train(args: argparse.Namespace) -> dict:
     """What ``train`` does, returning its summary (with the per-epoch
     history) instead of printing it. Raises ``ValueError`` for flags that do
-    not fit together or that the port does not support."""
-    import torch
-
-    from ..data import DeltaTable, batch_loader, make_batch_reader
-    from ..data.transform import imagenet_transform_spec
-    from ..parallel import ClassifierTask, Trainer, TrainerConfig
-    from .checkpoints import build_classifier_model
+    not fit together or that the port does not support. With a coordinator
+    this process joins the process group for the run and leaves it after."""
+    from ..runtime import initialize_distributed, shutdown_distributed
 
     fused_bn = args.fused_bn
     if args.pallas_fused:
@@ -249,32 +312,89 @@ def run_train(args: argparse.Namespace) -> dict:
     for k in args.eval_topk:
         if not 1 <= k <= args.num_classes:
             raise ValueError(f"--eval-topk {k} must be in [1, num_classes={args.num_classes}]")
-    device = torch.device(args.device)
+    joined = initialize_distributed(args.coordinator, device=args.device)
+    try:
+        return _train(args, fused_bn)
+    finally:
+        if joined:
+            shutdown_distributed()
+
+
+def _train(args: argparse.Namespace, fused_bn) -> dict:
+    from ..data import DeltaTable, batch_loader, make_batch_reader
+    from ..data.augment import AugmentConfig
+    from ..data.transform import imagenet_transform_spec
+    from ..parallel import ClassifierTask, Trainer, TrainerConfig
+    from ..resilience import checkpoint as integrity
+    from ..resilience import durability
+    from ..runtime import local_topology, process_device
+    from .checkpoints import build_classifier_model
+
+    topo = local_topology()
+    device = process_device(args.device)
     table = DeltaTable(args.data)
     rows = table.num_records()
     spec = imagenet_transform_spec(crop=args.crop, backend=args.decode_backend,
                                    output_dtype=args.image_dtype,
-                                   on_error=args.on_decode_error)
+                                   on_error=args.on_decode_error, fast_decode=args.fast_decode)
+    meta_path = Path(args.checkpoint_dir) / "dsst_model.json" if args.checkpoint_dir else None
+    meta = (json.loads(meta_path.read_text())
+            if meta_path is not None and meta_path.exists() else {})
+    # Pretrained torchvision weights embed symmetric stride-2 padding in
+    # their BatchNorm statistics; the choice persists beside the
+    # checkpoints, so a flag-less --resume rebuilds the same model.
+    if args.torch_padding is not None:
+        torch_padding = args.torch_padding
+    elif args.pretrained:
+        torch_padding = True
+    else:
+        torch_padding = bool(meta.get("torch_padding", False))
+    steps_per_epoch = topo.steps_per_epoch(rows, args.batch_size)
+    lr = resolve_lr_schedule(args, meta, total_steps=steps_per_epoch * args.epochs)
+    meta.update(torch_padding=torch_padding, model=args.model, num_classes=args.num_classes,
+                crop=args.crop, fused_bn=fused_bn)
+    labels_file = Path(args.data) / "labels.json"
+    if labels_file.exists():
+        names = [None] * args.num_classes
+        for name, idx in json.loads(labels_file.read_text()).items():
+            if 0 <= int(idx) < args.num_classes:
+                names[int(idx)] = name
+        meta["label_names"] = names
+    if meta_path is not None and topo.is_coordinator:
+        meta_path.parent.mkdir(parents=True, exist_ok=True)
+        durability.durable_write_json(meta_path, meta)
     model = build_classifier_model(
         args.model, num_classes=args.num_classes,
-        torch_padding=args.torch_padding, fused_bn=fused_bn, device=device)
-    task = ClassifierTask(model=model, learning_rate=args.learning_rate,
-                          eval_topk=tuple(args.eval_topk))
+        torch_padding=torch_padding, fused_bn=fused_bn, device=device)
+    restoring = (args.resume and args.checkpoint_dir is not None
+                 and bool(integrity.list_steps(args.checkpoint_dir)))
+    if args.pretrained and not restoring:
+        # A restore would overwrite these weights: skip the load then.
+        from ..models.pretrained import load_pretrained_resnet
+
+        load_pretrained_resnet(args.pretrained, model)
+    task = ClassifierTask(model=model, learning_rate=lr, eval_topk=tuple(args.eval_topk),
+                          augment=AugmentConfig() if args.augment else None)
     trainer = Trainer(TrainerConfig(max_epochs=args.epochs, total_train_rows=rows,
                                     limit_val_batches=args.limit_val_batches,
                                     checkpoint_dir=args.checkpoint_dir, resume=args.resume,
-                                    feeder_depth=args.feeder_depth), device=device)
+                                    feeder_depth=args.feeder_depth,
+                                    profile_dir=args.profile_dir,
+                                    profile_start_step=args.profile_start_step,
+                                    profile_num_steps=args.profile_num_steps,
+                                    shard_opt_state=args.shard_opt_state), device=device)
+    shard = dict(cur_shard=topo.process_index, shard_count=topo.process_count)
     val_factory = None
     if args.val_data:
         val_table = DeltaTable(args.val_data)
 
         def val_factory():
             return make_batch_reader(val_table, batch_size=args.batch_size, num_epochs=1,
-                                     transform_spec=spec, shuffle_row_groups=False)
+                                     transform_spec=spec, shuffle_row_groups=False, **shard)
 
     with batch_loader(table, batch_size=args.batch_size, num_epochs=None,
                       workers_count=args.workers, results_queue_size=args.queue_size,
-                      transform_spec=spec, shuffle_row_groups=args.shuffle) as reader:
+                      transform_spec=spec, shuffle_row_groups=args.shuffle, **shard) as reader:
         result = trainer.fit(task, reader, val_data_factory=val_factory)
     last = result.history[-1] if result.history else {}
     return {
@@ -287,7 +407,10 @@ def run_train(args: argparse.Namespace) -> dict:
         "best_checkpoint": result.best_checkpoint_path,
         "decode_backend": spec.backend,
         "decode_substitutions": spec.substitutions.count,
+        "lr_schedule": meta["lr_schedule"],
         "device": str(device),
+        "process_index": topo.process_index,
+        "process_count": topo.process_count,
         "history": result.history,
     }
 
@@ -318,7 +441,6 @@ _LM_LATER = (
     ("--max-rollbacks", "max_rollbacks", None, "the health supervisor (Queue 1 item 7)"),
     ("--experiment", "experiment", None, "run tracking (Queue 1 item 7)"),
     ("--tracking-root", "tracking_root", None, "run tracking (Queue 1 item 7)"),
-    ("--coordinator", "coordinator", None, "multi-host training (Queue 1 item 7)"),
 )
 
 
@@ -326,7 +448,7 @@ def _register_lm(sub) -> None:
     lm = sub.add_parser(
         "lm",
         help="train a Transformer LM on a synthetic Markov token stream "
-        "(flash attention) on one card",
+        "(flash attention), on one card or data-parallel over several",
     )
     lm.add_argument("--vocab", type=int, default=256)
     lm.add_argument("--dim", type=int, default=128)
@@ -355,14 +477,7 @@ def _register_lm(sub) -> None:
         help="after training, greedy-generate N tokens from the trained "
         "model (KV-cached decode) and report the mean TRUE-chain "
         "probability of the generated transitions (uniform chance is 1/vocab)")
-    lm.add_argument(
-        "--lr-schedule", choices=["constant", "cosine"], default=None,
-        help="cosine: linear warmup then cosine decay to 0 over the run's "
-        "total steps. Default: the value persisted in the checkpoint dir "
-        "(flag-less --resume keeps the trained schedule), else constant")
-    lm.add_argument("--warmup-steps", type=int, default=None,
-                    help="warmup length for --lr-schedule cosine (default: 5%% "
-                    "of total steps)")
+    _add_lr_schedule_args(lm)
     _add_checkpoint_args(lm)
     lm.add_argument("--resume-auto", action="store_true", help="not ported yet")
     lm.add_argument("--feeder-depth", type=int, default=2,
@@ -377,7 +492,7 @@ def _register_lm(sub) -> None:
     lm.add_argument("--tracking-root", default=None, help="not ported yet")
     lm.add_argument("--no-tracking", action="store_true",
                     help="accepted: the port keeps no run store yet")
-    lm.add_argument("--coordinator", default=None, help="not ported yet")
+    _add_coordinator_arg(lm)
     lm.add_argument("--device", default="cuda",
                     help="torch device of the model (cuda, cuda:N, or cpu)")
     lm.set_defaults(fn=_cmd_lm)
@@ -418,7 +533,26 @@ def resolve_lr_schedule(args: argparse.Namespace, meta: dict, total_steps: int):
 def run_lm(args: argparse.Namespace) -> dict:
     """What ``lm`` does, returning its summary (with the per-epoch history)
     instead of printing it. Raises ``ValueError`` for flags that do not fit
-    together or that the port does not support yet."""
+    together or that the port does not support yet. With a coordinator this
+    process joins the process group for the run and leaves it after."""
+
+    from ..runtime import initialize_distributed, shutdown_distributed
+
+    for flag, attr, off, later in _LM_LATER:
+        if getattr(args, attr) != off:
+            raise ValueError(f"lm {flag} is not ported yet: it comes with {later}")
+    if args.sample > 0 and args.seq <= 4:
+        raise ValueError("--sample needs --seq > 4 (4 prompt tokens + at least one "
+                         "generated token must fit in max_seq)")
+    joined = initialize_distributed(args.coordinator, device=args.device)
+    try:
+        return _lm(args)
+    finally:
+        if joined:
+            shutdown_distributed()
+
+
+def _lm(args: argparse.Namespace) -> dict:
     import numpy as np
     import torch
 
@@ -428,14 +562,10 @@ def run_lm(args: argparse.Namespace) -> dict:
     from ..models import generate, seeded_lm
     from ..parallel import LMTask, Trainer, TrainerConfig
     from ..resilience import durability
+    from ..runtime import local_topology, process_device
 
-    for flag, attr, off, later in _LM_LATER:
-        if getattr(args, attr) != off:
-            raise ValueError(f"lm {flag} is not ported yet: it comes with {later}")
-    if args.sample > 0 and args.seq <= 4:
-        raise ValueError("--sample needs --seq > 4 (4 prompt tokens + at least one "
-                         "generated token must fit in max_seq)")
-    device = torch.device(args.device)
+    topo = local_topology()
+    device = process_device(args.device)
     stream = TokenStreamConfig(vocab_size=args.vocab, batch_size=args.batch_size,
                                seq_len=args.seq, concentration=args.concentration,
                                seed=args.seed)
@@ -448,7 +578,7 @@ def run_lm(args: argparse.Namespace) -> dict:
     meta = (json.loads(meta_path.read_text())
             if meta_path is not None and meta_path.exists() else {})
     lr = resolve_lr_schedule(args, meta, total_steps=args.steps_per_epoch * args.epochs)
-    if meta_path is not None:
+    if meta_path is not None and topo.is_coordinator:
         meta_path.parent.mkdir(parents=True, exist_ok=True)
         durability.durable_write_json(meta_path, meta)
     task = LMTask(model=model, learning_rate=lr)
@@ -456,8 +586,10 @@ def run_lm(args: argparse.Namespace) -> dict:
         max_epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
         limit_val_batches=args.limit_val_batches, checkpoint_dir=args.checkpoint_dir,
         resume=args.resume, feeder_depth=args.feeder_depth), device=device)
+    # Each process draws its own trajectory of the same chain (the
+    # multi-process counterpart of a reader shard); eval shares one seed.
     result = trainer.fit(
-        task, token_batches(stream, sample_seed=args.seed + 1),
+        task, token_batches(stream, sample_seed=args.seed + 1 + topo.process_index),
         val_data_factory=lambda: token_batches(
             stream, num_batches=args.limit_val_batches, sample_seed=args.seed + 100_000),
     )
@@ -474,6 +606,8 @@ def run_lm(args: argparse.Namespace) -> dict:
         "steady_data_wait_s": last.get("steady_data_wait_s"),
         "lr_schedule": meta["lr_schedule"],
         "device": str(device),
+        "process_index": topo.process_index,
+        "process_count": topo.process_count,
     }
     if args.sample > 0:
         # KV-cached greedy decode from the trained weights, scored against

@@ -1,11 +1,13 @@
 """Row-group transform pipeline (the TransformSpec equivalent).
 
-Port of ``dss_ml_at_scale_tpu/data/transform.py`` on the PIL backend. The
-contract is columnar: the function maps a dict of numpy arrays (one row
-group) to a dict of numpy arrays, and ``fields`` declares the output schema
-the trainer relies on. ``backend="auto"`` resolves to ``"pil"`` and reports
-it on ``spec.backend``; the JAX package's C++ ``native`` decoder waits for
-the port's own copy, so ``backend="native"`` raises.
+Port of ``dss_ml_at_scale_tpu/data/transform.py``. The contract is
+columnar: the function maps a dict of numpy arrays (one row group) to a
+dict of numpy arrays, and ``fields`` declares the output schema the trainer
+relies on. Two host decoders: ``"native"``, the port's C++ pool
+(:mod:`..native`), and ``"pil"``; ``"auto"`` resolves to native when it
+builds on the host and to PIL otherwise, a choice of host decoder reported
+on ``spec.backend``. An explicit ``"native"`` that cannot build raises with
+the compiler's error; it never runs PIL instead.
 """
 
 from __future__ import annotations
@@ -101,24 +103,34 @@ def imagenet_transform_spec(
     backend: str = "auto",
     output_dtype: str = "float32",
     on_error: str = "raise",
+    fast_decode: bool = False,
 ) -> TransformSpec:
     """The reference's training TransformSpec, columnar, from a table's
     ``content``/``label_index`` columns: ``image`` HWC (float32 normalized,
     or the raw uint8 bytes that the train step normalizes on the device) and
     ``label`` int32. ``on_error="substitute"`` turns an undecodable record
-    into the dataset-mean image, counted on ``spec.substitutions``."""
+    into the dataset-mean image, counted on ``spec.substitutions``.
+
+    ``backend="native"`` decodes with the C++ pool; under ``"auto"`` an
+    image the native path rejects (a CMYK JPEG, say) is decoded again by
+    PIL. ``fast_decode`` (native only; PIL ignores it) decodes large
+    sources at a DCT-domain scale covering ``resize``.
+    """
     if backend not in ("auto", "native", "pil"):
         raise ValueError(f"unknown backend {backend!r}")
-    if backend == "native":
-        raise ValueError(
-            "the native JPEG decoder is not ported yet; use backend='pil' or 'auto'"
-        )
     if output_dtype not in ("float32", "uint8"):
         raise ValueError(f"unknown output_dtype {output_dtype!r}")
     if on_error not in ("raise", "substitute"):
         raise ValueError(f"unknown on_error {on_error!r}")
     if crop > resize:
         raise ValueError(f"crop ({crop}) must be <= resize ({resize})")
+    # Resolve the backend now: a missing toolchain fails here, not in the
+    # first reader worker's batch, and the build runs outside the hot path.
+    from .. import native
+
+    if backend == "native" and not native.native_available():
+        raise RuntimeError(native.load_error() or "native pipeline unavailable")
+    use_native = backend == "native" or (backend == "auto" and native.native_available())
 
     image_shape = (crop, crop, 3)
 
@@ -145,7 +157,24 @@ def imagenet_transform_spec(
             return _substitute()
 
     def _func(batch: Columnar) -> Columnar:
-        images = np.stack([_decode_or_substitute(bytes(b)) for b in batch["content"]])
+        jpegs = [bytes(b) for b in batch["content"]]
+        if use_native:
+            norm = output_dtype == "float32"
+            images, ok = native.decode_jpeg_batch(
+                jpegs, resize=resize, crop=crop,
+                mean=IMAGENET_MEAN if norm else None, std=IMAGENET_STD if norm else None,
+                dtype=output_dtype, fast_scale=fast_decode)
+            if not ok.all():
+                if backend == "native" and on_error == "raise":
+                    raise ValueError(f"native decode failed for {int((~ok).sum())} images")
+                for i in np.flatnonzero(~ok):
+                    if backend == "native":  # substitute; no PIL behind native
+                        spec.substitutions.add()
+                        images[i] = _substitute()
+                    else:
+                        images[i] = _decode_or_substitute(jpegs[i])
+        else:
+            images = np.stack([_decode_or_substitute(b) for b in jpegs])
         labels = np.asarray(batch["label_index"], np.int32)
         return {"image": images, "label": labels}
 
@@ -155,6 +184,6 @@ def imagenet_transform_spec(
             Field("image", np.dtype(output_dtype), image_shape),
             Field("label", np.dtype(np.int32), ()),
         ],
-        backend="pil",
+        backend="native" if use_native else "pil",
     )
     return spec

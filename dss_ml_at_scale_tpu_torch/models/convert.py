@@ -74,10 +74,12 @@ def lm_state_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
 def init_lm_state(model: TransformerLM, seed: int) -> dict[str, torch.Tensor]:
     """Seeded random weights for ``model``, as an f32 CPU ``state_dict``.
 
-    Like flax's defaults: Dense kernels LeCun-normal (std
-    ``1/sqrt(fan_in)``), biases zero, RMSNorm scales one, the position
-    table normal(0.02), the token table normal with std
-    ``1/sqrt(vocab)``.
+    Like flax's defaults: Dense kernels (every Linear weight and
+    ``lm_head``) LeCun-normal, a normal of std ``1/sqrt(fan_in)`` truncated
+    at two deviations and rescaled by ``1/0.87962566`` as flax's
+    ``variance_scaling`` does (as :func:`init_resnet_state`); biases zero,
+    RMSNorm scales one, the position table normal(0.02), the token table
+    an untruncated normal with std ``1/sqrt(vocab)`` (``nn.Embed``).
     """
     gen = torch.Generator().manual_seed(int(seed))
     state = {}
@@ -92,7 +94,9 @@ def init_lm_state(model: TransformerLM, seed: int) -> dict[str, torch.Tensor]:
         elif name == "tok_embed.weight":
             t = torch.randn(shape, generator=gen) / math.sqrt(shape[0])
         else:  # Linear weight [out, in]
-            t = torch.randn(shape, generator=gen) / math.sqrt(shape[1])
+            t = torch.empty(shape)
+            std = 1.0 / math.sqrt(shape[1]) / 0.87962566103423978
+            torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
         state[name] = t
     return state
 

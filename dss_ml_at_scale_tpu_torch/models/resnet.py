@@ -13,6 +13,8 @@ of a bf16 tensor returns bf16).
 fused BN + ReLU (+ residual) of :mod:`..ops.fused_norm`; ``"pallas"``
 (bottleneck blocks only) additionally the middle BN's apply fused into the
 third 1x1 conv (:func:`..ops.fused_matmul.bn_relu_matmul`, kernels K1-K3).
+In a run of several processes every level computes the training
+statistics over the global batch (the JAX model gets them from GSPMD).
 
 Padding. ``torch_padding=False`` is XLA's ``SAME``: asymmetric on stride 2
 with even inputs (the 7x7 stem on 224 pads (2, 3), a 3x3 stride-2 conv
@@ -34,13 +36,16 @@ from torch import nn
 
 from ..ops.fused_matmul import bn_relu_matmul
 from ..ops.fused_norm import BatchNorm as FusedBatchNorm
+from ..runtime.distributed import all_reduce_sum, process_count, stats_group
 
 
 class PlainBatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` (no activation), channels last: f32 statistics
     with the variance ``max(0, E[x^2] - mean^2)``, ``(x - mean) *
     (rsqrt(var + eps) * scale) + bias`` returned in ``x.dtype``, gradients
-    by autograd through the statistics, running averages at momentum 0.9."""
+    by autograd through the statistics, running averages at momentum 0.9.
+    In a run of several processes the training statistics are those of
+    the global batch."""
 
     def __init__(self, features: int, *, momentum: float = 0.9, eps: float = 1e-5,
                  zero_init: bool = False):
@@ -56,8 +61,19 @@ class PlainBatchNorm(nn.Module):
         x32 = x.float()
         if self.training:
             axes = tuple(range(x.ndim - 1))
-            mean = x32.mean(axes)
-            var = torch.clamp_min(x32.square().mean(axes) - mean.square(), 0.0)
+            group = stats_group()
+            if group is None:
+                mean = x32.mean(axes)
+                var = torch.clamp_min(x32.square().mean(axes) - mean.square(), 0.0)
+            else:
+                # SyncBatchNorm's rule: the global sums, differentiated
+                # through the all-reduce (its gradient sums the ranks').
+                k = x.shape[-1]
+                count = torch.full((1,), float(x.numel() // k), device=x.device)
+                sums = all_reduce_sum(
+                    torch.cat([x32.sum(axes), x32.square().sum(axes), count]), group)
+                mean = sums[:k] / sums[2 * k]
+                var = torch.clamp_min(sums[k:2 * k] / sums[2 * k] - mean.square(), 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -153,9 +169,12 @@ class BottleneckBlock(_Net):
             n_out, k = self.conv3.weight.shape[:2]
             w = self.conv3.weight.reshape(n_out, k).t().contiguous().to(self.dtype)
             # Eval / frozen BN: the statistics are constants, and the
-            # backward's statistics correction must not apply.
+            # backward's statistics correction must not apply. Across
+            # ranks (equal batches) the count is every rank's rows.
+            group = stats_group() if self.training else None
+            rows = y.numel() // k * (process_count() if group is not None else 1)
             y = bn_relu_matmul(y, scale, bias, mean, var, w, eps=self.bn2.eps,
-                               batch_stats=self.training)
+                               batch_stats=self.training, group=group, global_count=rows)
         else:
             y = self.conv(self.conv3, self.norm_relu(self.bn2, y))
         if self.downsample is not None:

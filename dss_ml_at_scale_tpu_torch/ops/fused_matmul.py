@@ -17,7 +17,11 @@ elementwise ``dy`` finish stays in torch ops, as it stays HLO in JAX:
 statistics' dependence on ``y`` internalized, so the op returns no gradient
 for ``mean`` and ``var`` (flax's stop-gradient running averages), or
 ``dy = s * gt`` with ``batch_stats=False`` (eval, frozen BN). ``dgamma`` and
-``dbeta`` are the two sums, ``dres`` is ``gt``.
+``dbeta`` are the two sums, ``dres`` is ``gt``. Across ranks (``group=``,
+the JAX op's ``axis_name``) the statistics are global: K2's two sums are
+all-reduced before the finish, which divides by the global row count,
+while ``dgamma``, ``dbeta`` and ``dW`` stay the rank's own (data
+parallelism averages them, as the JAX transpose sums them).
 
 Each kernel's wrapper (:func:`bn_relu_matmul_fwd`, :func:`bn_relu_matmul_bwd_da`,
 :func:`bn_relu_matmul_bwd_dw`) launches ``csrc/fused_matmul.cu`` for CUDA
@@ -36,6 +40,8 @@ import ctypes
 import math
 
 import torch
+
+from .fused_norm import reduce_grad_sums
 
 # Tile constants of csrc/fused_matmul.cu that the plans below and the
 # scratch the wrappers allocate follow. K1 walks 128 x 256 output tiles
@@ -314,7 +320,7 @@ bn_relu_matmul_bwd_dw.launches = 0
 
 class _BnReluMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y2, gamma, beta, mean, var, w, res2, eps, batch_stats, n_count):
+    def forward(ctx, y2, gamma, beta, mean, var, w, res2, eps, batch_stats, n_count, group):
         inv = torch.rsqrt(var + eps)
         s = gamma * inv
         t = beta - mean * s
@@ -325,6 +331,7 @@ class _BnReluMatmul(torch.autograd.Function):
         ctx.save_for_backward(y2, s, t, mean, inv, w, res2)
         ctx.batch_stats = batch_stats
         ctx.n_count = float(n_count)
+        ctx.group = group
         return out
 
     @staticmethod
@@ -336,13 +343,14 @@ class _BnReluMatmul(torch.autograd.Function):
         # The finish reads the STORED gt (y.dtype), as JAX's does.
         gt32 = gt.float()
         if ctx.batch_stats:
+            all_g, all_gx = reduce_grad_sums(sum_g, sum_gx, ctx.group)
             x_hat = (y2.float() - mean) * inv
-            dy32 = s * (gt32 - (sum_g + x_hat * sum_gx) / ctx.n_count)
+            dy32 = s * (gt32 - (all_g + x_hat * all_gx) / ctx.n_count)
         else:
             dy32 = s * gt32
         dres = gt if res2 is not None else None
         return (dy32.to(y2.dtype), sum_gx, sum_g, None, None, dw.to(w.dtype), dres,
-                None, None, None)
+                None, None, None, None)
 
 
 def bn_relu_matmul(
@@ -357,6 +365,7 @@ def bn_relu_matmul(
     residual: torch.Tensor | None = None,
     global_count: int | None = None,
     batch_stats: bool = True,
+    group=None,
 ) -> torch.Tensor:
     """``relu(BN(y)) @ W`` (a 1x1 conv) without materializing the
     normalized activation.
@@ -367,7 +376,10 @@ def bn_relu_matmul(
     With ``batch_stats=True`` (training) ``mean``/``var`` must be the batch
     statistics of ``y``; their dependence on ``y`` is internalized by the
     backward. ``residual`` (shape of ``y``) is added before the ReLU.
-    ``global_count`` overrides the statistics' row count. Returns
+    ``global_count`` overrides the statistics' row count. With ``group``
+    (a process group; the JAX op's ``axis_name``) ``mean``/``var`` are the
+    statistics of every rank's ``y``, K2's sums are all-reduced over it,
+    and ``global_count`` is the row count of every rank together. Returns
     ``[..., N]`` in ``y.dtype``.
     """
     if kernel.ndim == 4:
@@ -389,5 +401,5 @@ def bn_relu_matmul(
     res2 = residual.reshape(m, k) if residual is not None else None
     out = _BnReluMatmul.apply(
         y2, gamma.float(), beta.float(), mean.float(), var.float(), kernel, res2,
-        float(eps), bool(batch_stats), global_count if global_count is not None else m)
+        float(eps), bool(batch_stats), global_count if global_count is not None else m, group)
     return out.reshape(*lead, n)

@@ -1,10 +1,12 @@
-"""Single-card trainer: the port of ``dss_ml_at_scale_tpu/parallel/trainer.py``.
+"""The trainer: the port of ``dss_ml_at_scale_tpu/parallel/trainer.py``.
 
 Two tasks run under one ``Trainer``:
 
 - ``ClassifierTask``, the JAX task: Adam at 1e-5 by default, softmax
   cross-entropy, top-1 accuracy (and top-k on eval); uint8 images are
-  normalized inside the step and NCHW input is transposed to NHWC.
+  normalized inside the step and NCHW input is transposed to NHWC; with
+  ``augment`` the train step crops and flips on the device
+  (:mod:`..data.augment`), keyed by the step count.
 - ``LMTask``: next-token cross entropy of a ``TransformerLM`` on
   ``tokens`` batches, Adam at 3e-4 or a learning-rate schedule.
 
@@ -13,33 +15,44 @@ eps=1e-8)`` compute the same update: both divide the bias-corrected first
 moment by the square root of the bias-corrected second moment plus eps.
 
 ``Trainer.fit`` keeps the reference's epoch semantics: an infinite reader,
-``steps_per_epoch`` given or ``rows // batch``, epochs that end at a step
-count (so a resumed run finishes the epoch it resumed in), eval each epoch
-capped at ``limit_val_batches``, per-epoch throughput (images/s for the
-classifier, tokens/s for the LM). Each epoch's summary also carries the
-steady throughput after the epoch's first step (the first step builds the
-kernels and warms the allocator caches; the trainer synchronizes once after
-it) and the data wait of the steps that follow it.
+``steps_per_epoch`` given or ``rows // (batch x processes)``, epochs that
+end at a step count (so a resumed run finishes the epoch it resumed in),
+eval each epoch capped at ``limit_val_batches``, per-epoch throughput
+(images/s for the classifier, tokens/s for the LM, over every process).
+Each epoch's summary also carries the steady throughput after the epoch's
+first step (the first step builds the kernels and warms the allocator
+caches; the trainer synchronizes once after it) and the data wait of the
+steps that follow it.
+
+Data parallelism (a process group of more than one rank,
+:mod:`..runtime.distributed`): each rank reads its own shard, the model is
+wrapped in ``DistributedDataParallel`` (gradients averaged over the ranks;
+the BatchNorm statistics are global, reduced by the model's own layers),
+and the epoch's train and val metrics are means over the ranks.
+``shard_opt_state`` is ZeRO-1: ``ZeroRedundancyOptimizer`` keeps each
+rank's share of Adam's moments, the same update as a replicated Adam.
 
 With ``checkpoint_dir`` the trainer saves once per epoch, as orbax does in
 the JAX trainer: ``<dir>/<step>/`` holds ``state.pt`` (model, optimizer,
 scheduler, step, epoch and the epoch's metrics, ``torch.save``),
 ``metrics.json`` and a SHA-256 manifest, written in a temporary directory
-and renamed into place, durably. Retention keeps the ``keep_checkpoints``
-best steps by the best metric when eval runs, the newest ones otherwise.
-``resume`` restores the newest intact step, falling back past corrupt ones
+and renamed into place, durably, by rank 0 alone (a ZeRO-1 optimizer is
+consolidated to rank 0 first, a collective of every rank; the others wait
+at a barrier). Retention keeps the ``keep_checkpoints`` best steps by the
+best metric when eval runs, the newest ones otherwise. ``resume`` restores
+the newest intact step on every rank, falling back past corrupt ones
 (``checkpoint_fallback_total``) and moving newer unusable steps aside, and
-keeps the best-so-far of the steps on disk. A resumed fit advances the
-train iterator past the batches the restored steps consumed (read on the
-host, never sent to the device), so a source that replays its stream from
-the start, as the LM's token source does, gives the run an uninterrupted
-fit would have; the JAX trainer restarts the stream instead. The port
-resumes its own checkpoints; orbax checkpoints of the JAX package are not
-read.
+keeps the best-so-far of the steps on disk. As in the JAX trainer a
+resumed fit continues by step count on a fresh stream: the train iterator
+starts from its beginning. The port resumes its own checkpoints; orbax
+checkpoints of the JAX package are not read.
 
-Not ported yet: the health supervisor, preemption, ``resume_auto``,
-tracking, profiling windows, and data parallelism (DDP with BN sums
-all-reduced across ranks, and ZeRO-1).
+``profile_dir`` traces steps ``[profile_start_step, profile_start_step +
+profile_num_steps)`` with ``torch.profiler`` into a Chrome trace per rank,
+``<profile_dir>/trace_rank<r>_steps<a>-<b>.json``.
+
+Not ported yet: the health supervisor, preemption, ``resume_auto`` and
+tracking.
 """
 
 from __future__ import annotations
@@ -58,6 +71,7 @@ from typing import Any, Callable, Iterable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.prefetch import Feeder
 from ..data.transform import IMAGENET_MEAN, IMAGENET_STD
@@ -65,6 +79,7 @@ from ..models.metrics import cross_entropy_loss, multiclass_accuracy, topk_accur
 from ..models.transformer import next_token_loss
 from ..resilience import checkpoint as integrity
 from ..resilience import durability
+from ..runtime import distributed as rt
 from ..utils.profiling import StepTimer
 
 log = logging.getLogger(__name__)
@@ -81,17 +96,28 @@ class ClassifierTask:
     """
 
     model: torch.nn.Module
-    learning_rate: float = 1e-5
+    learning_rate: float | Callable[[int], float] = 1e-5
     eval_topk: tuple = ()
+    # On-device RandomResizedCrop + flip of the train batches
+    # (data.augment.AugmentConfig); None trains on the batches as they come.
+    augment: Any = None
     optimizer: torch.optim.Optimizer = dataclasses.field(init=False)
-    scheduler = None  # no learning-rate schedule
+    scheduler: Any = dataclasses.field(init=False, default=None)
+    # The model the train step runs: ``model``, or its DDP wrapper.
+    net: torch.nn.Module = dataclasses.field(init=False)
+    # Updates taken so far (the JAX ``state.step``): the augment key.
+    step: int = dataclasses.field(init=False, default=0)
     throughput_unit = "images"
     default_best_metric = "val_acc"
     default_best_mode = "max"
 
     def __post_init__(self):
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=self.learning_rate,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        self.net = self.model
+        self.optimizer, self.scheduler = _adam(self.model, self.learning_rate)
+
+    def shard_optimizer(self) -> None:
+        """ZeRO-1: the same Adam, its state split over the ranks."""
+        self.optimizer, self.scheduler = _adam(self.model, self.learning_rate, zero1=True)
 
     @staticmethod
     def batch_units(batch: Batch) -> int:
@@ -110,10 +136,16 @@ class ClassifierTask:
     def train_step(self, batch: Batch) -> dict[str, torch.Tensor]:
         """One Adam step; metrics are 0-d tensors (no host sync)."""
         images, labels = self.images(batch), batch["label"].long()
+        if self.augment is not None:
+            from ..data.augment import augment_for_step
+
+            images = augment_for_step(self.step, images, images.shape[1], self.augment,
+                                      rank=rt.process_index(), ranks=rt.process_count())
         self.model.train()
-        logits = self.model(images)
+        logits = self.net(images)
         loss = cross_entropy_loss(logits, labels)
-        grad_norm = _adam_step(self.model, self.optimizer, loss)
+        grad_norm = _adam_step(self.model, self.optimizer, loss, self.scheduler)
+        self.step += 1
         return {
             "train_loss": loss.detach(),
             "train_acc": multiclass_accuracy(logits.detach(), labels),
@@ -132,6 +164,26 @@ class ClassifierTask:
         for k in self.eval_topk:
             out[f"val_top{k}_acc"] = topk_accuracy(logits, labels, k)
         return out
+
+def _adam(model: torch.nn.Module, learning_rate, zero1: bool = False):
+    """``(optimizer, scheduler)``: Adam (betas 0.9/0.999, eps 1e-8, as
+    optax) at ``learning_rate``, a float, or a schedule of the update count
+    driven by a ``LambdaLR`` on a base rate of 1, so update ``i`` runs at
+    exactly ``schedule(i)``, as under ``optax.adam(schedule)``. ``zero1``:
+    a ``ZeroRedundancyOptimizer`` around the same Adam."""
+    scheduled = callable(learning_rate)
+    kw = dict(lr=1.0 if scheduled else learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    if zero1:
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+
+        optimizer = ZeroRedundancyOptimizer(model.parameters(),
+                                            optimizer_class=torch.optim.Adam, **kw)
+    else:
+        optimizer = torch.optim.Adam(model.parameters(), **kw)
+    scheduler = (torch.optim.lr_scheduler.LambdaLR(optimizer, learning_rate)
+                 if scheduled else None)
+    return optimizer, scheduler
+
 
 def _adam_step(model: torch.nn.Module, optimizer, loss: torch.Tensor,
                scheduler=None) -> torch.Tensor:
@@ -155,9 +207,8 @@ class LMTask:
     Batches carry ``tokens`` ``[B, S]`` int tensors on the model's device;
     the loss is next-token cross entropy. ``learning_rate`` is a float, or
     a schedule (a function of the update count, as
-    :func:`..parallel.schedules.warmup_cosine_decay_schedule` returns)
-    driven by a ``LambdaLR`` on an Adam of base learning rate 1, so update
-    ``i`` runs at exactly ``schedule(i)``, as under ``optax.adam(schedule)``.
+    :func:`..parallel.schedules.warmup_cosine_decay_schedule` returns), as
+    :func:`_adam` takes it.
     """
 
     model: torch.nn.Module
@@ -166,6 +217,7 @@ class LMTask:
     aux_loss_weight: float = 0.0
     optimizer: torch.optim.Optimizer = dataclasses.field(init=False)
     scheduler: Any = dataclasses.field(init=False, default=None)
+    net: torch.nn.Module = dataclasses.field(init=False)
     throughput_unit = "tokens"
     default_best_metric = "val_loss"
     default_best_mode = "min"
@@ -176,13 +228,12 @@ class LMTask:
                 "aux_loss_weight > 0 needs the MoE FFN, which a later slice of "
                 "the port brings (ROADMAP Queue 1 item 14)"
             )
-        scheduled = callable(self.learning_rate)
-        self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=1.0 if scheduled else self.learning_rate,
-            betas=(0.9, 0.999), eps=1e-8)
-        if scheduled:
-            self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer,
-                                                               self.learning_rate)
+        self.net = self.model
+        self.optimizer, self.scheduler = _adam(self.model, self.learning_rate)
+
+    def shard_optimizer(self) -> None:
+        """ZeRO-1: the same Adam, its state split over the ranks."""
+        self.optimizer, self.scheduler = _adam(self.model, self.learning_rate, zero1=True)
 
     def batch_units(self, batch: Batch) -> int:
         return int(np.prod(batch["tokens"].shape))
@@ -191,7 +242,7 @@ class LMTask:
         """One Adam step; metrics are 0-d tensors (no host sync)."""
         tokens = batch["tokens"]
         self.model.train()
-        loss = next_token_loss(self.model(tokens), tokens)
+        loss = next_token_loss(self.net(tokens), tokens)
         grad_norm = _adam_step(self.model, self.optimizer, loss, self.scheduler)
         loss = loss.detach()
         return {"train_loss": loss, "train_ppl": torch.exp(loss), "grad_norm": grad_norm}
@@ -219,6 +270,13 @@ class TrainerConfig:
     best_mode: str | None = None
     resume: bool = False
     feeder_depth: int = 2
+    # torch.profiler trace of steps [profile_start_step,
+    # profile_start_step + profile_num_steps) into profile_dir.
+    profile_dir: str | None = None
+    profile_start_step: int = 5
+    profile_num_steps: int = 5
+    # ZeRO-1: Adam's state split over the ranks.
+    shard_opt_state: bool = False
 
 
 @dataclasses.dataclass
@@ -235,7 +293,7 @@ METRICS_FILE = "metrics.json"
 
 
 class Trainer:
-    """Explicit epoch/step loop on one device."""
+    """Explicit epoch/step loop on one device per process."""
 
     def __init__(self, config: TrainerConfig, device="cuda"):
         self.config = config
@@ -247,17 +305,33 @@ class Trainer:
             return cfg.steps_per_epoch
         if cfg.total_train_rows is None:
             raise ValueError("TrainerConfig needs steps_per_epoch or total_train_rows")
-        steps = cfg.total_train_rows // batch_size
+        steps = cfg.total_train_rows // (batch_size * rt.process_count())
         if steps == 0:
             raise ValueError(
-                f"total_train_rows={cfg.total_train_rows} < batch {batch_size}; "
-                "no full step per epoch"
+                f"total_train_rows={cfg.total_train_rows} < global batch "
+                f"{batch_size} x {rt.process_count()}; no full step per epoch"
             )
         return steps
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def data_parallel(self, task) -> None:
+        """Wrap the task's model for a run of several ranks, and shard its
+        optimizer (ZeRO-1) when asked; once per task, before its first step
+        and any restore."""
+        if rt.process_count() > 1 and task.net is task.model:
+            from torch.nn.parallel import DistributedDataParallel
+
+            # The BN statistics are global and so identical on every rank:
+            # no buffer broadcast.
+            task.net = DistributedDataParallel(
+                task.model, device_ids=[self.device] if self.device.type == "cuda" else None,
+                broadcast_buffers=False)
+        zero1 = hasattr(task.optimizer, "consolidate_state_dict")
+        if self.config.shard_opt_state and dist.is_initialized() and not zero1:
+            task.shard_optimizer()
 
     def fit(
         self,
@@ -268,7 +342,8 @@ class Trainer:
         """Train ``task`` (a ``ClassifierTask`` or an ``LMTask``) on batches
         of ``train_data`` for ``max_epochs`` epochs (``resume``: from the
         newest intact checkpoint on), evaluating each epoch on a fresh
-        ``val_data_factory()`` when one is given."""
+        ``val_data_factory()`` when one is given. In a run of several ranks
+        every rank calls this with its own shard of the data."""
         # The task's best-metric defaults resolve into a local config: the
         # same Trainer may fit either task.
         cfg = dataclasses.replace(
@@ -276,28 +351,35 @@ class Trainer:
             best_metric=self.config.best_metric or task.default_best_metric,
             best_mode=self.config.best_mode or task.default_best_mode,
         )
+        if hasattr(task, "shard_optimizer"):
+            self.data_parallel(task)
+        coordinator = rt.process_index() == 0
         use_best = val_data_factory is not None
         root = Path(cfg.checkpoint_dir) if cfg.checkpoint_dir is not None else None
         step = 0
         best_value = best_step = None
         if root is not None and cfg.resume and integrity.list_steps(root):
-            step = _restore_with_fallback(root, task)
-            for stale in (s for s in integrity.list_steps(root) if s > step):
-                integrity.quarantine_step(root / str(stale))
+            step = _restore_with_fallback(root, task, record=coordinator)
+            rt.barrier()  # every rank has read before newer steps move aside
+            if coordinator:
+                for stale in (s for s in integrity.list_steps(root) if s > step):
+                    integrity.quarantine_step(root / str(stale))
             best_value, best_step = _best_on_disk(root, cfg)
+            rt.barrier()
+        task.step = step
 
+        # A resumed run takes the stream from its start, as the JAX trainer.
         train_iter = iter(train_data)
-        for _ in range(step):  # the batches the restored steps consumed
-            next(train_iter)
         first = next(train_iter)
         batch_size = len(next(iter(first.values())))
-        units = task.batch_units(first)
+        units = task.batch_units(first) * rt.process_count()
         unit = task.throughput_unit
         steps_per_epoch = self._steps_per_epoch(batch_size)
         sign = 1.0 if cfg.best_mode == "max" else -1.0
         feeder = Feeder(itertools.chain([first], train_iter), self.device,
                         depth=cfg.feeder_depth, name="train")
         history: list[dict] = []
+        profile = _ProfileWindow(cfg, self.device)
         try:
             # A resumed run finishes the epoch its restored step is in.
             for epoch in range(step // steps_per_epoch, cfg.max_epochs):
@@ -313,10 +395,12 @@ class Trainer:
                     except StopIteration:
                         exhausted = True
                         break
+                    profile.before(step)
                     metrics = task.train_step(batch)
                     epoch_steps += 1
                     step += 1
                     timer.tick()
+                    profile.after(step, self._sync)
                     if epoch_steps == 1:
                         self._sync()
                         t_first, wait_first = time.perf_counter(), feeder.wait_seconds
@@ -334,7 +418,7 @@ class Trainer:
                     f"{unit}_per_sec": epoch_steps * units / (t_end - t0),
                     "data_wait_s": feeder.wait_seconds - wait0,
                     **timer.summary(),
-                    **{k: float(v) for k, v in metrics.items()},
+                    **rt.mean_over_ranks({k: float(v) for k, v in metrics.items()}),
                 }
                 if epoch_steps > 1:
                     steady = t_end - t_first
@@ -352,12 +436,15 @@ class Trainer:
                 if metric is not None and (best_value is None or sign * metric > sign * best_value):
                     best_value, best_step = metric, step
                 if root is not None:
-                    _save(root, task, step, epoch, summary)
-                    _retain(root, cfg, use_best)
+                    _save(root, task, step, epoch, summary, write=coordinator)
+                    if coordinator:
+                        _retain(root, cfg, use_best)
+                    rt.barrier()
                 if exhausted:
                     log.warning("train data exhausted at step %d", step)
                     break
         finally:
+            profile.close()
             feeder.close()
         return FitResult(
             steps=step, history=history, best_checkpoint_step=best_step,
@@ -367,6 +454,8 @@ class Trainer:
         )
 
     def _evaluate(self, task, val_data_factory) -> dict:
+        """Each metric's mean over the val batches of every rank (each
+        rank reads its own shard; no collective runs inside the loop)."""
         totals: dict[str, float] = {}
         count = 0
         val_data = val_data_factory()
@@ -385,12 +474,74 @@ class Trainer:
             stop = getattr(val_data, "stop", None)
             if callable(stop):
                 stop()
+        if rt.process_count() > 1:
+            sums = rt.mean_over_ranks({**totals, "_count": float(count)})
+            count = sums.pop("_count") * rt.process_count()
+            totals = {k: v * rt.process_count() for k, v in sums.items()}
         return {k: v / max(count, 1) for k, v in totals.items()}
 
 
-def _save(root: Path, task, step: int, epoch: int, metrics: dict) -> Path:
+class _ProfileWindow:
+    """``torch.profiler`` over steps ``[start, start + num)`` of a fit,
+    written as a Chrome trace into ``profile_dir`` when the window closes
+    (or the fit ends inside it)."""
+
+    def __init__(self, cfg: TrainerConfig, device: torch.device):
+        self.dir = Path(cfg.profile_dir) if cfg.profile_dir is not None else None
+        self.start, self.num = cfg.profile_start_step, cfg.profile_num_steps
+        self.device = device
+        self.prof = None
+        self.first = self.stop_at = self.last = None
+
+    def before(self, step: int) -> None:
+        if self.dir is None or self.prof is not None or step < self.start:
+            return
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = torch.profiler.profile(activities=activities)
+        self.prof.start()
+        self.first, self.stop_at, self.last = step, step + self.num, step
+
+    def after(self, step: int, sync: Callable[[], None]) -> None:
+        if self.prof is None:
+            return
+        self.last = step
+        if step >= self.stop_at:
+            sync()
+            self._write(step)
+
+    def close(self) -> None:
+        if self.prof is not None:
+            self._write(self.last)
+
+    def _write(self, step: int) -> None:
+        prof, self.prof = self.prof, None
+        prof.stop()
+        self.dir.mkdir(parents=True, exist_ok=True)
+        path = self.dir / f"trace_rank{rt.process_index()}_steps{self.first}-{step}.json"
+        prof.export_chrome_trace(str(path))
+        log.info("profile of steps %d-%d written to %s", self.first, step, path)
+        self.start = math.inf  # one window per fit
+
+
+def _optimizer_state(task) -> dict | None:
+    """The optimizer's whole state, on rank 0 (``None`` elsewhere): a
+    ZeRO-1 optimizer consolidates its shards there first, a collective
+    that every rank must enter."""
+    opt = task.optimizer
+    if hasattr(opt, "consolidate_state_dict"):
+        opt.consolidate_state_dict(to=0)
+    return opt.state_dict() if rt.process_index() == 0 else None
+
+
+def _save(root: Path, task, step: int, epoch: int, metrics: dict, *, write: bool = True):
     """Write checkpoint ``root/<step>/`` durably: its files and manifest in
-    a temporary directory, fsynced, then renamed into place."""
+    a temporary directory, fsynced, then renamed into place. Every rank
+    calls it; only the one with ``write`` writes."""
+    optimizer_state = _optimizer_state(task)
+    if not write:
+        return None
     root.mkdir(parents=True, exist_ok=True)
     final = root / str(step)
     tmp = root / f"{step}{durability.TMP_SUFFIX}-{os.getpid()}"
@@ -399,7 +550,7 @@ def _save(root: Path, task, step: int, epoch: int, metrics: dict) -> Path:
     scheduler = task.scheduler
     state = {
         "model": task.model.state_dict(),
-        "optimizer": task.optimizer.state_dict(),
+        "optimizer": optimizer_state,
         "scheduler": scheduler.state_dict() if scheduler is not None else None,
         "step": step,
         "epoch": epoch,
@@ -458,17 +609,19 @@ def _best_on_disk(root: Path, cfg: TrainerConfig) -> tuple[float | None, int | N
     return m, s
 
 
-def _restore_with_fallback(root: Path, task) -> int:
+def _restore_with_fallback(root: Path, task, record: bool = True) -> int:
     """Load the newest usable step into ``task``, walking past corrupt
     ones: each step is verified against its manifest first, and a corrupt
     step, or one whose load raises anyway, is skipped with a
-    ``checkpoint_fallback_total`` count. Returns the restored step."""
+    ``checkpoint_fallback_total`` count (``record``: on one rank only).
+    Returns the restored step."""
     steps = sorted(integrity.list_steps(root), reverse=True)
     last_exc = None
     for step in steps:
         status, problems = integrity.verify_step(root / str(step))
         if status == "corrupt":
-            integrity.record_fallback(step, "; ".join(problems))
+            if record:
+                integrity.record_fallback(step, "; ".join(problems))
             continue
         try:
             # On the host: load_state_dict copies to each parameter's device,
@@ -490,7 +643,8 @@ def _restore_with_fallback(root: Path, task) -> int:
                     group["lr"] = base * fn(sched.last_epoch)
         except (OSError, RuntimeError, KeyError, ValueError, EOFError,
                 pickle.UnpicklingError) as e:
-            integrity.record_fallback(step, f"restore raised {type(e).__name__}: {e}")
+            if record:
+                integrity.record_fallback(step, f"restore raised {type(e).__name__}: {e}")
             last_exc = e
             continue
         log.info("resumed from checkpoint step %d", state["step"])

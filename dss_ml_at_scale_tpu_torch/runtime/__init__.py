@@ -1,0 +1,28 @@
+"""Multi-process runtime of the port (``torch.distributed``)."""
+
+from .distributed import (
+    all_reduce_sum,
+    barrier,
+    initialize_distributed,
+    mean_over_ranks,
+    process_count,
+    process_device,
+    process_index,
+    shutdown_distributed,
+    stats_group,
+)
+from .topology import Topology, local_topology
+
+__all__ = [
+    "Topology",
+    "all_reduce_sum",
+    "barrier",
+    "initialize_distributed",
+    "local_topology",
+    "mean_over_ranks",
+    "process_count",
+    "process_device",
+    "process_index",
+    "shutdown_distributed",
+    "stats_group",
+]

@@ -2,10 +2,13 @@
 
 The manifest format is the JAX package's (each side verifies the other's).
 Training runs on the CPU: a tiny f32 TransformerLM on the port's token
-source under a cosine schedule (resume must continue bit for bit: N steps
-straight equal N/2 steps, a resume and N/2 more), and a scripted task whose
-validation loss is a fixed function of the step count (best selection,
-retention). The ``train`` command resumes the ResNet path too.
+source under a cosine schedule (a resume continues by step count on a fresh
+stream, as the JAX trainer does: N/2 steps, a resume and N/2 more equal N/2
+steps followed by N/2 steps of the stream from its start, bit for bit), and
+a scripted task whose validation loss is a fixed function of the step count
+(best selection, retention). The ``train`` command resumes the ResNet path
+too, bit for bit where the JAX trainer guarantees it: no shuffle and a
+table of whole epochs, resumed at an epoch boundary.
 """
 
 import contextlib
@@ -99,16 +102,25 @@ def _assert_same_state(a, b):
     assert a.scheduler.state_dict()["last_epoch"] == b.scheduler.state_dict()["last_epoch"]
 
 
+def _steps_by_hand(task, n, losses=None):
+    """``n`` train steps on the stream from its start, outside ``fit``."""
+    for batch in itertools.islice(token_batches(STREAM), n):
+        metrics = task.train_step({"tokens": torch.from_numpy(batch["tokens"])})
+        if losses is not None:
+            losses.append(metrics["train_loss"])
+    return task
+
+
 def test_resume_is_bit_for_bit(tmp_path):
-    straight, r = _fit_lm(None, 4)
-    assert r.steps == 12
+    # The reference: 6 steps, then 6 steps of a fresh stream from its start.
+    losses = []
+    straight = _steps_by_hand(_steps_by_hand(_lm_task(), 6), 6, losses)
     _, r1 = _fit_lm(str(tmp_path), 2)
     assert r1.steps == 6 and integrity.list_steps(tmp_path) == [3, 6]
     resumed, r2 = _fit_lm(str(tmp_path), 4, resume=True)
     assert r2.steps == 12 and [h["epoch"] for h in r2.history] == [2, 3]
     _assert_same_state(straight, resumed)
-    assert r2.history[-1]["train_loss"] == r.history[-1]["train_loss"]
-    assert r2.history[-1]["val_loss"] == r.history[-1]["val_loss"]
+    assert r2.history[-1]["train_loss"] == float(losses[-1])
     for step in integrity.list_steps(tmp_path):
         assert integrity.verify_step(tmp_path / str(step))[0] == "intact"
 
@@ -131,8 +143,10 @@ def test_resume_falls_back_past_a_corrupt_newest_step(tmp_path):
     assert result.steps == 6 and [h["epoch"] for h in result.history] == [1]
     assert (tmp_path / "6.corrupt").is_dir()
     assert integrity.verify_step(tmp_path / "6")[0] == "intact"
-    # The same as a run that never saw the torn step.
-    clean, _ = _fit_lm(None, 2)
+    # The same as a run that never saw the torn step: step 3, then a resume
+    # that takes a fresh stream.
+    _fit_lm(str(tmp_path / "clean"), 1)
+    clean, _ = _fit_lm(str(tmp_path / "clean"), 2, resume=True)
     _assert_same_state(task, clean)
 
 
@@ -233,6 +247,30 @@ def test_train_command_checkpoints_and_resumes_the_resnet(tmp_path):
     assert all(integrity.verify_step(f"{ckpt}/{s}")[0] == "intact" for s in (2, 4))
     state = torch.load(f"{ckpt}/4/state.pt", weights_only=True)
     assert state["step"] == 4 and state["scheduler"] is None and "fc.weight" in state["model"]
+
+
+def test_train_resume_at_an_epoch_boundary_is_bit_for_bit(tmp_path):
+    """No shuffle and rows = steps x batch: every epoch reads the same
+    batches, so a fresh stream at the boundary continues the run exactly."""
+    table = str(tmp_path / "t")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["datagen", "images", "--out", table, "--n", "16", "--classes", "4",
+                         "--size", "32"]) == 0
+    common = ["train", "--data", table, "--model", "tiny", "--batch-size", "8", "--crop", "32",
+              "--num-classes", "4", "--device", "cpu", "--workers", "1", "--no-shuffle",
+              "--learning-rate", "1e-2"]
+    straight = str(tmp_path / "straight")
+    assert _cli(common + ["--epochs", "2", "--checkpoint-dir", straight])["steps"] == 4
+    split = str(tmp_path / "split")
+    assert _cli(common + ["--epochs", "1", "--checkpoint-dir", split])["steps"] == 2
+    assert _cli(common + ["--epochs", "2", "--checkpoint-dir", split, "--resume"])["steps"] == 4
+    a, b = (torch.load(f"{d}/4/state.pt", weights_only=True) for d in (straight, split))
+    for name, x in a["model"].items():
+        assert torch.equal(x, b["model"][name]), name
+    for i, st in a["optimizer"]["state"].items():
+        for key, value in st.items():
+            assert torch.equal(value, b["optimizer"]["state"][i][key]), (i, key)
+    assert a["metrics"]["train_loss"] == b["metrics"]["train_loss"]
 
 
 def test_lm_command_resumes_from_the_persisted_schedule(tmp_path):

@@ -1,12 +1,13 @@
 """The port's data path vs the JAX package's: the same Delta table gives the
 same batches.
 
-A table of synthetic JPEGs is written once; the JAX reader (its transform
-forced to ``backend="pil"``) and the port's reader read it with the same
+A table of synthetic JPEGs is written once; the JAX reader and the port's
+reader (both transforms on ``backend="pil"``) read it with the same
 settings, one decode worker so the row-group order is exact, with row
 groups shuffled and not, across two epochs. Images and labels must be
-equal, bit for bit. The port's generator, Delta log, shard assignment and
-CPU feeder are checked on their own as well.
+equal, bit for bit. The port's generator, Delta log, shard assignment,
+decode-backend resolution and CPU feeder are checked on their own as well
+(the native decoder against the JAX package's in ``test_torch_native.py``).
 """
 
 import numpy as np
@@ -49,7 +50,7 @@ def _batches(loader, spec, table, shuffle, seed=7, n=12):
 def test_readers_yield_the_same_batches(table, shuffle, dtype):
     kw = dict(crop=32, resize=40, output_dtype=dtype)
     want = _batches(jax_batch_loader, jax_spec(backend="pil", **kw), table, shuffle)
-    got = _batches(batch_loader, imagenet_transform_spec(backend="auto", **kw), table, shuffle)
+    got = _batches(batch_loader, imagenet_transform_spec(backend="pil", **kw), table, shuffle)
     assert len(got) == len(want) == 12  # 40 rows, batches of 6, over two epochs
     for g, w in zip(got, want):
         assert set(g) == set(w) == {"image", "label"}
@@ -74,9 +75,18 @@ def test_generator_and_delta_log_match_jax(tmp_path):
     assert rows[0] == rows[1]  # same JPEG bytes and labels from one seed
 
 
-def test_auto_backend_is_pil_and_native_waits():
+def test_auto_backend_is_pil_and_native_waits(monkeypatch):
+    """auto is native where the C++ pool builds and PIL where it does not;
+    an explicit native that cannot build raises with the reason and never
+    runs PIL instead."""
+    from dss_ml_at_scale_tpu_torch import native
+
+    assert imagenet_transform_spec().backend == ("native" if native.native_available() else "pil")
+    assert imagenet_transform_spec(backend="pil").backend == "pil"
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load_error", "native image pipeline unavailable: no g++")
     assert imagenet_transform_spec().backend == "pil"
-    with pytest.raises(ValueError, match="native"):
+    with pytest.raises(RuntimeError, match="no g\\+\\+"):
         imagenet_transform_spec(backend="native")
 
 

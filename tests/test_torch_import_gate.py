@@ -6,8 +6,11 @@ generation over HTTP on the CPU through the real model, writes a 16-row
 image table and trains the pallas-level ``tiny-bottleneck`` on it through
 the port's ``train`` entry (crop 32, on the CPU), takes one LM train step
 through the ``lm`` entry with a checkpoint and one more after restoring it
-(``--resume``), and then lists what got loaded. The static scan reads every source file of the port (and
-``chip_smoke.py``) for imports of the same.
+(``--resume``), and then lists what got loaded. A second check runs one
+data-parallel ``train`` step in two processes (gloo on the CPU, meeting at
+a ``file://`` rendezvous), each of which lists what it loaded. The static
+scan reads every source file of the port (``runtime/`` and ``native/``
+among them) and ``chip_smoke.py`` for imports of the same.
 """
 
 import ast
@@ -96,12 +99,64 @@ def test_port_serves_a_generation_without_jax():
     assert "dss_ml_at_scale_tpu_torch.resilience.checkpoint" in report["modules"]
 
 
+_RANK = r"""
+import contextlib, io, json, os, sys
+from dss_ml_at_scale_tpu_torch.config import cli
+work, rank = sys.argv[1], sys.argv[2]
+os.environ.update(NUM_PROCESSES="2", PROCESS_ID=rank)
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli.main(["train", "--data", work + "/t", "--model", "tiny-bottleneck",
+                     "--pallas-fused", "--batch-size", "4", "--crop", "32",
+                     "--num-classes", "4", "--epochs", "1", "--device", "cpu",
+                     "--workers", "1", "--coordinator", "file://" + work + "/rdzv"]) == 0
+summary = json.loads(out.getvalue().strip().splitlines()[-1])
+print(json.dumps({"train": summary, "modules": sorted(sys.modules)}))
+"""
+
+
+def test_two_rank_train_step_without_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "COORDINATOR_ADDRESS")}
+    env["PYTHONPATH"] = str(ROOT)
+    env["OMP_NUM_THREADS"] = "2"
+    # Four files of four rows: each process reads its own files.
+    gen = subprocess.run(
+        [sys.executable, "-c", "import sys; from dss_ml_at_scale_tpu_torch.datagen import "
+         "write_image_delta; write_image_delta(sys.argv[1], 16, classes=4, size=32, "
+         "max_rows_per_file=4)", str(tmp_path / "t")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert gen.returncode == 0, gen.stderr
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(tmp_path), str(r)], cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    reports = []
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-4000:]
+        reports.append(json.loads(out.strip().splitlines()[-1]))
+    for rank, report in enumerate(reports):
+        # 16 rows, 4 per process and step, 2 processes: two steps.
+        assert report["train"]["steps"] == 2
+        assert report["train"]["process_index"] == rank
+        assert report["train"]["process_count"] == 2
+        assert [m for m in report["modules"] if _forbidden(m)] == []
+        assert "dss_ml_at_scale_tpu_torch.runtime.distributed" in report["modules"]
+    assert reports[0]["train"]["train_loss"] == reports[1]["train"]["train_loss"]
+
+
+def test_static_scan_covers_runtime_and_native():
+    names = {str(p.relative_to(PORT)) for p in _sources() if PORT in p.parents}
+    assert {"runtime/distributed.py", "runtime/topology.py", "native/__init__.py",
+            "data/augment.py", "models/pretrained.py"} <= names
+
+
 def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "scripts" / "compare_torch_kernels.py",
                                          ROOT / "scripts" / "profile_torch_lm.py",
                                          ROOT / "scripts" / "profile_torch_train.py",
-                                         ROOT / "scripts" / "resnet_grad_sensitivity.py"]
+                                         ROOT / "scripts" / "resnet_grad_sensitivity.py",
+                                         ROOT / "scripts" / "lm_curve_torch.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

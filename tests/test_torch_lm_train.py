@@ -225,7 +225,7 @@ def test_lm_cli_prints_the_jax_summary_keys(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--ffn", "moe"], ["--resume-auto"],
                                   ["--health-policy", "skip"], ["--max-rollbacks", "3"],
-                                  ["--experiment", "x"], ["--coordinator", "h:1"]])
+                                  ["--experiment", "x"]])
 def test_lm_cli_refuses_what_later_slices_bring(flag, capsys):
     assert cli.main(["lm", "--device", "cpu", *flag]) == 1
     assert "not ported yet" in json.loads(capsys.readouterr().out)["error"]

@@ -258,3 +258,28 @@ def test_bf16_model_emits_f32_logits(rng):
         logits = tm(torch.as_tensor(rng.integers(0, 64, (1, 16))))
     assert logits.dtype == torch.float32
     assert torch.isfinite(logits).all()
+
+
+DENSE = ("qkv.weight", "proj.weight", "mlp_up.weight", "mlp_down.weight", "lm_head.weight")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dense_kernels_are_truncated_lecun_normal_like_flax(seed):
+    """flax's ``lecun_normal``: a normal truncated at two deviations and
+    rescaled by 1/0.87962566, so its std is 1/sqrt(fan_in): no entry beyond
+    2 sigma (sigma the pre-truncation std), and the empirical std within 2%
+    of 1/sqrt(fan_in). The token table stays an untruncated normal of std
+    1/sqrt(vocab), as ``nn.Embed``."""
+    kw = dict(vocab_size=512, dim=256, num_heads=4, num_layers=2, max_seq=64)
+    state = init_lm_state(TransformerLM(device="cpu", **kw), seed)
+    dense = [n for n in state if n.endswith(DENSE)]
+    assert len(dense) == 4 * kw["num_layers"] + 1
+    for name in dense:
+        t = state[name].double()
+        target = 1.0 / np.sqrt(t.shape[1])
+        sigma = target / 0.87962566103423978
+        assert t.abs().max().item() <= 2 * sigma, name
+        assert abs(t.std().item() / target - 1.0) < 0.02, name
+    emb = state["tok_embed.weight"].double()
+    assert abs(emb.std().item() * np.sqrt(kw["vocab_size"]) - 1.0) < 0.02
+    assert emb.abs().max().item() > 3.0 / np.sqrt(kw["vocab_size"])  # untruncated tails
