@@ -105,12 +105,31 @@ Phases (any failure exits non-zero; there is no CPU path):
 11. augment: the device crop of a 212 x 224 x 224 batch against the CPU
    run of the same (seed, step), within 1e-4 of max-abs (TF32 off); wall
    ms per step.
-12. decode: native against PIL images/s on the train table's JPEGs, and
-   whether ``jpeglib.h`` is there (native's load error where it does not
-   build).
+12. decode: native against PIL images/s on the train table's JPEGs, with
+   the libjpeg the native build links (the system's, else Pillow's bundled
+   one; the headers are vendored), and native's load error where it does
+   not build.
 13. lm-dp: ``lm --coordinator`` (NCCL, a group of one) at full width and 2
    layers, 4 steps and 1 val batch; K4's launches exactly.
-14. a ``kernels`` JSON line, the card line, and the device JSON line last.
+14. resilience: (a) ``train --pallas-fused`` on the 848-row table, 2
+   epochs, ``--health-policy rollback --max-consecutive-skips 1``, with the
+   two steps after the first epoch's checkpoint poisoned
+   (``grads.nonfinite=2@4``): ends at the clean count (8), one rollback,
+   two nonfinite steps, 424 quarantined rows, K1-K3 16 launches per
+   dispatched step (discarded ones included) and K1 16 per eval batch.
+   (b) The guarded ResNet-50 step at batch 212 with a NaN, then a spike,
+   injected: weights, Adam's moments and step, BN running statistics and
+   ``task.step`` bit-equal on the card. (c) What supervision costs: the
+   ResNet-50 and full-width LM steps with ``--health-policy off`` and
+   ``skip`` (no fault), data on the card, in turns, 3 trials of 5 steps.
+   (d) The full-width ``lm`` in a subprocess: SIGTERM after its first
+   logged step, a ``preempted`` mid-epoch checkpoint, ``--resume-auto`` to
+   the uninterrupted step count (K4 counted); a run SIGKILLed after its
+   first checkpoint, marked INTERRUPTED by ``runs doctor`` and finished by
+   ``runs doctor --resume``; ``--health-policy skip`` with one
+   ``loss.spike`` (one discarded step); the save and restore times of the
+   LM's checkpoint.
+15. a ``kernels`` JSON line, the card line, and the device JSON line last.
 """
 
 from __future__ import annotations
@@ -1218,10 +1237,12 @@ def decode_phase(tables, card: str) -> dict:
 
     jpegs = pq.read_table(DeltaTable(tables[0]).file_uris(), columns=["content"]).column(
         "content").to_pylist()
-    result = {"jpeglib_h": Path("/usr/include/jpeglib.h").exists(), "images": len(jpegs),
+    _, libjpeg = native.jpeg_library()
+    result = {"system_jpeglib_h": Path("/usr/include/jpeglib.h").exists(),
+              "libjpeg": str(libjpeg) if libjpeg is not None else None, "images": len(jpegs),
               "host_cores": os.cpu_count()}
-    print(f"decode: jpeglib.h {'found' if result['jpeglib_h'] else 'missing'} "
-          "under /usr/include", flush=True)
+    print(f"decode: system jpeglib.h {'found' if result['system_jpeglib_h'] else 'missing'}; "
+          f"linking {result['libjpeg']} (headers vendored beside the source)", flush=True)
     t0 = time.perf_counter()
     pil = np.stack([decode_resize_crop(b) for b in jpegs[:BATCH]])
     result["pil_images_per_sec_1_thread"] = BATCH / (time.perf_counter() - t0)
@@ -1277,6 +1298,353 @@ def lm_dp_phase(torch, card: str) -> dict:
     return result
 
 
+def _counter(name: str) -> float:
+    from dss_ml_at_scale_tpu_torch import telemetry
+
+    return next((m["value"] for m in telemetry.snapshot()["metrics"]
+                 if m["name"] == name and not m.get("labels")), 0.0)
+
+
+def _fused_launches() -> dict:
+    from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
+
+    return {"K1": fm.bn_relu_matmul_fwd.launches, "K2": fm.bn_relu_matmul_bwd_da.launches,
+            "K3": fm.bn_relu_matmul_bwd_dw.launches}
+
+
+def _zero_fused_launches() -> None:
+    from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
+
+    fm.bn_relu_matmul_fwd.launches = 0
+    fm.bn_relu_matmul_bwd_da.launches = 0
+    fm.bn_relu_matmul_bwd_dw.launches = 0
+
+
+def resilience_train_phase(torch, tables, work: Path, card: str) -> dict:
+    """``train --pallas-fused`` at full width on the 848-row table, 2 epochs
+    of 4 steps, under ``--health-policy rollback --max-consecutive-skips 1``
+    with the first two steps after the first epoch's checkpoint poisoned:
+    skip, then rollback to step 4, then steps 5-8 again."""
+    from dss_ml_at_scale_tpu_torch.config import cli
+    from dss_ml_at_scale_tpu_torch.resilience import checkpoint as integrity
+    from dss_ml_at_scale_tpu_torch.resilience import faults
+    from dss_ml_at_scale_tpu_torch.resilience.rollback import QuarantineList
+
+    train, val = tables
+    ckpt = work / "rollback"
+    args = cli.build_parser().parse_args([
+        "train", "--data", train, "--val-data", val, "--model", "resnet50", "--pallas-fused",
+        "--batch-size", str(BATCH), "--crop", "224", "--num-classes", "1000", "--epochs", "2",
+        "--limit-val-batches", "1", "--checkpoint-dir", str(ckpt), "--health-policy",
+        "rollback", "--max-consecutive-skips", "1", "--tracking-root", str(work / "runs")])
+    nonfinite0 = _counter("nonfinite_steps_total")
+    faults.install_from_spec(f"grads.nonfinite=2@{STEPS}")
+    # The main path: counts set to 0 just before, read just after.
+    _zero_fused_launches()
+    t0 = time.perf_counter()
+    try:
+        summary = cli.run_train(args)
+    finally:
+        faults.clear()
+    wall = time.perf_counter() - t0
+    launches = _fused_launches()
+    dispatched = 2 * STEPS + 2  # two epochs, and the two discarded steps
+    check(summary["steps"] == 2 * STEPS, f"rollback run ended at step {summary['steps']}, "
+          f"the clean run's count is {2 * STEPS}")
+    check(summary["health_rollbacks"] == 1 and summary["skipped_steps"] == 2,
+          f"rollback run: {summary['health_rollbacks']} rollbacks, "
+          f"{summary['skipped_steps']} skipped steps; want 1 and 2")
+    check(_counter("nonfinite_steps_total") - nonfinite0 == 2, "nonfinite_steps_total")
+    entries = QuarantineList(ckpt / "quarantine.jsonl").entries
+    rows = sum(e["row_hi"] - e["row_lo"] for e in entries)
+    check(rows == 2 * BATCH and {e["step"] for e in entries} == {STEPS + 1}
+          and all("nonfinite" in e["reason"] for e in entries),
+          f"quarantine: {len(entries)} entries over {rows} rows, want {2 * BATCH} rows")
+    want = {"K1": 16 * dispatched + 16 * 2, "K2": 16 * dispatched, "K3": 16 * dispatched}
+    check(launches == want, f"rollback run kernel launches {launches}, want {want} "
+          f"(16 per dispatched step, discarded ones included, and per eval batch)")
+    report = integrity.verify_checkpoint_dir(ckpt)
+    check([r["step"] for r in report] == [2 * STEPS, STEPS]
+          and all(r["status"] == "intact" for r in report), f"rollback checkpoints {report}")
+    result = {"launches": launches, "dispatched_steps": dispatched, "wall_s": wall,
+              "steps": summary["steps"], "health_rollbacks": summary["health_rollbacks"],
+              "skipped_steps": summary["skipped_steps"], "quarantine_entries": len(entries),
+              "quarantined_rows": rows, "val_acc": summary["val_acc"]}
+    print(f"resilience rollback run ({card}): " + json.dumps(result), flush=True)
+    return result
+
+
+def _timed_steps(torch, step, n: int) -> float:
+    """Wall ms per step of ``n`` steps, the card synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _supervision_cost(torch, task, batch, trials: int = 3, n: int = 5) -> dict:
+    """The task's step with ``--health-policy off`` (``train_step``) and
+    ``skip`` (the guarded step, no fault), data already on the card, timed
+    in turns: off, skip, skip, off, ..."""
+    from dss_ml_at_scale_tpu_torch.resilience import health
+
+    guarded = health.guard_train_step(task, health.HealthConfig(policy="skip"))
+    state = {"h": health.HealthState.create("cuda")}
+
+    def skip():
+        state["h"], m = guarded(state["h"], batch, health.INJECT_NONE)
+        check(m["health_verdict"] == health.VERDICT_OK, "supervision timing: a bad verdict")
+
+    steps = {"off": lambda: task.train_step(batch), "skip": skip}
+    for fn in steps.values():  # warm both
+        fn()
+    times = {"off": [], "skip": []}
+    order = ["off", "skip", "skip", "off"] * ((trials + 1) // 2)
+    for name in order[:2 * trials]:
+        times[name].append(_timed_steps(torch, steps[name], n))
+    return {"off_ms": times["off"], "skip_ms": times["skip"],
+            "off_ms_median": statistics.median(times["off"]),
+            "skip_ms_median": statistics.median(times["skip"]), "steps_per_trial": n}
+
+
+def _state(task) -> dict:
+    import copy
+
+    opt = task.optimizer.state_dict()
+    return {"model": {k: v.clone() for k, v in task.model.state_dict().items()},
+            "adam": copy.deepcopy(opt["state"]), "step": task.step}
+
+
+def _bit_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    return (a["step"] == b["step"]
+            and all(torch.equal(v, b["model"][k]) for k, v in a["model"].items())
+            and a["adam"].keys() == b["adam"].keys()
+            and all(torch.equal(v, b["adam"][i][k])
+                    for i, st in a["adam"].items() for k, v in st.items()))
+
+
+def resilience_step_phase(torch, card: str) -> dict:
+    """A poisoned step at full width on the card: the guarded ResNet-50
+    ``ClassifierTask`` step (pallas level, batch 212, crop 224) with a NaN
+    and then a spike injected leaves the weights, Adam's moments and step,
+    the BN running statistics and ``task.step`` bit-equal, K1-K3 launched
+    16 times each per discarded step; then the supervision cost of the
+    ResNet-50 step and of the full-width LM step."""
+    from dss_ml_at_scale_tpu_torch.config.checkpoints import build_classifier_model
+    from dss_ml_at_scale_tpu_torch.models import seeded_lm
+    from dss_ml_at_scale_tpu_torch.ops.flash_attention import flash_attention
+    from dss_ml_at_scale_tpu_torch.parallel import ClassifierTask, LMTask
+    from dss_ml_at_scale_tpu_torch.resilience import health
+
+    model = build_classifier_model("resnet50", num_classes=1000, torch_padding=False,
+                                   fused_bn="pallas", device="cuda")
+    task = ClassifierTask(model=model, learning_rate=1e-5)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"image": torch.randn(BATCH, 224, 224, 3, device="cuda", generator=gen),
+             "label": torch.randint(0, 1000, (BATCH,), device="cuda", generator=gen)}
+    guarded = health.guard_train_step(task, health.HealthConfig(policy="skip", warmup_steps=1))
+    h, m = guarded(health.HealthState.create("cuda"), batch, health.INJECT_NONE)
+    check(m["health_verdict"] == health.VERDICT_OK and task.step == 1, "first guarded step")
+    before = _state(task)
+    check(any(k.endswith("running_var") for k in before["model"]) and before["adam"],
+          "no BN statistics or Adam state to hold")
+    verdicts = []
+    _zero_fused_launches()
+    for inject in (health.INJECT_NONFINITE, health.INJECT_SPIKE):
+        h2, m = guarded(h, batch, inject)
+        verdicts.append(m["health_verdict"])
+        check(h2 is h, "a discarded step moved the EWMA state")
+    launches = _fused_launches()
+    check(verdicts == [health.VERDICT_NONFINITE, health.VERDICT_SPIKE],
+          f"poisoned-step verdicts {verdicts}")
+    check(_bit_equal(_state(task), before),
+          "a discarded step changed the weights, moments, BN statistics or step count")
+    check(launches == {"K1": 32, "K2": 32, "K3": 32},
+          f"discarded steps launched {launches}, want 16 each per step")
+    cost = {"resnet50": _supervision_cost(torch, task, batch)}
+    del task, model, batch, guarded
+    torch.cuda.empty_cache()
+    lm = LMTask(model=seeded_lm(0, device="cuda", vocab_size=8192, dim=1024, num_heads=8,
+                                num_layers=4, max_seq=2048, attention="flash"),
+                learning_rate=3e-4)
+    tokens = {"tokens": torch.randint(0, 8192, (8, 2048), device="cuda", generator=gen)}
+    flash_attention.launches = 0
+    cost["lm"] = _supervision_cost(torch, lm, tokens)
+    timed = 2 + (len(cost["lm"]["off_ms"]) + len(cost["lm"]["skip_ms"])) * 5
+    check(flash_attention.launches == 4 * timed, "LM timing: K4 launches")
+    del lm, tokens
+    torch.cuda.empty_cache()
+    result = {"verdicts": verdicts, "launches": launches, "supervision": cost}
+    print(f"resilience step ({card}): " + json.dumps(result), flush=True)
+    return result
+
+
+def _wait_for(pred, proc, timeout: float, what: str) -> None:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        if proc.poll() is not None:
+            fail(f"{what}: the run exited ({proc.returncode}) first:\n"
+                 + proc.stderr.read()[-3000:])
+        time.sleep(0.05)
+    proc.kill()
+    fail(f"{what}: timed out")
+
+
+def _lm_argv(steps_per_epoch: int, work: Path, *extra: str) -> list[str]:
+    argv = list(LM_TRAIN)
+    argv[argv.index("--steps-per-epoch") + 1] = str(steps_per_epoch)
+    return ["lm", *argv, "--epochs", "2", "--checkpoint-dir", str(work / "ck"),
+            "--tracking-root", str(work / "runs"), *extra]
+
+
+def resilience_lm_phase(torch, work: Path, card: str) -> dict:
+    """The full-width ``lm`` in subprocesses: SIGTERM after its first logged
+    step, then ``--resume-auto`` (in this process, K4 counted) to the
+    uninterrupted step count; a run SIGKILLed after its first checkpoint,
+    which ``runs doctor`` marks INTERRUPTED and ``runs doctor --resume``
+    finishes; ``--health-policy skip`` with one ``loss.spike``; the save and
+    restore times of the full-width LM's checkpoint."""
+    import contextlib
+    import io
+    import os
+    import signal
+
+    from dss_ml_at_scale_tpu_torch.config import cli
+    from dss_ml_at_scale_tpu_torch.models import seeded_lm
+    from dss_ml_at_scale_tpu_torch.ops.flash_attention import flash_attention
+    from dss_ml_at_scale_tpu_torch.parallel import LMTask
+    from dss_ml_at_scale_tpu_torch.parallel import trainer as trainer_mod
+    from dss_ml_at_scale_tpu_torch.resilience import checkpoint as integrity
+    from dss_ml_at_scale_tpu_torch.resilience import faults
+    from dss_ml_at_scale_tpu_torch.tracking import list_runs, read_journal
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH", "")]))
+    layers, result = 4, {}
+
+    def start(argv, cwd):
+        return subprocess.Popen([sys.executable, "-m", "dss_ml_at_scale_tpu_torch.config.cli",
+                                 *argv], cwd=cwd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    # 1. SIGTERM mid-epoch, then --resume-auto.
+    spe, pre = 30, work / "preempt"
+    pre.mkdir()
+    proc = start(_lm_argv(spe, pre), pre)
+    _wait_for(lambda: any(p.stat().st_size for p in (pre / "runs").glob("lm/*/metrics.jsonl")),
+              proc, 300, "lm SIGTERM run")
+    t_sig = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    out, err = proc.communicate(timeout=300)
+    exit_s = time.perf_counter() - t_sig
+    check(proc.returncode == 0, f"lm SIGTERM run exited {proc.returncode}:\n{err[-3000:]}")
+    first = json.loads(out.strip().splitlines()[-1])
+    stopped = first["steps"]
+    check(first["preempted"] is True and 0 < stopped < spe,
+          f"lm SIGTERM run: preempted {first['preempted']} at step {stopped}")
+    check(integrity.list_steps(pre / "ck") == [stopped]
+          and json.loads((pre / "ck" / str(stopped) / "metrics.json").read_text()) == {}
+          and integrity.verify_step(pre / "ck" / str(stopped))[0] == "intact",
+          f"lm preemption checkpoint {integrity.verify_checkpoint_dir(pre / 'ck')}")
+    args = cli.build_parser().parse_args(_lm_argv(spe, pre, "--resume-auto"))
+    # The main path: counts set to 0 just before, read just after.
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    resumed = cli.run_lm(args)
+    resume_wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    want = layers * ((2 * spe - stopped) + 2 * LM_VAL)
+    check(resumed["steps"] == 2 * spe and resumed["auto_resumed"] is True,
+          f"lm --resume-auto ended at step {resumed['steps']}, want {2 * spe}")
+    check(launches == want, f"lm --resume-auto: K4 launched {launches} times, want {want}")
+    result["preempt"] = {"stopped_at": stopped, "sigterm_to_exit_s": exit_s,
+                         "resume_auto_wall_s": resume_wall, "steps": resumed["steps"],
+                         "launches": launches}
+
+    # 2. SIGKILL after the first checkpoint, runs doctor, runs doctor --resume.
+    spe, dead = 6, work / "killed"
+    dead.mkdir()
+    proc = start(_lm_argv(spe, dead), dead)
+
+    def journaled_checkpoint():
+        return any(e["event"] == "checkpoint" for d in (dead / "runs").glob("lm/*")
+                   for e in read_journal(d))
+
+    _wait_for(journaled_checkpoint, proc, 300, "lm SIGKILL run")
+    proc.kill()
+    proc.communicate(timeout=60)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["runs", "doctor", "--json", "--tracking-root", str(dead / "runs")])
+    (run,) = json.loads(buf.getvalue())["runs"]
+    check(rc == 0 and run["effective_status"] == "INTERRUPTED" and run.get("marked")
+          and run["resumable_step"] == spe, f"runs doctor on the killed run: {run}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["runs", "doctor", "--resume", "--tracking-root", str(dead / "runs")])
+    revive_wall = time.perf_counter() - t0
+    statuses = sorted(m["status"] for m in list_runs(dead / "runs"))
+    check(rc == 0 and integrity.list_steps(dead / "ck")[-1] == 2 * spe
+          and statuses == ["FINISHED", "INTERRUPTED"],
+          f"runs doctor --resume: rc {rc}, steps {integrity.list_steps(dead / 'ck')}, "
+          f"runs {statuses}")
+    result["killed"] = {"resumable_step": run["resumable_step"], "revive_wall_s": revive_wall,
+                        "final_step": 2 * spe}
+
+    # 3. --health-policy skip with one loss spike.
+    spike = work / "spike"
+    args = cli.build_parser().parse_args(
+        ["lm", *LM_TRAIN, "--epochs", "1", "--health-policy", "skip", "--health-warmup", "2",
+         "--tracking-root", str(spike / "runs")])
+    faults.install_from_spec("loss.spike=1@4")
+    flash_attention.launches = 0
+    try:
+        summary = cli.run_lm(args)
+    finally:
+        faults.clear()
+    launches = flash_attention.launches
+    want = layers * (LM_STEPS + 1 + LM_VAL)
+    check(summary["steps"] == LM_STEPS and summary["skipped_steps"] == 1
+          and summary["health_rollbacks"] == 0,
+          f"lm skip: {summary['steps']} steps, {summary['skipped_steps']} skipped")
+    check(launches == want, f"lm skip: K4 launched {launches} times, want {want}")
+    result["spike"] = {"steps": summary["steps"], "skipped_steps": summary["skipped_steps"],
+                       "launches": launches}
+
+    # 4. What a checkpoint of the full-width LM costs to save and restore.
+    task = LMTask(model=seeded_lm(0, device="cuda", vocab_size=8192, dim=1024, num_heads=8,
+                                  num_layers=4, max_seq=2048, attention="flash"))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    task.train_step({"tokens": torch.randint(0, 8192, (8, 2048), device="cuda", generator=gen)})
+    torch.cuda.synchronize()
+    root = work / "save"
+    t0 = time.perf_counter()
+    trainer_mod._save(root, task, 1, 0, {})
+    save_s = time.perf_counter() - t0
+    fresh = LMTask(model=seeded_lm(0, device="cuda", vocab_size=8192, dim=1024, num_heads=8,
+                                   num_layers=4, max_seq=2048, attention="flash"))
+    t0 = time.perf_counter()
+    restored = trainer_mod._restore_with_fallback(root, fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(restored == 1 and all(torch.equal(a, b) for a, b in zip(
+        task.model.state_dict().values(), fresh.model.state_dict().values())),
+        "the restored LM differs from the saved one")
+    result["checkpoint"] = {"save_s": save_s, "restore_s": restore_s,
+                            "state_bytes": (root / "1" / "state.pt").stat().st_size}
+    del task, fresh
+    torch.cuda.empty_cache()
+    result["launches"] = result["preempt"]["launches"] + result["spike"]["launches"]
+    print(f"resilience lm ({card}): " + json.dumps(result), flush=True)
+    return result
+
+
 def main() -> int:
     if "--dp-rank" in sys.argv:  # one rank of the dp phase, started by it
         return dp_rank_main(int(sys.argv[sys.argv.index("--dp-rank") + 1]),
@@ -1291,6 +1659,11 @@ def main() -> int:
     except ImportError as e:
         fail(f"the port package is not beside this script: {e}")
 
+    import os
+
+    # Every command's run store goes to a temporary directory, never into
+    # the checkout (the resilience phase passes its own --tracking-root).
+    os.environ["DSST_TRACKING_ROOT"] = tempfile.mkdtemp(prefix="chip_smoke_runs_")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(card, flush=True)
@@ -1348,6 +1721,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_parity = lm_parity_phase(torch)
     print(f"lm-parity ({kind}; {card}): " + json.dumps(lm_parity), flush=True)
+    torch.cuda.empty_cache()
+    res_work = Path(tempfile.mkdtemp(prefix="chip_smoke_resilience_"))
+    res_train = resilience_train_phase(torch, training["tables"], res_work, card)
+    torch.cuda.empty_cache()
+    res_step = resilience_step_phase(torch, card)
+    res_lm = resilience_lm_phase(torch, res_work, card)
+    for name, c in res_step["supervision"].items():
+        print(f"resilience supervision cost, {name} step ms, off vs skip, in turns "
+              f"({card}): off {c['off_ms']} skip {c['skip_ms']}", flush=True)
 
     head = cases[2]  # causal s1024: the largest prefill bucket of the path
     train_case = next(c for c in cases if c["shape"] == "causal b8 h8 s2048 d128")
@@ -1356,9 +1738,10 @@ def main() -> int:
         "route": "cuda",
         "source": "dss_ml_at_scale_tpu_torch/csrc/flash_attention.cu",
         "replaces": "dss_ml_at_scale_tpu/ops/flash_attention.py:70",
-        "launches": serving["launches"] + lm_train["launches"] + lm_dp["launches"],
+        "launches": (serving["launches"] + lm_train["launches"] + lm_dp["launches"]
+                     + res_lm["launches"]),
         "launches_by_path": {"serving": serving["launches"], "lm_train": lm_train["launches"],
-                             "lm_dp": lm_dp["launches"]},
+                             "lm_dp": lm_dp["launches"], "resilience": res_lm["launches"]},
         "training": {k: train_case[k] for k in ("shape", "max_abs_err", "mean_rel_err", "ms",
                                                 "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")},
@@ -1381,10 +1764,12 @@ def main() -> int:
             "source": "dss_ml_at_scale_tpu_torch/csrc/fused_matmul.cu",
             "replaces": "dss_ml_at_scale_tpu/ops/fused_matmul.py" + line,
             "launches": (training["launches"][key] + flags["launches"][key]
-                         + sum(r[key] for r in dp["launches_per_rank"])),
+                         + sum(r[key] for r in dp["launches_per_rank"])
+                         + res_train["launches"][key]),
             "launches_by_path": {"train": training["launches"][key],
                                  "train_flags": flags["launches"][key],
-                                 "dp_per_rank": [r[key] for r in dp["launches_per_rank"]]},
+                                 "dp_per_rank": [r[key] for r in dp["launches_per_rank"]],
+                                 "resilience": res_train["launches"][key]},
             "max_abs_err": max(c["max_abs_err"] for c in fused[key]),
             "ms": head["ms"],
             "plain_ms": head["plain_ms"],

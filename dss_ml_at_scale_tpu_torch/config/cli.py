@@ -2,8 +2,7 @@
 
 Ports of the JAX package's commands (``config/commands.py``):
 
-- ``serve-lm``: the same flags, plus ``--device``. The run-tracking flags
-  wait for the port of the tracking store.
+- ``serve-lm``: the same flags, plus ``--device``.
 - ``datagen images``: the synthetic JPEG-grating Delta table.
 - ``train``: data-parallel image-classifier training from a Delta table,
   with the JAX command's flags that the port supports (names and
@@ -11,19 +10,30 @@ Ports of the JAX package's commands (``config/commands.py``):
   card, each reading its own shard), ``--shard-opt-state`` (ZeRO-1),
   ``--lr-schedule``/``--warmup-steps``, on-device ``--augment``,
   ``--pretrained`` torchvision-layout weights, the native decoder and
-  ``--fast-decode``, ``--profile-dir``, checkpoints and ``--resume``; the
-  model's padding and the learning-rate trajectory persist as
+  ``--fast-decode``, ``--profile-dir``, checkpoints, ``--resume`` and
+  ``--resume-auto``, the health supervisor (``--health-policy`` and its
+  knobs); the model's padding and the learning-rate trajectory persist as
   ``dsst_model.json`` beside the checkpoints, for a flag-less
-  ``--resume``. Health, tracking and the ViT models wait for their ports.
+  ``--resume``. The ViT models wait for their port.
 - ``lm``: TransformerLM training on the seeded Markov token stream, with
   the JAX command's flags and defaults, plus ``--device``: flash or
   reference attention, a constant or cosine learning rate (the trajectory
   persisted as ``dsst_lm.json`` beside the checkpoints, for a flag-less
-  ``--resume``), checkpoints, resume, ``--sample`` scoring and
-  ``--coordinator`` (each process draws its own trajectory of the chain).
-  ``--ffn moe``, ``--resume-auto``, the health flags and the tracking
-  flags (``--no-tracking`` is what the port does anyway) raise an error
-  naming the later slice that brings them.
+  ``--resume``), checkpoints, resume and ``--resume-auto``, the health
+  supervisor, ``--sample`` scoring and ``--coordinator`` (each process
+  draws its own trajectory of the chain). ``--ffn moe`` raises an error
+  naming the later slice that brings it.
+- ``checkpoints verify DIR``, ``quarantine list|clear`` and ``runs
+  list|show|doctor [--resume]``: the operator's face of the checkpoint
+  manifests, the poison-row blocklist and the run store. They touch no
+  device.
+
+``train``, ``lm`` and ``serve-lm`` journal every run in a run store
+(:mod:`..tracking`), on by default under ``./dsst_runs`` (or
+``DSST_TRACKING_ROOT``; ``--no-tracking`` opts out); a command that
+raises closes its run as FAILED. The global ``--fault-plan`` (or
+``DSST_FAULT_PLAN``) arms deterministic fault injection
+(:mod:`..resilience.faults`).
 
 ``--device`` defaults to ``cuda``; a missing card is an error, never a
 silent CPU run. With ``--coordinator`` (or ``COORDINATOR_ADDRESS``) the
@@ -37,15 +47,30 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from pathlib import Path
 
+DEFAULT_TRACKING_ROOT = "dsst_runs"
+
 
 def build_parser() -> argparse.ArgumentParser:
+    from ..resilience.faults import KNOWN_SITES
+
     parser = argparse.ArgumentParser(
         prog="dss_ml_at_scale_tpu_torch",
         description="PyTorch/CUDA port of dss_ml_at_scale_tpu",
     )
+    parser.add_argument(
+        "--fault-plan", default=None, metavar="SPEC",
+        help="arm deterministic fault injection for this invocation, e.g. "
+        "'grads.nonfinite=1@5;reader.next=p0.1;seed=7' "
+        f"(sites: {', '.join(sorted(KNOWN_SITES))}; N = fail the first N "
+        "hits, N@K = skip K hits then fail N, pX = seeded per-hit "
+        "probability, kN/kN@K = SIGKILL the process at the hit; suffix "
+        ".<kind> scopes an fs.* site to one publish family, e.g. "
+        "fs.crash_after_tmp.manifest=k1). Default: env DSST_FAULT_PLAN; "
+        "fault testing only")
     sub = parser.add_subparsers(dest="command", required=True)
     sv = sub.add_parser(
         "serve-lm",
@@ -116,10 +141,14 @@ def build_parser() -> argparse.ArgumentParser:
         "--access-log", default=None, metavar="JSONL",
         help="structured request log: one JSON line per /generate",
     )
+    _add_tracking_args(sv, "serve-lm")
     sv.set_defaults(fn=_cmd_serve_lm)
     _register_datagen(sub)
     _register_train(sub)
     _register_lm(sub)
+    _register_checkpoints(sub)
+    _register_quarantine(sub)
+    _register_runs(sub)
     return parser
 
 
@@ -250,6 +279,8 @@ def _register_train(sub) -> None:
                     help="shuffle row groups per epoch (seeded)")
     tr.add_argument("--limit-val-batches", type=int, default=5)
     _add_checkpoint_args(tr)
+    _add_health_args(tr)
+    _add_tracking_args(tr, "imagenet")
     tr.add_argument("--profile-dir", default=None,
                     help="torch.profiler Chrome trace of a window of steps, one file "
                     "per process")
@@ -291,6 +322,140 @@ def _add_checkpoint_args(parser) -> None:
         "--resume", action="store_true",
         help="continue from the newest intact step under --checkpoint-dir, "
         "falling back past corrupt ones")
+    parser.add_argument(
+        "--resume-auto", action="store_true",
+        help="crash-only restart: resume from the newest manifest-intact "
+        "checkpoint if one exists (falling back past torn steps, moving "
+        "wreckage aside, sweeping stranded .tmp files), else start fresh; "
+        "never errors on an empty dir and never needs a step name. Also "
+        "marks this experiment's dead RUNNING runs INTERRUPTED first. What "
+        "`runs doctor --resume` relaunches with")
+
+
+def _add_health_args(parser) -> None:
+    """Training-health supervisor flags, shared by train and lm."""
+    parser.add_argument(
+        "--health-policy", choices=["off", "skip", "rollback", "abort"], default="off",
+        help="supervise every train step with non-finite (loss/grad-norm "
+        "isfinite) and EWMA loss-spike detection: a bad update is "
+        "discarded before commit and its batch quarantined; past a "
+        "--max-consecutive-skips streak, 'skip' aborts while 'rollback' "
+        "restores the newest intact checkpoint (then aborts after "
+        "--max-rollbacks); 'abort' stops on the first bad step with a "
+        "diagnostic bundle. Default off (no per-step verdict, no sync)")
+    parser.add_argument("--spike-zscore", type=float, default=6.0,
+                        help="loss-spike threshold: |loss - ewma_mean| > Z * ewma_std")
+    parser.add_argument("--health-warmup", type=int, default=20,
+                        help="healthy steps observed before the spike detector arms "
+                        "(non-finite detection is always armed)")
+    parser.add_argument("--max-consecutive-skips", type=int, default=3,
+                        help="consecutive bad steps tolerated as skips; one more "
+                        "escalates skip -> rollback (or abort)")
+    parser.add_argument("--max-rollbacks", type=int, default=2,
+                        help="checkpoint rollbacks before the run aborts with a "
+                        "diagnostic bundle")
+
+
+def _health_config(args: argparse.Namespace):
+    """``(HealthConfig | None, QuarantineList | None)`` from the flags; the
+    blocklist lives beside the checkpoints
+    (``<checkpoint_dir>/quarantine.jsonl``), where resume and
+    ``quarantine list`` find it."""
+    if args.health_policy == "off":
+        return None, None
+    from ..resilience.health import HealthConfig
+    from ..resilience.rollback import QuarantineList
+
+    quarantine = (QuarantineList(Path(args.checkpoint_dir) / "quarantine.jsonl")
+                  if args.checkpoint_dir else None)
+    return HealthConfig(
+        policy=args.health_policy, spike_zscore=args.spike_zscore,
+        warmup_steps=args.health_warmup, max_consecutive_skips=args.max_consecutive_skips,
+        max_rollbacks=args.max_rollbacks, quarantine=quarantine,
+    ), quarantine
+
+
+def _add_tracking_args(parser, experiment: str) -> None:
+    """Run tracking, on by default: a run store under ./dsst_runs, or the
+    root in DSST_TRACKING_ROOT (read when the parser is built, so a
+    wrapper redirects every run, subprocesses included)."""
+    parser.add_argument("--experiment", default=experiment)
+    parser.add_argument(
+        "--tracking-root", default=os.environ.get("DSST_TRACKING_ROOT", DEFAULT_TRACKING_ROOT),
+        help=f"run-store root (default ./{DEFAULT_TRACKING_ROOT}, or env DSST_TRACKING_ROOT)")
+    parser.add_argument("--no-tracking", action="store_true",
+                        help="disable the default run tracking")
+
+
+# The one run a CLI invocation may have open: closed as FAILED when the
+# command raises, so a crashed run never stays RUNNING in the store.
+_active_tracker = None
+# This invocation's argv (main stashes it): journaled into each run's
+# start event, for `runs doctor --resume` to re-execute.
+_invocation_argv: list[str] | None = None
+
+
+def set_invocation_argv(argv: list[str] | None) -> None:
+    global _invocation_argv
+    _invocation_argv = list(argv) if argv is not None else None
+
+
+def _open_tracker(args: argparse.Namespace, run_name: str):
+    """The run store of a CLI run, or None when tracking is off."""
+    global _active_tracker
+    if args.no_tracking or not args.tracking_root:
+        return None
+    from ..tracking import RunStore, set_run_cmdline
+
+    set_run_cmdline(_invocation_argv)
+    _active_tracker = RunStore(args.tracking_root, args.experiment, run_name=run_name)
+    _active_tracker.log_params(_args_params(args))
+    return _active_tracker
+
+
+def fail_active_tracker() -> None:
+    """Close a command's still-open run as FAILED (the crash path)."""
+    global _active_tracker
+    if _active_tracker is not None:
+        try:
+            _active_tracker.finish("FAILED")
+        finally:
+            _active_tracker = None
+
+
+def _finish_tracker(tracker) -> None:
+    """Close a CLI run: the telemetry archive, the spans, FINISHED, and the
+    ``run ->`` pointer (printed before the command's JSON summary)."""
+    global _active_tracker
+    if tracker is None:
+        return
+    from .. import telemetry
+
+    tracker.log_telemetry()
+    span_log = telemetry.get_span_log()
+    if span_log.events():
+        tracker.log_text(span_log.to_jsonl(), "spans.jsonl")
+    tracker.finish()
+    if tracker is _active_tracker:
+        _active_tracker = None
+    print(f"run -> {tracker.path}", flush=True)
+
+
+def _args_params(args: argparse.Namespace) -> dict:
+    """The invocation as loggable run params (internals and Nones dropped)."""
+    skip = {"fn", "no_tracking", "tracking_root"}
+    return {k: v for k, v in vars(args).items() if k not in skip and v is not None}
+
+
+def _mark_interrupted_predecessors(args: argparse.Namespace) -> None:
+    """--resume-auto's store hygiene: this experiment's dead-PID RUNNING
+    runs become INTERRUPTED before a new run opens."""
+    if not args.resume_auto or args.no_tracking or not args.tracking_root:
+        return
+    from ..tracking import sweep_interrupted
+
+    if Path(args.tracking_root).is_dir():
+        sweep_interrupted(args.tracking_root, args.experiment)
 
 
 def run_train(args: argparse.Namespace) -> dict:
@@ -315,6 +480,9 @@ def run_train(args: argparse.Namespace) -> dict:
     joined = initialize_distributed(args.coordinator, device=args.device)
     try:
         return _train(args, fused_bn)
+    except BaseException:
+        fail_active_tracker()
+        raise
     finally:
         if joined:
             shutdown_distributed()
@@ -368,21 +536,28 @@ def _train(args: argparse.Namespace, fused_bn) -> dict:
         torch_padding=torch_padding, fused_bn=fused_bn, device=device)
     restoring = (args.resume and args.checkpoint_dir is not None
                  and bool(integrity.list_steps(args.checkpoint_dir)))
-    if args.pretrained and not restoring:
-        # A restore would overwrite these weights: skip the load then.
+    if args.pretrained and (args.resume_auto or not restoring):
+        # A restore would overwrite these weights: skip the load then. Under
+        # --resume-auto load them anyway: when every step on disk is torn
+        # the run starts fresh, and from the requested weights.
         from ..models.pretrained import load_pretrained_resnet
 
         load_pretrained_resnet(args.pretrained, model)
     task = ClassifierTask(model=model, learning_rate=lr, eval_topk=tuple(args.eval_topk),
                           augment=AugmentConfig() if args.augment else None)
+    _mark_interrupted_predecessors(args)
+    tracker = _open_tracker(args, "train")
+    health_cfg, quarantine = _health_config(args)
     trainer = Trainer(TrainerConfig(max_epochs=args.epochs, total_train_rows=rows,
                                     limit_val_batches=args.limit_val_batches,
                                     checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+                                    resume_auto=args.resume_auto,
                                     feeder_depth=args.feeder_depth,
                                     profile_dir=args.profile_dir,
                                     profile_start_step=args.profile_start_step,
                                     profile_num_steps=args.profile_num_steps,
-                                    shard_opt_state=args.shard_opt_state), device=device)
+                                    shard_opt_state=args.shard_opt_state, health=health_cfg),
+                      device=device, tracker=tracker)
     shard = dict(cur_shard=topo.process_index, shard_count=topo.process_count)
     val_factory = None
     if args.val_data:
@@ -392,10 +567,17 @@ def _train(args: argparse.Namespace, fused_bn) -> dict:
             return make_batch_reader(val_table, batch_size=args.batch_size, num_epochs=1,
                                      transform_spec=spec, shuffle_row_groups=False, **shard)
 
+    # Under supervision the reader tags each batch with its rows (a
+    # discarded step quarantines exactly them), consults the blocklist, and
+    # quarantines a corrupt sample instead of dying.
     with batch_loader(table, batch_size=args.batch_size, num_epochs=None,
                       workers_count=args.workers, results_queue_size=args.queue_size,
-                      transform_spec=spec, shuffle_row_groups=args.shuffle, **shard) as reader:
-        result = trainer.fit(task, reader, val_data_factory=val_factory)
+                      transform_spec=spec, shuffle_row_groups=args.shuffle,
+                      quarantine=quarantine, emit_provenance=health_cfg is not None,
+                      on_corrupt="quarantine" if health_cfg is not None else "raise",
+                      **shard) as reader:
+        result = _fit(trainer, task, reader, val_factory, quarantine)
+    _finish_tracker(tracker)
     last = result.history[-1] if result.history else {}
     return {
         "steps": result.steps,
@@ -411,36 +593,65 @@ def _train(args: argparse.Namespace, fused_bn) -> dict:
         "device": str(device),
         "process_index": topo.process_index,
         "process_count": topo.process_count,
+        **_resilience_summary(result, health_cfg, quarantine),
         "history": result.history,
     }
 
 
-def _cmd_train(args: argparse.Namespace) -> int:
+def _fit(trainer, task, train_data, val_factory, quarantine):
+    """``trainer.fit``; a health abort carries the blocklist's path."""
+    from ..resilience.health import TrainingHealthError
+
+    try:
+        return trainer.fit(task, train_data, val_data_factory=val_factory)
+    except TrainingHealthError as e:
+        e.quarantine_file = str(quarantine.path) if quarantine is not None else None
+        raise
+
+
+def _resilience_summary(result, health_cfg, quarantine) -> dict:
+    """The summary's crash-safety fields, as the JAX commands print them:
+    ``preempted`` (SIGTERM cut the run short: rerun with --resume),
+    ``auto_resumed`` (--resume-auto restored a checkpoint), and with a
+    health policy the discarded steps, rollbacks and quarantined rows."""
+    out = {"preempted": result.preempted, "auto_resumed": result.auto_resumed}
+    if health_cfg is not None:
+        out.update(skipped_steps=result.skipped_steps, health_rollbacks=result.health_rollbacks,
+                   quarantined=len(quarantine) if quarantine is not None else 0)
+    return out
+
+
+def _run_command(run, args: argparse.Namespace) -> int:
+    """Print a training command's summary; exit 1 on flags that do not
+    fit together, 3 (with a JSON line naming the diagnostic bundle) when
+    the health supervisor aborted the run."""
+    from ..resilience.health import TrainingHealthError
+
     if _no_card(args.device):
         return 1
     try:
-        summary = run_train(args)
+        summary = run(args)
     except ValueError as e:
-        print(e)
+        print(json.dumps({"error": str(e)}), flush=True)
         return 1
+    except TrainingHealthError as e:
+        print(json.dumps({"aborted": True, "reason": str(e),
+                          "diagnostic_bundle": e.bundle_path,
+                          "quarantine_file": getattr(e, "quarantine_file", None)}), flush=True)
+        return 3
     summary.pop("history")
     print(json.dumps(summary), flush=True)
     return 0
+
+
+def _cmd_train(args: argparse.Namespace) -> int:
+    return _run_command(run_train, args)
 
 
 # The lm flags of the JAX command that wait for later slices of the port:
 # (flag, attribute, value that means "not asked for", what brings it).
 _LM_LATER = (
     ("--ffn moe", "ffn", "dense", "the MoE FFN (ROADMAP Queue 1 item 14)"),
-    ("--resume-auto", "resume_auto", False, "crash-only auto-resume (Queue 1 item 7)"),
-    ("--health-policy", "health_policy", "off", "the health supervisor (Queue 1 item 7)"),
-    ("--spike-zscore", "spike_zscore", None, "the health supervisor (Queue 1 item 7)"),
-    ("--health-warmup", "health_warmup", None, "the health supervisor (Queue 1 item 7)"),
-    ("--max-consecutive-skips", "max_consecutive_skips", None,
-     "the health supervisor (Queue 1 item 7)"),
-    ("--max-rollbacks", "max_rollbacks", None, "the health supervisor (Queue 1 item 7)"),
-    ("--experiment", "experiment", None, "run tracking (Queue 1 item 7)"),
-    ("--tracking-root", "tracking_root", None, "run tracking (Queue 1 item 7)"),
 )
 
 
@@ -479,19 +690,10 @@ def _register_lm(sub) -> None:
         "probability of the generated transitions (uniform chance is 1/vocab)")
     _add_lr_schedule_args(lm)
     _add_checkpoint_args(lm)
-    lm.add_argument("--resume-auto", action="store_true", help="not ported yet")
     lm.add_argument("--feeder-depth", type=int, default=2,
                     help="bound of the background feeder's on-device batch queue")
-    lm.add_argument("--health-policy", choices=["off", "skip", "rollback", "abort"],
-                    default="off", help="not ported yet: off only")
-    for flag in ("--spike-zscore", "--health-warmup", "--max-consecutive-skips",
-                 "--max-rollbacks"):
-        lm.add_argument(flag, type=float if flag == "--spike-zscore" else int,
-                        default=None, help="not ported yet")
-    lm.add_argument("--experiment", default=None, help="not ported yet")
-    lm.add_argument("--tracking-root", default=None, help="not ported yet")
-    lm.add_argument("--no-tracking", action="store_true",
-                    help="accepted: the port keeps no run store yet")
+    _add_health_args(lm)
+    _add_tracking_args(lm, "lm")
     _add_coordinator_arg(lm)
     lm.add_argument("--device", default="cuda",
                     help="torch device of the model (cuda, cuda:N, or cpu)")
@@ -547,6 +749,9 @@ def run_lm(args: argparse.Namespace) -> dict:
     joined = initialize_distributed(args.coordinator, device=args.device)
     try:
         return _lm(args)
+    except BaseException:
+        fail_active_tracker()
+        raise
     finally:
         if joined:
             shutdown_distributed()
@@ -582,17 +787,25 @@ def _lm(args: argparse.Namespace) -> dict:
         meta_path.parent.mkdir(parents=True, exist_ok=True)
         durability.durable_write_json(meta_path, meta)
     task = LMTask(model=model, learning_rate=lr)
+    _mark_interrupted_predecessors(args)
+    tracker = _open_tracker(args, "lm")
+    if tracker is not None:
+        tracker.log_params({"entropy_floor": floor})
+    health_cfg, quarantine = _health_config(args)
     trainer = Trainer(TrainerConfig(
         max_epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
         limit_val_batches=args.limit_val_batches, checkpoint_dir=args.checkpoint_dir,
-        resume=args.resume, feeder_depth=args.feeder_depth), device=device)
+        resume=args.resume, resume_auto=args.resume_auto, feeder_depth=args.feeder_depth,
+        health=health_cfg), device=device, tracker=tracker)
     # Each process draws its own trajectory of the same chain (the
     # multi-process counterpart of a reader shard); eval shares one seed.
-    result = trainer.fit(
-        task, token_batches(stream, sample_seed=args.seed + 1 + topo.process_index),
-        val_data_factory=lambda: token_batches(
+    result = _fit(
+        trainer, task, token_batches(stream, sample_seed=args.seed + 1 + topo.process_index),
+        lambda: token_batches(
             stream, num_batches=args.limit_val_batches, sample_seed=args.seed + 100_000),
+        quarantine,
     )
+    _finish_tracker(tracker)
     last = result.history[-1] if result.history else {}
     summary = {
         "steps": result.steps,
@@ -608,6 +821,7 @@ def _lm(args: argparse.Namespace) -> dict:
         "device": str(device),
         "process_index": topo.process_index,
         "process_count": topo.process_count,
+        **_resilience_summary(result, health_cfg, quarantine),
     }
     if args.sample > 0:
         # KV-cached greedy decode from the trained weights, scored against
@@ -629,16 +843,7 @@ def _lm(args: argparse.Namespace) -> dict:
 
 
 def _cmd_lm(args: argparse.Namespace) -> int:
-    if _no_card(args.device):
-        return 1
-    try:
-        summary = run_lm(args)
-    except ValueError as e:
-        print(json.dumps({"error": str(e)}), flush=True)
-        return 1
-    summary.pop("history")
-    print(json.dumps(summary), flush=True)
-    return 0
+    return _run_command(run_lm, args)
 
 
 def _cmd_serve_lm(args: argparse.Namespace) -> int:
@@ -685,21 +890,26 @@ def _cmd_serve_lm(args: argparse.Namespace) -> int:
             model, slots=args.slots, max_len=args.max_len,
             buckets=config.prefill_buckets,
         )
+    # The journal's start event (pid + boot id) is what lets `runs doctor`
+    # classify a killed replica INTERRUPTED.
+    tracker = _open_tracker(args, "serve-lm")
     engine = LMEngine(decoder, config).start()
     handle = serve_lm_in_thread(engine, args.host, args.port,
                                 access_log=args.access_log)
-    print(json.dumps({
-        "serving": handle.address,
-        "port": handle.port,
-        "decoder": type(decoder).__name__,
-        "device": None if args.stub else args.device,
-        "slots": config.slots,
-        "max_len": config.max_len,
-        "prefill_buckets": list(config.prefill_buckets),
-        "queue_depth": config.queue_depth,
-        "deadline_ms": config.deadline_ms,
-    }), flush=True)
     try:
+        # The boot line inside the interrupt handling: a client that sends
+        # Ctrl-C as soon as it reads the line still gets a drained run.
+        print(json.dumps({
+            "serving": handle.address,
+            "port": handle.port,
+            "decoder": type(decoder).__name__,
+            "device": None if args.stub else args.device,
+            "slots": config.slots,
+            "max_len": config.max_len,
+            "prefill_buckets": list(config.prefill_buckets),
+            "queue_depth": config.queue_depth,
+            "deadline_ms": config.deadline_ms,
+        }), flush=True)
         while handle.thread.is_alive():
             handle.thread.join(1.0)
     except KeyboardInterrupt:
@@ -707,12 +917,267 @@ def _cmd_serve_lm(args: argparse.Namespace) -> int:
               flush=True)
     finally:
         handle.close(args.drain_timeout)
+        _finish_tracker(tracker)
     return 0
+
+
+def _register_checkpoints(sub) -> None:
+    ck = sub.add_parser("checkpoints", help="checkpoint maintenance: verify per-step "
+                        "integrity manifests")
+    csub = ck.add_subparsers(dest="checkpoints_cmd", required=True)
+    vf = csub.add_parser(
+        "verify", help="walk a checkpoint dir's steps and report intact / corrupt / "
+        "unverified per the dsst_manifest.json content checksums")
+    vf.add_argument("dir", help="a train/lm checkpoint directory")
+    vf.add_argument("--json", action="store_true",
+                    help="emit the full report as one JSON document instead of lines")
+    vf.set_defaults(fn=_cmd_checkpoints_verify)
+
+
+def _cmd_checkpoints_verify(args: argparse.Namespace) -> int:
+    from ..resilience import verify_checkpoint_dir
+
+    if not Path(args.dir).is_dir():
+        print(f"no such checkpoint directory: {args.dir}")
+        return 2
+    report = verify_checkpoint_dir(args.dir)
+    counts = {"intact": 0, "corrupt": 0, "unverified": 0}
+    for entry in report:
+        counts[entry["status"]] += 1
+    if args.json:
+        print(json.dumps({"dir": args.dir, "steps": report, **counts}))
+    else:
+        if not report:
+            print(f"no checkpoint steps under {args.dir}")
+        for entry in report:
+            line = f"step {entry['step']}: {entry['status']}"
+            if entry["problems"]:
+                line += " (" + "; ".join(entry["problems"]) + ")"
+            print(line)
+        if report:
+            print(f"{counts['intact']} intact, {counts['corrupt']} corrupt, "
+                  f"{counts['unverified']} unverified (no manifest)")
+    return 1 if counts["corrupt"] else 0
+
+
+def _register_quarantine(sub) -> None:
+    qr = sub.add_parser("quarantine", help="manage the poison-batch blocklist the health "
+                        "supervisor writes (rows excluded from replay/resume)")
+    qsub = qr.add_subparsers(dest="quarantine_cmd", required=True)
+    target_help = ("a quarantine .jsonl file, or a checkpoint dir holding quarantine.jsonl "
+                   "(where train/lm --health-policy write it)")
+    ls = qsub.add_parser("list", help="print quarantined row ranges, one JSON line each")
+    ls.add_argument("target", help=target_help)
+    ls.set_defaults(fn=_cmd_quarantine_list)
+    cl = qsub.add_parser("clear", help="drop every entry (the rows rejoin the next "
+                         "replay/resume)")
+    cl.add_argument("target", help=target_help)
+    cl.set_defaults(fn=_cmd_quarantine_clear)
+
+
+def _quarantine_target(target: str) -> Path:
+    p = Path(target)
+    return p / "quarantine.jsonl" if p.is_dir() else p
+
+
+def _cmd_quarantine_list(args: argparse.Namespace) -> int:
+    from ..resilience.rollback import QuarantineList
+
+    path = _quarantine_target(args.target)
+    if not path.exists():
+        print(f"no quarantine list at {path}")
+        return 1
+    q = QuarantineList(path)
+    rows = 0
+    for entry in q.entries:
+        rows += int(entry["row_hi"]) - int(entry["row_lo"])
+        print(json.dumps(entry))
+    print(f"{len(q)} entries, {rows} rows quarantined ({path})", file=sys.stderr)
+    return 0
+
+
+def _cmd_quarantine_clear(args: argparse.Namespace) -> int:
+    from ..resilience.rollback import QuarantineList
+
+    path = _quarantine_target(args.target)
+    if not path.exists():
+        print(f"no quarantine list at {path}")
+        return 1
+    print(f"cleared {QuarantineList(path).clear()} entries from {path}")
+    return 0
+
+
+def _register_runs(sub) -> None:
+    rn = sub.add_parser("runs", help="browse the run store: list runs, show one, and "
+                        "sweep interrupted ones (doctor)")
+    rsub = rn.add_subparsers(dest="runs_cmd", required=True)
+    # The writers' default root and env override, so the browser reads
+    # where they wrote.
+    root = os.environ.get("DSST_TRACKING_ROOT", DEFAULT_TRACKING_ROOT)
+    root_help = f"run-store root (default ./{DEFAULT_TRACKING_ROOT}, or env DSST_TRACKING_ROOT)"
+    ls = rsub.add_parser("list", help="one JSON line per run, newest first")
+    ls.add_argument("--tracking-root", default=root, help=root_help)
+    ls.add_argument("--experiment", default=None)
+    ls.set_defaults(fn=_cmd_runs_list)
+    sh = rsub.add_parser("show", help="full record of one run (meta, params, last metrics)")
+    sh.add_argument("run", help="EXPERIMENT/RUN_ID (as `runs list` prints)")
+    sh.add_argument("--tracking-root", default=root, help=root_help)
+    sh.set_defaults(fn=_cmd_runs_show)
+    dr = rsub.add_parser(
+        "doctor", help="classify every run from its journal (PID + boot id), durably mark "
+        "dead RUNNING runs INTERRUPTED, clean stranded .tmp files, and report resumable "
+        "checkpoints; --resume relaunches each interrupted run's recorded command with "
+        "--resume-auto")
+    dr.add_argument("--tracking-root", default=root, help=root_help)
+    dr.add_argument("--experiment", default=None)
+    dr.add_argument("--json", action="store_true",
+                    help="emit the full classification report as one JSON document")
+    dr.add_argument("--resume", action="store_true",
+                    help="after the sweep, re-execute the recorded command of each "
+                    "interrupted run that has a checkpoint dir, with --resume-auto "
+                    "ensured and --fault-plan stripped; sequentially, newest run per "
+                    "checkpoint dir first")
+    dr.set_defaults(fn=_cmd_runs_doctor)
+
+
+def _cmd_runs_list(args: argparse.Namespace) -> int:
+    from ..tracking import list_runs
+
+    runs = list_runs(args.tracking_root, args.experiment)
+    for meta in runs:
+        print(json.dumps(meta))
+    if not runs:
+        print(f"no runs under {args.tracking_root}"
+              + (f" (experiment {args.experiment})" if args.experiment else ""),
+              file=sys.stderr)
+    return 0
+
+
+def _cmd_runs_show(args: argparse.Namespace) -> int:
+    from ..tracking import load_run
+
+    if "/" not in args.run:
+        print(f"expected EXPERIMENT/RUN_ID, got {args.run!r}")
+        return 1
+    experiment, run_id = args.run.split("/", 1)
+    try:
+        print(json.dumps(load_run(args.tracking_root, experiment, run_id), indent=1))
+    except (OSError, json.JSONDecodeError, KeyError):
+        print(f"no readable run {args.run} under {args.tracking_root}")
+        return 1
+    return 0
+
+
+def _cmd_runs_doctor(args: argparse.Namespace) -> int:
+    from ..tracking import sweep_interrupted
+
+    if not Path(args.tracking_root).is_dir():
+        print(f"no run store at {args.tracking_root}")
+        return 0
+    report = sweep_interrupted(args.tracking_root, args.experiment)
+    if args.json:
+        print(json.dumps({"root": str(args.tracking_root), "runs": report}))
+    else:
+        for cls in report:
+            line = f"{cls['experiment']}/{cls['run_id']}: {cls['effective_status']}"
+            if cls.get("marked"):
+                line += f" (was RUNNING, pid {cls['pid']} dead; marked)"
+            if cls.get("resumable_step") is not None:
+                line += (f" - resumable: step {cls['resumable_step']} in "
+                         f"{cls['checkpoint_dir']}")
+            if cls["effective_status"] == "INTERRUPTED" and cls.get("firing_alerts"):
+                line += " - SLO alerts firing at death: " + ", ".join(cls["firing_alerts"])
+            print(line)
+        n_marked = sum(1 for c in report if c.get("marked"))
+        n_resumable = sum(1 for c in report if c.get("resumable_step") is not None)
+        print(f"{len(report)} run(s), {n_marked} newly marked INTERRUPTED, "
+              f"{n_resumable} resumable")
+    if not args.resume:
+        return 0
+    return _doctor_resume(report)
+
+
+def _doctor_resume(report: list[dict]) -> int:
+    """Re-execute interrupted runs' recorded commands with --resume-auto:
+    one relaunch per checkpoint dir (the newest run wins), sequentially,
+    from the run's recorded working directory, with the fault plan
+    dropped from the environment and this checkout on the path."""
+    import subprocess
+
+    resumable = [c for c in report
+                 if c["effective_status"] == "INTERRUPTED" and c.get("cmdline")
+                 and (c.get("resumable_step") is not None or c.get("checkpoint_dir"))]
+    resumable.sort(key=lambda c: c.get("start_time") or 0.0, reverse=True)
+    env = {k: v for k, v in os.environ.items() if k != "DSST_FAULT_PLAN"}
+    checkout = str(Path(__file__).resolve().parents[2])
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (checkout, env.get("PYTHONPATH")) if p)
+    seen: set[str] = set()
+    rc = 0
+    for cls in resumable:
+        if cls["checkpoint_dir"] in seen:
+            continue
+        seen.add(cls["checkpoint_dir"])
+        argv = _resume_argv(cls["cmdline"])
+        if argv is None:
+            continue
+        print(f"doctor --resume: {cls['experiment']}/{cls['run_id']} -> " + " ".join(argv),
+              flush=True)
+        cwd = cls.get("cwd")
+        if cwd and not os.path.isdir(cwd):
+            print(f"doctor --resume: recorded cwd {cwd} is gone; skipping {cls['run_id']}")
+            rc = rc or 1
+            continue
+        proc = subprocess.run(
+            [sys.executable, "-m", "dss_ml_at_scale_tpu_torch.config.cli", *argv],
+            env=env, cwd=cwd)
+        rc = rc or proc.returncode
+    if not resumable:
+        print("doctor --resume: nothing resumable")
+    return rc
+
+
+def _resume_argv(cmdline: list[str]) -> list[str] | None:
+    """Recorded argv -> relaunch argv: --resume-auto ensured for train and
+    lm, --fault-plan stripped (a fault-armed run must not re-arm its own
+    faults when revived); None for any other command."""
+    argv: list[str] = []
+    skip_next = False
+    for tok in cmdline:
+        if skip_next:
+            skip_next = False
+            continue
+        if tok == "--fault-plan":
+            skip_next = True
+            continue
+        if tok.startswith("--fault-plan="):
+            continue
+        argv.append(tok)
+    if not any(tok in ("train", "lm") for tok in argv):
+        return None
+    if "--resume-auto" not in argv:
+        argv.append("--resume-auto")
+    return argv
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    # The exact invocation, for the run journal: what `runs doctor
+    # --resume` re-executes.
+    set_invocation_argv(argv if argv is not None else sys.argv[1:])
+    fault_spec = args.fault_plan or os.environ.get("DSST_FAULT_PLAN")
+    if fault_spec:
+        # Armed before any command work, and exported so subprocesses arm
+        # the same plan.
+        from ..resilience.faults import install_from_spec
+
+        os.environ["DSST_FAULT_PLAN"] = fault_spec
+        install_from_spec(fault_spec)
+    try:
+        return args.fn(args)
+    except BaseException:
+        # A crashed command must not leave its run RUNNING.
+        fail_active_tracker()
+        raise
 
 
 if __name__ == "__main__":

@@ -14,6 +14,11 @@ each tensor with ``record_stream`` so the caching allocator does not hand
 its memory out again before the consuming stream is done with it. On the
 CPU the feeder is a plain bounded queue of ``torch.from_numpy`` tensors.
 
+Iterating yields ``(batch, provenance)`` pairs: the reader's row
+provenance (:func:`split_provenance`) is host metadata that never reaches
+the device, and it rides the queue with its batch, so the supervised
+loop quarantines exactly the rows of the step it discards.
+
 ``wait_seconds`` accumulates the consumer's time blocked on the queue: the
 step loop's data wait.
 """
@@ -23,12 +28,22 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Iterable, Iterator, Mapping
+from typing import Any, Iterable, Iterator, Mapping
 
 import numpy as np
 import torch
 
+from ..resilience.rollback import PROVENANCE_KEY
+
 _SENTINEL = object()
+
+
+def split_provenance(batch) -> tuple[Any, Any]:
+    """``(batch without its provenance, provenance)``: the provenance is
+    None for a batch that carries none."""
+    if isinstance(batch, Mapping) and PROVENANCE_KEY in batch:
+        return {k: v for k, v in batch.items() if k != PROVENANCE_KEY}, batch[PROVENANCE_KEY]
+    return batch, None
 
 
 class _FeederFailure:
@@ -41,8 +56,9 @@ class _FeederFailure:
 
 
 class Feeder:
-    """Feeder thread for one consumer; iterating yields dicts of tensors on
-    ``device`` in source order. Close it (or use it as a context manager) so
+    """Feeder thread for one consumer; iterating yields ``(batch,
+    provenance)``, the batch a dict of tensors on ``device``, in source
+    order. Close it (or use it as a context manager) so
     the thread never outlives its loop."""
 
     def __init__(self, source: Iterable[Mapping[str, np.ndarray]], device, *,
@@ -66,16 +82,17 @@ class Feeder:
 
     # -- producer (feeder thread) -----------------------------------------
 
-    def _place(self, batch: Mapping[str, np.ndarray]):
+    def _place(self, raw: Mapping[str, np.ndarray]):
+        batch, prov = split_provenance(raw)
         host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
         if self._stream is None:
-            return host, None
+            return host, prov, None
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
             placed = {k: v.pin_memory().to(self.device, non_blocking=True)
                       for k, v in host.items()}
             ready = torch.cuda.Event()
             ready.record(self._stream)
-        return placed, ready
+        return placed, prov, ready
 
     def _run(self) -> None:
         try:
@@ -101,10 +118,10 @@ class Feeder:
 
     # -- consumer -----------------------------------------------------------
 
-    def __iter__(self) -> Iterator[dict[str, torch.Tensor]]:
+    def __iter__(self) -> Iterator[tuple[dict[str, torch.Tensor], Any]]:
         return self
 
-    def __next__(self) -> dict[str, torch.Tensor]:
+    def __next__(self) -> tuple[dict[str, torch.Tensor], Any]:
         if self._done:
             raise StopIteration
         t0 = time.perf_counter()
@@ -125,13 +142,13 @@ class Feeder:
             self._done = True
             self._thread.join(timeout=5)
             raise item.error
-        batch, ready = item
+        batch, prov, ready = item
         if ready is not None:
             consumer = torch.cuda.current_stream(self.device)
             consumer.wait_event(ready)
             for v in batch.values():
                 v.record_stream(consumer)
-        return batch
+        return batch, prov
 
     def close(self) -> None:
         """Stop the feeder thread and join it. Idempotent."""

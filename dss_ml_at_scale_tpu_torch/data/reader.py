@@ -8,15 +8,21 @@ forever (epoch boundaries are the trainer's, by step count), fixed-size
 batches with the partial tail dropped. One worker gives the row-group
 order exactly; several workers yield row groups as they finish, as in JAX.
 
-Not ported yet (they wait for the port's resilience and telemetry layers):
-the fault-injection sites, the read retry, the poison-row quarantine, row
-provenance, and the reader's telemetry gauges.
+The resilience hooks are the JAX reader's: a row-group load retries
+transient failures (site ``reader.next``, :data:`_READ_RETRY`); a
+``quarantine`` blocklist drops its rows before decode at every iteration
+start; ``emit_provenance`` tags each batch with the rows that built it
+(under :data:`~..resilience.rollback.PROVENANCE_KEY`); and
+``on_corrupt="quarantine"`` isolates a row whose decode raises (site
+``sample.corrupt`` injects one), counts it on ``corrupt_samples_total``,
+quarantines it and goes on. Not ported: the reader's queue-depth gauges.
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
+import logging
 import queue
 import threading
 from typing import Iterator, Sequence
@@ -24,10 +30,19 @@ from typing import Iterator, Sequence
 import numpy as np
 import pyarrow.parquet as pq
 
+from ..resilience.faults import fault_fires, maybe_fail
+from ..resilience.retry import RetryPolicy, call_with_retry
+from ..resilience.rollback import PROVENANCE_KEY, QuarantineList, compress_rows
 from .sharding import RowGroupUnit, list_row_groups, shard_units
 from .transform import TransformSpec
 
+log = logging.getLogger(__name__)
+
 _SENTINEL = object()
+
+# Transient-read retry shape: two quick retries cover a filesystem blip
+# without meaningfully delaying a genuinely failed epoch.
+_READ_RETRY = RetryPolicy(max_retries=2, base_delay=0.05, max_delay=0.5)
 
 
 class _WorkerError:
@@ -53,9 +68,19 @@ class ParquetShardReader:
         transform_spec: TransformSpec | None = None,
         shuffle_row_groups: bool = True,
         seed: int = 0,
+        quarantine: "QuarantineList | str | None" = None,
+        emit_provenance: bool = False,
+        on_corrupt: str = "raise",
     ):
+        """``quarantine``: a poison-row blocklist (path or QuarantineList)
+        consulted at every iteration start. ``emit_provenance``: tag each
+        batch with the RowRanges that built it. ``on_corrupt``:
+        ``"raise"`` (fail fast) or ``"quarantine"`` (isolate, count,
+        quarantine and skip a row whose transform raises)."""
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
+        if on_corrupt not in ("raise", "quarantine"):
+            raise ValueError(f"on_corrupt must be 'raise' or 'quarantine', got {on_corrupt!r}")
         self._units = list_row_groups(list(paths))
         if len(self._units) < shard_count:
             raise ValueError(
@@ -71,6 +96,11 @@ class ParquetShardReader:
         self.transform_spec = transform_spec
         self.shuffle_row_groups = shuffle_row_groups
         self.seed = seed
+        self.emit_provenance = emit_provenance
+        self.on_corrupt = on_corrupt
+        self.quarantine = (QuarantineList(quarantine)
+                           if isinstance(quarantine, (str, bytes)) or hasattr(quarantine, "__fspath__")
+                           else quarantine)
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
         self._results: queue.Queue | None = None
@@ -85,9 +115,13 @@ class ParquetShardReader:
                 shuffle=self.shuffle_row_groups, seed=self.seed,
             )
 
-    def _load_unit(self, unit: RowGroupUnit) -> dict[str, np.ndarray]:
-        """Read and transform one row group. One ParquetFile handle per
-        (worker thread, path): footers parse once per worker."""
+    def _load_unit(self, unit: RowGroupUnit) -> tuple[dict[str, np.ndarray], np.ndarray]:
+        """Read and transform one row group: ``(cols, orig_rows)``, where
+        ``orig_rows`` maps each surviving row back to its index in the
+        group (the provenance spine). Quarantined rows are dropped before
+        decode. One ParquetFile handle per (worker thread, path): footers
+        parse once per worker."""
+        maybe_fail("reader.next")
         cache = self._local.__dict__.setdefault("files", {})
         pf = cache.get(unit.path)
         if pf is None:
@@ -95,9 +129,77 @@ class ParquetShardReader:
         table = pf.read_row_group(unit.row_group)
         cols = {name: _column_to_numpy(table.column(i))
                 for i, name in enumerate(table.column_names)}
-        if self.transform_spec is not None and cols and _num_rows(cols):
-            cols = self.transform_spec(cols)
-        return cols
+        orig_rows = np.arange(_num_rows(cols) if cols else 0, dtype=np.int64)
+        if self.quarantine is not None:
+            mask = self.quarantine.keep_mask(unit.path, unit.row_group, len(orig_rows))
+            if mask is not None:
+                cols = {k: v[mask] for k, v in cols.items()}
+                orig_rows = orig_rows[mask]
+        if fault_fires("sample.corrupt"):
+            cols = _corrupt_first_sample(cols)
+        if self.transform_spec is not None and len(orig_rows):
+            try:
+                cols = self.transform_spec(cols)
+            except Exception:
+                if self.on_corrupt != "quarantine":
+                    raise
+                cols, orig_rows = self._isolate_corrupt_rows(unit, cols, orig_rows)
+            else:
+                n_out = _num_rows(cols) if cols else 0
+                if n_out != len(orig_rows):
+                    if self.emit_provenance or self.quarantine is not None:
+                        raise ValueError(
+                            f"transform changed the row count ({len(orig_rows)} -> {n_out}) "
+                            f"in {unit.path}[rg={unit.row_group}]; provenance/quarantine "
+                            "require a row-preserving transform")
+                    orig_rows = np.arange(n_out, dtype=np.int64)
+        return cols, orig_rows
+
+    def _isolate_corrupt_rows(self, unit: RowGroupUnit, cols, orig_rows):
+        """Per-row transform of a failed group: good rows survive, each
+        corrupt row is counted, quarantined and dropped."""
+        from .. import telemetry
+
+        good: list[dict[str, np.ndarray]] = []
+        good_rows: list[int] = []
+        bad_rows: list[int] = []
+        last_error = "?"
+        for i in range(len(orig_rows)):
+            row = {k: v[i:i + 1] for k, v in cols.items()}
+            try:
+                good.append(self.transform_spec(row))
+                good_rows.append(int(orig_rows[i]))
+            except Exception as e:
+                bad_rows.append(int(orig_rows[i]))
+                last_error = f"{type(e).__name__}: {e}"
+        telemetry.counter(
+            "corrupt_samples_total",
+            "undecodable samples skipped (and quarantined) by the reader",
+        ).inc(len(bad_rows))
+        log.warning("reader: %d corrupt sample(s) in %s[rg=%d] skipped (last error: %s)",
+                    len(bad_rows), unit.path, unit.row_group, last_error)
+        if self.quarantine is not None and bad_rows:
+            self.quarantine.add(compress_rows(unit.path, unit.row_group, bad_rows),
+                                reason=f"undecodable sample ({last_error})")
+        if not good:
+            return {}, np.empty(0, np.int64)
+        return ({k: np.concatenate([g[k] for g in good]) for k in good[0]},
+                np.asarray(good_rows, np.int64))
+
+    def _load_unit_with_retry(self, unit: RowGroupUnit):
+        """A transient read failure costs a short backoff, not the epoch;
+        the cached handle of the path is closed and dropped before each
+        retry (a stale handle would replay the failure)."""
+        def evict_handle(attempt, exc, delay) -> None:
+            stale = self._local.__dict__.setdefault("files", {}).pop(unit.path, None)
+            if stale is not None:
+                try:
+                    stale.close()
+                except Exception as close_exc:
+                    log.debug("closing evicted reader handle: %r", close_exc)
+
+        return call_with_retry(self._load_unit, unit, policy=_READ_RETRY, site="reader.next",
+                               on_retry=evict_handle)
 
     def _worker(self, work: Iterator[RowGroupUnit], lock: threading.Lock,
                 results: queue.Queue) -> None:
@@ -115,13 +217,14 @@ class ParquetShardReader:
                     unit = next(work, _SENTINEL)
                 if unit is _SENTINEL:
                     break
-                _put(self._load_unit(unit))
+                _put((self._load_unit_with_retry(unit), unit))
         except BaseException as e:  # propagate to the consumer, don't die silently
             _put(_WorkerError(e))
         finally:
             _put(_SENTINEL)
 
-    def _row_groups(self) -> Iterator[dict[str, np.ndarray]]:
+    def _row_groups(self):
+        """Stream ``((cols, orig_rows), unit)`` in arrival order."""
         self._results = results = queue.Queue(maxsize=self.results_queue_size)
         work = self._unit_stream()
         lock = threading.Lock()
@@ -154,16 +257,24 @@ class ParquetShardReader:
                 "reader is already being iterated; create a second reader "
                 "for concurrent streams"
             )
+        if self.quarantine is not None:
+            # A fresh iteration sees the whole blocklist, rows another
+            # process quarantined since this reader was built included.
+            self.quarantine.refresh()
         self._stop.clear()
-        buf: list[dict[str, np.ndarray]] = []
+        # (cols, path, row_group, orig_rows): provenance slices with the rows.
+        buf: list[tuple] = []
         buffered = 0
-        for group in self._row_groups():
-            if not group or _num_rows(group) == 0:
-                continue
-            buf.append(group)
+        for (group, orig_rows), unit in self._row_groups():
+            if not group or len(orig_rows) == 0:
+                continue  # a fully quarantined or fully corrupt group
+            buf.append((group, unit.path, unit.row_group, orig_rows))
             buffered += _num_rows(group)
             while buffered >= self.batch_size:
-                batch, buf, buffered = _take(buf, self.batch_size)
+                batch, prov, buf, buffered = _take(buf, self.batch_size)
+                if self.emit_provenance:
+                    batch[PROVENANCE_KEY] = [r for path, rg, rows in prov
+                                             for r in compress_rows(path, rg, rows)]
                 yield batch
 
     def stop(self) -> None:
@@ -191,23 +302,45 @@ def _num_rows(group: dict[str, np.ndarray]) -> int:
 
 
 def _take(buf, n):
-    """Split the buffered row groups into one n-row batch and the rest."""
+    """Split the buffered row groups into one n-row batch and the rest;
+    ``prov`` mirrors the batch as ``(path, row_group, rows)`` triples."""
     taken: dict[str, list[np.ndarray]] = {}
+    prov: list[tuple[str, int, np.ndarray]] = []
     need = n
-    rest: list[dict[str, np.ndarray]] = []
-    for group in buf:
+    rest: list[tuple] = []
+    for group, path, row_group, orig_rows in buf:
         if need == 0:
-            rest.append(group)
+            rest.append((group, path, row_group, orig_rows))
             continue
         rows = _num_rows(group)
         use = min(rows, need)
         for k, v in group.items():
             taken.setdefault(k, []).append(v[:use])
+        prov.append((path, row_group, orig_rows[:use]))
         if use < rows:
-            rest.append({k: v[use:] for k, v in group.items()})
+            rest.append(({k: v[use:] for k, v in group.items()}, path, row_group,
+                         orig_rows[use:]))
         need -= use
     batch = {k: np.concatenate(v) if len(v) > 1 else v[0] for k, v in taken.items()}
-    return batch, rest, sum(_num_rows(g) for g in rest)
+    return batch, prov, rest, sum(_num_rows(g) for g, *_ in rest)
+
+
+def _corrupt_first_sample(cols: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """``sample.corrupt`` fault: truncate the first byte-valued cell (a
+    torn read of a record); a table with no byte column gets a NaN in its
+    first float cell instead."""
+    for k, v in cols.items():
+        if v.dtype == object and len(v) and isinstance(v[0], (bytes, bytearray)):
+            v = v.copy()
+            v[0] = bytes(v[0])[: max(1, len(v[0]) // 2)]
+            return {**cols, k: v}
+    for k, v in cols.items():
+        if np.issubdtype(v.dtype, np.floating) and len(v):
+            v = v.copy()
+            v[0] = np.nan
+            return {**cols, k: v}
+    log.warning("sample.corrupt fired but no corruptible column found")
+    return cols
 
 
 def _column_to_numpy(col) -> np.ndarray:

@@ -3,10 +3,19 @@
 The port's own copy of ``dss_ml_at_scale_tpu/native``: the same
 ``image_pipeline.cpp`` (libjpeg decode, PIL-equivalent antialiased resize,
 center crop, normalize, on a GIL-free thread pool), built lazily with the
-host's ``g++ -O3 -march=native ... -ljpeg`` into ``build/native/`` at the
-root of the checkout (gitignored), never beside the source. The library's
-name carries a hash of the source and of the host's CPU flags: a binary
-built with ``-march=native`` on another CPU is never loaded.
+host's ``g++ -O3 -march=native`` into ``build/native/`` at the root of the
+checkout (gitignored), never beside the source.
+
+The libjpeg headers (libjpeg-turbo's, ``JPEG_LIB_VERSION`` 62, with the
+x86_64 ``jconfig.h``) are vendored beside the source
+(``README.libjpeg``), so a host without the development headers builds
+too; another architecture does not. The library linked is the system's
+``libjpeg.so`` where the linker finds one, else the ``libjpeg-*.so.62*``
+that Pillow's wheel ships in ``pillow.libs/``, by path with an rpath
+(:func:`jpeg_library`). The library's name carries a hash of the
+source, the vendored headers, the libjpeg linked and the host's CPU
+flags: a binary built with ``-march=native`` on another CPU, or against
+another libjpeg, is never loaded.
 
 :func:`native_available` says whether it built and loaded;
 :func:`load_error` carries the compiler's error when it did not;
@@ -34,8 +43,42 @@ _lib: ctypes.CDLL | None = None
 _load_error: str | None = None
 
 
-def _cache_key() -> str:
-    """Source content + the host's ISA: the library is ``-march=native``."""
+_HEADER_DIR = Path(__file__).parent
+_HEADERS = ("jpeglib.h", "jmorecfg.h", "jerror.h", "jconfig.h")
+
+
+def jpeg_library() -> tuple[list[str], Path | None]:
+    """``(link flags, library)``: ``-ljpeg`` where the linker finds the
+    system's libjpeg, else Pillow's bundled libjpeg by path with an rpath
+    to its directory; ``([], None)`` where there is neither."""
+    try:
+        found = subprocess.run(["g++", "-print-file-name=libjpeg.so"], capture_output=True,
+                               text=True, check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        found = ""
+    if os.path.isabs(found) and os.path.exists(found):
+        return ["-ljpeg"], Path(os.path.realpath(found))
+    lib = pillow_jpeg()
+    if lib is not None:
+        return [str(lib), f"-Wl,-rpath,{lib.parent}"], lib
+    return [], None
+
+
+def pillow_jpeg() -> Path | None:
+    """The libjpeg (API 62) that Pillow's wheel bundles, if there is one."""
+    import importlib.util
+
+    spec = importlib.util.find_spec("PIL")
+    if spec is None or spec.origin is None:
+        return None
+    candidates = sorted((Path(spec.origin).parent.parent / "pillow.libs").glob(
+        "libjpeg-*.so.62*"))
+    return candidates[0] if candidates else None
+
+
+def _cache_key(library: Path | None) -> str:
+    """Source, vendored headers, the libjpeg linked and the host's ISA:
+    the library is ``-march=native``."""
     isa = platform.machine()
     try:
         with open("/proc/cpuinfo") as f:
@@ -45,20 +88,29 @@ def _cache_key() -> str:
                     break
     except OSError:
         pass
-    return hashlib.sha256(_SRC.read_bytes() + isa.encode()).hexdigest()[:16]
+    h = hashlib.sha256(_SRC.read_bytes() + isa.encode())
+    for name in _HEADERS:
+        h.update((_HEADER_DIR / name).read_bytes())
+    if library is not None:
+        h.update(str(library).encode() + library.read_bytes())
+    return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libdsst_image-{_cache_key()}.so"
+def library_path(library: Path | None = None) -> Path:
+    """Where the pipeline linked against ``library`` (default: the one
+    :func:`jpeg_library` picks) is built."""
+    if library is None:
+        library = jpeg_library()[1]
+    return BUILD_DIR / f"libdsst_image-{_cache_key(library)}.so"
 
 
-def _build(out: Path) -> None:
+def _build(out: Path, link: list[str]) -> None:
     """Compile to a temporary file and rename it into place (atomic for
     another process loading the same library)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
     cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
-           str(_SRC), "-o", str(tmp), "-ljpeg", "-lpthread"]
+           "-I", str(_HEADER_DIR), str(_SRC), "-o", str(tmp), *link, "-lpthread"]
     try:
         try:
             subprocess.run(cmd, check=True, capture_output=True, text=True)
@@ -79,9 +131,16 @@ def _load() -> ctypes.CDLL | None:
         if _lib is not None or _load_error is not None:
             return _lib
         try:
-            path = library_path()
+            if platform.machine() != "x86_64":
+                raise RuntimeError(f"the vendored jconfig.h is x86_64's; this host is "
+                                   f"{platform.machine()}")
+            link, library = jpeg_library()
+            if library is None:
+                raise RuntimeError("no libjpeg to link: neither the system's libjpeg.so "
+                                   "nor Pillow's bundled libjpeg was found")
+            path = library_path(library)
             if not path.exists():
-                _build(path)
+                _build(path, link)
             lib = ctypes.CDLL(str(path))
             lib.dsst_abi_version.restype = ctypes.c_int
             if lib.dsst_abi_version() != _ABI:

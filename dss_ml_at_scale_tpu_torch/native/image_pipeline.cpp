@@ -19,7 +19,7 @@
 #include <cstddef>  // jpeglib.h uses size_t/FILE without including them
 #include <cstdio>
 
-#include <jpeglib.h>
+#include "jpeglib.h"  // vendored beside this file (README.libjpeg)
 
 #include <algorithm>
 #include <atomic>

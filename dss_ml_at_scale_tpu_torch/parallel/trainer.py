@@ -51,8 +51,32 @@ checkpoints of the JAX package are not read.
 profile_num_steps)`` with ``torch.profiler`` into a Chrome trace per rank,
 ``<profile_dir>/trace_rank<r>_steps<a>-<b>.json``.
 
-Not ported yet: the health supervisor, preemption, ``resume_auto`` and
-tracking.
+Crash safety, as in the JAX trainer:
+
+- ``health`` (a :class:`..resilience.health.HealthConfig`) supervises every
+  step: the task computes its gradients, the guard judges the loss and
+  grad-norm signals and reads the verdict (one host sync per step), and a
+  bad update is discarded before ``optimizer.step()``; the batch's row
+  provenance is quarantined and the epoch pulls a make-up batch (epochs
+  end at a step count), so a poisoned run commits the update sequence of
+  a clean run whose stream left the poison batch out. A streak escalates
+  to a rollback (the newest intact step restored, newer steps moved
+  aside) and then to an abort with a diagnostic bundle. ``health=None``
+  is the unsupervised step: no snapshot, no verdict, no sync.
+- SIGTERM (:class:`..resilience.preemption.PreemptionGuard`) ends the fit
+  after the step in flight with a metrics-less checkpoint saved mid-epoch
+  and ``FitResult.preempted``; in a run of several ranks the ranks agree
+  on the step to stop at (:class:`_StopVote`).
+- ``resume_auto`` resumes from the newest intact step when there is one
+  and starts fresh when every step is torn, after sweeping stranded tmp
+  files (process 0); ``auto_resume_total`` counts the restores.
+- A ``tracker`` (a :class:`..tracking.RunStore`) gets the metrics and the
+  journal events ``config`` (the checkpoint dir, before any step),
+  ``resume`` and ``checkpoint`` (each published step).
+
+The port publishes a step only with its manifest (written in the staging
+directory before the rename), so the JAX trainer's manifest repair of a
+restored step has nothing to repair here.
 """
 
 from __future__ import annotations
@@ -73,12 +97,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..data.prefetch import Feeder
+from .. import telemetry
+from ..data.prefetch import Feeder, split_provenance
 from ..data.transform import IMAGENET_MEAN, IMAGENET_STD
 from ..models.metrics import cross_entropy_loss, multiclass_accuracy, topk_accuracy
 from ..models.transformer import next_token_loss
 from ..resilience import checkpoint as integrity
-from ..resilience import durability
+from ..resilience import durability, health
+from ..resilience.faults import maybe_fail
+from ..resilience.preemption import PreemptionGuard
 from ..runtime import distributed as rt
 from ..utils.profiling import StepTimer
 
@@ -135,6 +162,16 @@ class ClassifierTask:
 
     def train_step(self, batch: Batch) -> dict[str, torch.Tensor]:
         """One Adam step; metrics are 0-d tensors (no host sync)."""
+        metrics = self.compute_update(batch)
+        self.commit_update()
+        return metrics
+
+    def compute_update(self, batch: Batch) -> dict[str, torch.Tensor]:
+        """A step up to its update: forward (which moves the BatchNorm
+        running statistics), backward and the gradients' norm. The
+        augment draws are keyed by ``step``, the updates committed so far:
+        a discarded step's make-up batch gets the key of the step it
+        replaces."""
         images, labels = self.images(batch), batch["label"].long()
         if self.augment is not None:
             from ..data.augment import augment_for_step
@@ -144,13 +181,17 @@ class ClassifierTask:
         self.model.train()
         logits = self.net(images)
         loss = cross_entropy_loss(logits, labels)
-        grad_norm = _adam_step(self.model, self.optimizer, loss, self.scheduler)
-        self.step += 1
+        grad_norm = _backward(self.model, self.optimizer, loss)
         return {
             "train_loss": loss.detach(),
             "train_acc": multiclass_accuracy(logits.detach(), labels),
             "grad_norm": grad_norm,
         }
+
+    def commit_update(self) -> None:
+        """The update of the gradients :meth:`compute_update` left."""
+        _update(self.optimizer, self.scheduler)
+        self.step += 1
 
     @torch.no_grad()
     def eval_step(self, batch: Batch) -> dict[str, torch.Tensor]:
@@ -185,19 +226,21 @@ def _adam(model: torch.nn.Module, learning_rate, zero1: bool = False):
     return optimizer, scheduler
 
 
-def _adam_step(model: torch.nn.Module, optimizer, loss: torch.Tensor,
-               scheduler=None) -> torch.Tensor:
-    """Backward, one optimizer update (and one schedule step); returns the
-    gradients' global norm (``optax.global_norm``) as a 0-d tensor."""
+def _backward(model: torch.nn.Module, optimizer, loss: torch.Tensor) -> torch.Tensor:
+    """Backward; returns the gradients' global norm
+    (``optax.global_norm``) as a 0-d tensor."""
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     norms = [torch.linalg.vector_norm(p.grad.float())
              for p in model.parameters() if p.grad is not None]
-    grad_norm = torch.linalg.vector_norm(torch.stack(norms))
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def _update(optimizer, scheduler=None) -> None:
+    """One optimizer update and one schedule step."""
     optimizer.step()
     if scheduler is not None:
         scheduler.step()
-    return grad_norm
 
 
 @dataclasses.dataclass
@@ -218,6 +261,8 @@ class LMTask:
     optimizer: torch.optim.Optimizer = dataclasses.field(init=False)
     scheduler: Any = dataclasses.field(init=False, default=None)
     net: torch.nn.Module = dataclasses.field(init=False)
+    # Updates taken so far (the JAX ``state.step``).
+    step: int = dataclasses.field(init=False, default=0)
     throughput_unit = "tokens"
     default_best_metric = "val_loss"
     default_best_mode = "min"
@@ -240,12 +285,23 @@ class LMTask:
 
     def train_step(self, batch: Batch) -> dict[str, torch.Tensor]:
         """One Adam step; metrics are 0-d tensors (no host sync)."""
+        metrics = self.compute_update(batch)
+        self.commit_update()
+        return metrics
+
+    def compute_update(self, batch: Batch) -> dict[str, torch.Tensor]:
+        """A step up to its update: forward, backward, the gradients' norm."""
         tokens = batch["tokens"]
         self.model.train()
         loss = next_token_loss(self.net(tokens), tokens)
-        grad_norm = _adam_step(self.model, self.optimizer, loss, self.scheduler)
+        grad_norm = _backward(self.model, self.optimizer, loss)
         loss = loss.detach()
         return {"train_loss": loss, "train_ppl": torch.exp(loss), "grad_norm": grad_norm}
+
+    def commit_update(self) -> None:
+        """The update of the gradients :meth:`compute_update` left."""
+        _update(self.optimizer, self.scheduler)
+        self.step += 1
 
     @torch.no_grad()
     def eval_step(self, batch: Batch) -> dict[str, torch.Tensor]:
@@ -269,6 +325,10 @@ class TrainerConfig:
     best_metric: str | None = None
     best_mode: str | None = None
     resume: bool = False
+    # Crash-only restart: resume from the newest intact step when there
+    # is one (falling back past torn steps, sweeping stranded tmp files),
+    # else start fresh instead of erroring.
+    resume_auto: bool = False
     feeder_depth: int = 2
     # torch.profiler trace of steps [profile_start_step,
     # profile_start_step + profile_num_steps) into profile_dir.
@@ -277,6 +337,9 @@ class TrainerConfig:
     profile_num_steps: int = 5
     # ZeRO-1: Adam's state split over the ranks.
     shard_opt_state: bool = False
+    # Training-health supervision (resilience.health.HealthConfig), or None
+    # for the unsupervised step.
+    health: Any = None
 
 
 @dataclasses.dataclass
@@ -286,6 +349,16 @@ class FitResult:
     best_checkpoint_step: int | None = None
     best_metric_value: float | None = None
     best_checkpoint_path: str | None = None
+    # True when a SIGTERM stopped the fit: the step in flight finished and
+    # a resumable checkpoint was saved; --resume continues from it.
+    preempted: bool = False
+    # Health accounting (0 without supervision): updates discarded, and
+    # checkpoint rollbacks performed.
+    skipped_steps: int = 0
+    health_rollbacks: int = 0
+    # True only when resume_auto restored a checkpoint (False when it
+    # found nothing, or only wreckage, and started fresh).
+    auto_resumed: bool = False
 
 
 STATE_FILE = "state.pt"
@@ -295,9 +368,10 @@ METRICS_FILE = "metrics.json"
 class Trainer:
     """Explicit epoch/step loop on one device per process."""
 
-    def __init__(self, config: TrainerConfig, device="cuda"):
+    def __init__(self, config: TrainerConfig, device="cuda", tracker=None):
         self.config = config
         self.device = torch.device(device)
+        self.tracker = tracker
 
     def _steps_per_epoch(self, batch_size: int) -> int:
         cfg = self.config
@@ -340,10 +414,11 @@ class Trainer:
         val_data_factory: Callable[[], Iterable[Mapping[str, np.ndarray]]] | None = None,
     ) -> FitResult:
         """Train ``task`` (a ``ClassifierTask`` or an ``LMTask``) on batches
-        of ``train_data`` for ``max_epochs`` epochs (``resume``: from the
-        newest intact checkpoint on), evaluating each epoch on a fresh
-        ``val_data_factory()`` when one is given. In a run of several ranks
-        every rank calls this with its own shard of the data."""
+        of ``train_data`` for ``max_epochs`` epochs (``resume`` or
+        ``resume_auto``: from the newest intact checkpoint on), evaluating
+        each epoch on a fresh ``val_data_factory()`` when one is given. In a
+        run of several ranks every rank calls this with its own shard of
+        the data."""
         # The task's best-metric defaults resolve into a local config: the
         # same Trainer may fit either task.
         cfg = dataclasses.replace(
@@ -356,94 +431,147 @@ class Trainer:
         coordinator = rt.process_index() == 0
         use_best = val_data_factory is not None
         root = Path(cfg.checkpoint_dir) if cfg.checkpoint_dir is not None else None
+        if root is not None:
+            # Before any step: a run killed in its startup or its first
+            # save window stays revivable by `runs doctor --resume`.
+            self._journal("config", checkpoint_dir=str(root.absolute()))
         step = 0
         best_value = best_step = None
-        if root is not None and cfg.resume and integrity.list_steps(root):
-            step = _restore_with_fallback(root, task, record=coordinator)
-            rt.barrier()  # every rank has read before newer steps move aside
-            if coordinator:
-                for stale in (s for s in integrity.list_steps(root) if s > step):
-                    integrity.quarantine_step(root / str(stale))
-            best_value, best_step = _best_on_disk(root, cfg)
-            rt.barrier()
+        auto_resumed = False
+        if root is not None and (cfg.resume or cfg.resume_auto):
+            step, auto_resumed = self._resume(root, task, cfg)
+            if step > 0:
+                best_value, best_step = _best_on_disk(root, cfg)
         task.step = step
 
         # A resumed run takes the stream from its start, as the JAX trainer.
         train_iter = iter(train_data)
-        first = next(train_iter)
+        raw_first = next(train_iter)
+        first, _ = split_provenance(raw_first)
         batch_size = len(next(iter(first.values())))
         units = task.batch_units(first) * rt.process_count()
         unit = task.throughput_unit
         steps_per_epoch = self._steps_per_epoch(batch_size)
         sign = 1.0 if cfg.best_mode == "max" else -1.0
-        feeder = Feeder(itertools.chain([first], train_iter), self.device,
+        supervisor = guarded = hstate = None
+        if cfg.health is not None:
+            supervisor = health.HealthSupervisor(cfg.health)
+            guarded = health.guard_train_step(task, cfg.health)
+            hstate = health.HealthState.create(self.device)
+        feeder = Feeder(itertools.chain([raw_first], train_iter), self.device,
                         depth=cfg.feeder_depth, name="train")
         history: list[dict] = []
         profile = _ProfileWindow(cfg, self.device)
+        guard = PreemptionGuard()
+        vote = _StopVote(self.device)
+        preempted = False
         try:
-            # A resumed run finishes the epoch its restored step is in.
-            for epoch in range(step // steps_per_epoch, cfg.max_epochs):
-                t0 = time.perf_counter()
-                wait0 = feeder.wait_seconds
-                timer = StepTimer()
-                epoch_steps, metrics = 0, {}
-                t_first = wait_first = None
-                exhausted = False
-                while step < (epoch + 1) * steps_per_epoch:
-                    try:
-                        batch = next(feeder)
-                    except StopIteration:
-                        exhausted = True
+            with guard:
+                # A resumed run finishes the epoch its restored step is in.
+                for epoch in range(step // steps_per_epoch, cfg.max_epochs):
+                    t0 = time.perf_counter()
+                    wait0 = feeder.wait_seconds
+                    timer = StepTimer()
+                    epoch_steps, metrics = 0, {}
+                    t_first = wait_first = None
+                    exhausted = stop = False
+                    # The epoch ends at a step count of committed updates: a
+                    # discarded update pulls a make-up batch, and a
+                    # rollback re-runs the restored span.
+                    while step < (epoch + 1) * steps_per_epoch:
+                        try:
+                            batch, prov = next(feeder)
+                        except StopIteration:
+                            exhausted = True
+                            break
+                        profile.before(step)
+                        if supervisor is None:
+                            metrics = task.train_step(batch)
+                            action = "commit"
+                        else:
+                            hstate, step_metrics = guarded(
+                                hstate, batch, supervisor.next_injection())
+                            if (step_metrics["health_verdict"] != health.VERDICT_OK
+                                    and rt.process_count() > 1):
+                                prov = _gather_provenance(prov)
+                            # Process 0 alone writes the quarantine.
+                            action = supervisor.observe(step + 1, step_metrics,
+                                                        prov if coordinator else None)
+                            if action == "commit":
+                                metrics = step_metrics
+                        if action == "commit":
+                            epoch_steps += 1
+                            step += 1
+                            timer.tick()
+                            profile.after(step, self._sync)
+                            if epoch_steps == 1:
+                                self._sync()
+                                t_first, wait_first = time.perf_counter(), feeder.wait_seconds
+                            if step % cfg.log_every_steps == 0:
+                                values = {k: float(v) for k, v in metrics.items()}
+                                log.info("step %d: %s", step, values)
+                                self._log(values, step)
+                        elif action == "rollback":
+                            step = self._health_rollback(root, task, cfg, supervisor, step + 1)
+                            hstate = health.HealthState.create(self.device)
+                            if best_step is not None and best_step > step:
+                                best_value, best_step = _best_on_disk(root, cfg)
+                        elif action == "abort":
+                            raise supervisor.abort(
+                                step + 1,
+                                f"{supervisor.bad_streak} consecutive unhealthy steps under "
+                                f"policy {cfg.health.policy!r} ({supervisor.rollbacks}/"
+                                f"{cfg.health.max_rollbacks} rollbacks used)",
+                                cfg.checkpoint_dir,
+                            )
+                        if vote.poll(guard.triggered):
+                            stop = True
+                            break
+                    if stop:
+                        preempted = True
+                        self._preempt(root, task, step, epoch)
                         break
-                    profile.before(step)
-                    metrics = task.train_step(batch)
-                    epoch_steps += 1
-                    step += 1
-                    timer.tick()
-                    profile.after(step, self._sync)
-                    if epoch_steps == 1:
-                        self._sync()
-                        t_first, wait_first = time.perf_counter(), feeder.wait_seconds
-                    if step % cfg.log_every_steps == 0:
-                        log.info("step %d: %s", step, {k: float(v) for k, v in metrics.items()})
-                if epoch_steps == 0:
-                    log.warning("train data exhausted at step %d", step)
-                    break
-                self._sync()
-                t_end = time.perf_counter()
-                summary = {
-                    "epoch": epoch,
-                    "steps": epoch_steps,
-                    "epoch_time_s": t_end - t0,
-                    f"{unit}_per_sec": epoch_steps * units / (t_end - t0),
-                    "data_wait_s": feeder.wait_seconds - wait0,
-                    **timer.summary(),
-                    **rt.mean_over_ranks({k: float(v) for k, v in metrics.items()}),
-                }
-                if epoch_steps > 1:
-                    steady = t_end - t_first
-                    summary.update({
-                        f"steady_{unit}_per_sec": (epoch_steps - 1) * units / steady,
-                        "steady_step_time_s": steady / (epoch_steps - 1),
-                        "steady_data_wait_s":
-                            (feeder.wait_seconds - wait_first) / (epoch_steps - 1),
-                    })
-                if use_best:
-                    summary.update(self._evaluate(task, val_data_factory))
-                history.append(summary)
-                log.info("epoch %d: %s", epoch, summary)
-                metric = summary.get(cfg.best_metric)
-                if metric is not None and (best_value is None or sign * metric > sign * best_value):
-                    best_value, best_step = metric, step
-                if root is not None:
-                    _save(root, task, step, epoch, summary, write=coordinator)
-                    if coordinator:
-                        _retain(root, cfg, use_best)
-                    rt.barrier()
-                if exhausted:
-                    log.warning("train data exhausted at step %d", step)
-                    break
+                    if epoch_steps == 0:
+                        log.warning("train data exhausted at step %d", step)
+                        break
+                    self._sync()
+                    t_end = time.perf_counter()
+                    summary = {
+                        "epoch": epoch,
+                        "steps": epoch_steps,
+                        "epoch_time_s": t_end - t0,
+                        f"{unit}_per_sec": epoch_steps * units / (t_end - t0),
+                        "data_wait_s": feeder.wait_seconds - wait0,
+                        **timer.summary(),
+                        **rt.mean_over_ranks({k: float(v) for k, v in metrics.items()}),
+                    }
+                    if epoch_steps > 1:
+                        steady = t_end - t_first
+                        summary.update({
+                            f"steady_{unit}_per_sec": (epoch_steps - 1) * units / steady,
+                            "steady_step_time_s": steady / (epoch_steps - 1),
+                            "steady_data_wait_s":
+                                (feeder.wait_seconds - wait_first) / (epoch_steps - 1),
+                        })
+                    if use_best:
+                        summary.update(self._evaluate(task, val_data_factory))
+                    history.append(summary)
+                    log.info("epoch %d: %s", epoch, summary)
+                    self._log({k: v for k, v in summary.items() if k != "epoch"}, step)
+                    metric = summary.get(cfg.best_metric)
+                    if metric is not None and (best_value is None
+                                               or sign * metric > sign * best_value):
+                        best_value, best_step = metric, step
+                    if root is not None:
+                        self._save(root, task, step, epoch, summary)
+                        if coordinator:
+                            _retain(root, cfg, use_best)
+                        rt.barrier()
+                    if exhausted:
+                        log.warning("train data exhausted at step %d", step)
+                        break
         finally:
+            vote.close()
             profile.close()
             feeder.close()
         return FitResult(
@@ -451,7 +579,121 @@ class Trainer:
             best_metric_value=best_value,
             best_checkpoint_path=(str(root / str(best_step))
                                   if root is not None and best_step is not None else None),
+            preempted=preempted,
+            skipped_steps=supervisor.skipped_steps if supervisor is not None else 0,
+            health_rollbacks=supervisor.rollbacks if supervisor is not None else 0,
+            auto_resumed=auto_resumed,
         )
+
+    # -- crash safety -------------------------------------------------------
+
+    def _resume(self, root: Path, task, cfg: TrainerConfig) -> tuple[int, bool]:
+        """Restore the newest usable step into ``task`` on every rank and
+        move newer steps aside (process 0); ``(step, auto_resumed)``.
+        Process 0 first sweeps the tmp files a killed predecessor
+        stranded. Under ``resume_auto`` a directory holding only wreckage
+        is moved aside and the run starts fresh (step 0)."""
+        coordinator = rt.process_index() == 0
+        if coordinator:
+            swept = durability.sweep_stranded_tmp(root)
+            if swept:
+                log.warning("resume: removed %d stranded tmp artifact(s) under %s",
+                            len(swept), root)
+        rt.barrier()
+        if not integrity.list_steps(root):
+            return 0, False
+        try:
+            step = _restore_with_fallback(root, task, record=coordinator)
+        except FileNotFoundError:
+            if not cfg.resume_auto:
+                raise
+            log.warning("--resume-auto: no intact checkpoint under %s; moving the remains "
+                        "aside and starting fresh", root)
+            step = 0
+            restored = False
+        else:
+            restored = True
+        self._drop_newer_steps(root, step if restored else -1)
+        if not restored:
+            return 0, False
+        if cfg.resume_auto:
+            telemetry.counter(
+                "auto_resume_total",
+                "fits that auto-resumed from a journaled checkpoint without an "
+                "operator-named step",
+            ).inc()
+        self._journal("resume", step=step)
+        return step, cfg.resume_auto
+
+    @staticmethod
+    def _drop_newer_steps(root: Path, step: int) -> None:
+        """Move the steps newer than ``step`` aside (process 0), after
+        every rank has read: the run re-reaches those step numbers."""
+        rt.barrier()
+        if rt.process_index() == 0:
+            for stale in (s for s in integrity.list_steps(root) if s > step):
+                integrity.quarantine_step(root / str(stale))
+        rt.barrier()
+
+    def _health_rollback(self, root: Path | None, task, cfg: TrainerConfig, supervisor,
+                         at_step: int) -> int:
+        """The ladder's rollback: restore the newest intact step on every
+        rank and move the rolled-over steps aside. Returns the restored
+        step; escalates to the supervisor's abort when there is nothing to
+        restore."""
+        if root is None:
+            raise supervisor.abort(
+                at_step, "rollback requested but no checkpoint_dir is configured", None)
+        t0_wall, t0 = time.time(), time.perf_counter()
+        try:
+            step = _restore_with_fallback(root, task, record=rt.process_index() == 0)
+        except FileNotFoundError as e:
+            raise supervisor.abort(
+                at_step, f"rollback found no intact checkpoint: {e}", cfg.checkpoint_dir) from e
+        self._drop_newer_steps(root, step)
+        task.step = step
+        supervisor.record_rollback(at_step, step, t0_wall, time.perf_counter() - t0)
+        return step
+
+    def _preempt(self, root: Path | None, task, step: int, epoch: int) -> None:
+        """The step in flight has finished: save a resumable checkpoint of
+        ``step`` now, mid-epoch and synchronously (the eviction grace
+        window is the one place not to return before the write commits).
+        It carries no metrics, so retention's best-ranking never prunes it
+        before the resume."""
+        telemetry.counter("preemption_signals_total",
+                          "preemption signals honored by Trainer.fit").inc()
+        self._sync()
+        latest = max(integrity.list_steps(root), default=-1) if root is not None else -1
+        if root is not None and step > latest:
+            self._save(root, task, step, epoch, {})
+            rt.barrier()
+        log.warning("preempted at step %d (epoch %d); resumable checkpoint %s", step, epoch,
+                    "saved" if root is not None else "NOT saved (no checkpoint_dir)")
+
+    def _save(self, root: Path, task, step: int, epoch: int, metrics: dict) -> None:
+        """Every rank calls this; process 0 writes the step and journals
+        it."""
+        coordinator = rt.process_index() == 0
+        final = _save(root, task, step, epoch, metrics, write=coordinator)
+        if final is not None:
+            self._journal("checkpoint", step=step, checkpoint_dir=str(root.absolute()))
+
+    def _log(self, metrics: dict, step: int) -> None:
+        if self.tracker is not None:
+            self.tracker.log_metrics(metrics, step)
+
+    def _journal(self, event: str, **fields) -> None:
+        """Append to the tracker's run journal, if the tracker keeps one
+        (``RunStore`` does)."""
+        if event == "checkpoint":
+            hook = getattr(self.tracker, "journal_checkpoint", None)
+            if hook is not None:
+                hook(fields["step"], fields["checkpoint_dir"])
+            return
+        hook = getattr(self.tracker, "journal_event", None)
+        if hook is not None:
+            hook(event, **fields)
 
     def _evaluate(self, task, val_data_factory) -> dict:
         """Each metric's mean over the val batches of every rank (each
@@ -465,7 +707,7 @@ class Trainer:
             source = itertools.islice(source, self.config.limit_val_batches)
         feeder = Feeder(source, self.device, depth=self.config.feeder_depth, name="eval")
         try:
-            for batch in feeder:
+            for batch, _ in feeder:
                 for k, v in task.eval_step(batch).items():
                     totals[k] = totals.get(k, 0.0) + float(v)
                 count += 1
@@ -525,6 +767,59 @@ class _ProfileWindow:
         self.start = math.inf  # one window per fit
 
 
+class _StopVote:
+    """The ranks' agreement on the step at which to stop for a preemption
+    signal: a rank that stopped alone would leave the others blocked in
+    their next all-reduce.
+
+    One process: the local flag, at once. Several: each step all-reduces
+    the local flag (MAX) and reads the vote of the step before, so every
+    rank stops after the same step, one step after the signal. On NCCL the
+    vote is copied to pinned memory behind an event, so reading it waits
+    for the previous step only, never for the one just dispatched.
+    """
+
+    def __init__(self, device: torch.device):
+        self.multi = rt.process_count() > 1
+        self.cuda = self.multi and dist.get_backend() == "nccl"
+        self.device = device if self.cuda else torch.device("cpu")
+        self.pending = None
+
+    def poll(self, local: bool) -> bool:
+        if not self.multi:
+            return local
+        flag = torch.full((1,), float(local), device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        ready = None
+        if self.cuda:
+            host = torch.empty(1, pin_memory=True)
+            host.copy_(flag, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            flag = host
+        previous, self.pending = self.pending, (flag, ready)
+        if previous is None:
+            return False
+        flag, ready = previous
+        if ready is not None:
+            ready.synchronize()
+        return bool(flag[0] > 0)
+
+    def close(self) -> None:
+        if self.pending is not None and self.pending[1] is not None:
+            self.pending[1].synchronize()
+        self.pending = None
+
+
+def _gather_provenance(prov) -> list | None:
+    """Every rank's row provenance of a discarded step, on every rank (a
+    collective: all ranks reach the same verdict, so all call it)."""
+    parts: list = [None] * rt.process_count()
+    dist.all_gather_object(parts, prov)
+    rows = [r for part in parts if part for r in part]
+    return rows or None
+
+
 def _optimizer_state(task) -> dict | None:
     """The optimizer's whole state, on rank 0 (``None`` elsewhere): a
     ZeRO-1 optimizer consolidates its shards there first, a collective
@@ -537,8 +832,10 @@ def _optimizer_state(task) -> dict | None:
 
 def _save(root: Path, task, step: int, epoch: int, metrics: dict, *, write: bool = True):
     """Write checkpoint ``root/<step>/`` durably: its files and manifest in
-    a temporary directory, fsynced, then renamed into place. Every rank
-    calls it; only the one with ``write`` writes."""
+    a temporary directory ``<step>.tmp-<pid>``, fsynced, then renamed into
+    place. Every rank calls it; only the one with ``write`` writes.
+    Returns the step's directory where this rank wrote it."""
+    maybe_fail("checkpoint.save")
     optimizer_state = _optimizer_state(task)
     if not write:
         return None
@@ -557,15 +854,16 @@ def _save(root: Path, task, step: int, epoch: int, metrics: dict, *, write: bool
         "metrics": metrics,
     }
     torch.save(state, tmp / (STATE_FILE + durability.TMP_SUFFIX))
-    durability.durable_replace(tmp / (STATE_FILE + durability.TMP_SUFFIX), tmp / STATE_FILE)
-    durability.durable_write_json(tmp / METRICS_FILE, metrics)
+    durability.durable_replace(tmp / (STATE_FILE + durability.TMP_SUFFIX), tmp / STATE_FILE,
+                               kind="checkpoint")
+    durability.durable_write_json(tmp / METRICS_FILE, metrics, kind="checkpoint")
     integrity.write_manifest(tmp)
     if final.exists():  # as orbax: another run's step, never overwritten
         shutil.rmtree(tmp)
         raise FileExistsError(f"checkpoint step {step} already exists under {root}; "
                               "resume that run, or use another directory")
     os.replace(tmp, final)
-    durability.fsync_dir(root)
+    durability.fsync_dir(root, kind="checkpoint")
     return final
 
 
@@ -624,6 +922,7 @@ def _restore_with_fallback(root: Path, task, record: bool = True) -> int:
                 integrity.record_fallback(step, "; ".join(problems))
             continue
         try:
+            maybe_fail("checkpoint.restore")
             # On the host: load_state_dict copies to each parameter's device,
             # and Adam keeps its step counts on the CPU, as a fresh Adam does.
             state = torch.load(root / str(step) / STATE_FILE, map_location="cpu",

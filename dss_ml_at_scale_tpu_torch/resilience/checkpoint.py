@@ -56,7 +56,7 @@ def write_manifest(step_dir: str | Path) -> dict:
     # A crash mid-write must leave NO manifest (the step stays
     # "unverified" and restorable), never a truncated one, which would read
     # as "corrupt" and roll an intact step back.
-    durability.durable_write_json(step_dir / MANIFEST_NAME, manifest)
+    durability.durable_write_json(step_dir / MANIFEST_NAME, manifest, kind="manifest")
     return manifest
 
 

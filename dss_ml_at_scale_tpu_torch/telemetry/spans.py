@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import json
 import os
 import threading
 import time
@@ -76,6 +77,14 @@ class SpanLog:
             event["args"] = args
         return event
 
+    def record(self, name: str, ts: float, dur: float, **args) -> dict:
+        """Record one complete span (``ts`` epoch seconds, ``dur``
+        seconds) whose timing the caller measured."""
+        event = self._event(name, ts, dur, None, args)
+        with self._lock:
+            self._events.append(event)
+        return event
+
     @contextlib.contextmanager
     def span(self, name: str, **args) -> Iterator[None]:
         """``with log.span("lm.step"): ...`` — records wall time here AND
@@ -105,3 +114,6 @@ class SpanLog:
     def events(self) -> list[dict]:
         with self._lock:
             return list(self._events)
+
+    def to_jsonl(self) -> str:
+        return "".join(json.dumps(e) + "\n" for e in self.events())

@@ -105,9 +105,10 @@ def test_shard_assignment_matches_jax(table):
 def test_cpu_feeder_keeps_order_and_surfaces_errors():
     source = [{"x": np.full((2, 3), i, np.float32)} for i in range(5)]
     with Feeder(source, "cpu", depth=2) as feeder:
-        got = [int(b["x"][0, 0]) for b in feeder]
+        got = [int(b["x"][0, 0]) for b, _ in feeder]
     assert got == list(range(5))
-    assert all(isinstance(b["x"], torch.Tensor) for b in Feeder(source[:1], "cpu"))
+    assert all(isinstance(b["x"], torch.Tensor) and prov is None
+               for b, prov in Feeder(source[:1], "cpu"))
 
     def broken():
         yield {"x": np.zeros(1)}

@@ -20,6 +20,12 @@ compares in its own process.
   against a replicated Adam over two steps at rtol 2e-4 / atol 1e-5
   (``tests/test_trainer.py:183-236``); a checkpoint written at 2 ranks
   with ZeRO-1 restores at 1 rank.
+- A supervised step with a NaN injected on one rank, then a spike on the
+  other: both ranks discard both, and the state (replicated or ZeRO-1) is
+  bit-equal on both ranks to before the steps.
+- SIGTERM to one rank: both ranks stop after the same step, and a step
+  discarded on both (a NaN under ``skip``) quarantines both ranks' rows,
+  written by process 0 alone.
 - ``train`` and ``lm`` with ``--coordinator`` at 2 ranks.
 """
 
@@ -107,6 +113,65 @@ elif case == "classifier":
         opt.consolidate_state_dict(to=0)
     out = dict(model=task.model.state_dict(), optimizer=opt.state_dict() if rank == 0 else None,
                grads={n: p.grad for n, p in task.model.named_parameters()})
+elif case == "supervised":
+    import copy
+    from dss_ml_at_scale_tpu_torch.models import seeded_resnet
+    from dss_ml_at_scale_tpu_torch.models.resnet import BottleneckBlock
+    from dss_ml_at_scale_tpu_torch.parallel import ClassifierTask, Trainer, TrainerConfig
+    from dss_ml_at_scale_tpu_torch.resilience import health
+    zero1 = json.loads(sys.argv[5])["zero1"]
+    model = seeded_resnet(0, device="cpu", stage_sizes=[1, 1], block_cls=BottleneckBlock,
+                          num_filters=8, num_classes=4, dtype=torch.float32, fused_bn="pallas")
+    task = ClassifierTask(model=model, learning_rate=1e-2)
+    Trainer(TrainerConfig(shard_opt_state=zero1), device="cpu").data_parallel(task)
+    per = inputs["labels"].shape[1] // world
+    batches = [{"image": torch.from_numpy(inputs["images"][s][rank * per:(rank + 1) * per]),
+                "label": torch.from_numpy(inputs["labels"][s][rank * per:(rank + 1) * per])}
+               for s in range(len(inputs["images"]))]
+    guarded = health.guard_train_step(task, health.HealthConfig(policy="skip", warmup_steps=1))
+
+    def state():
+        opt = getattr(task.optimizer, "optim", task.optimizer)  # ZeRO-1: this rank's shard
+        return dict(model={k: v.clone() for k, v in task.model.state_dict().items()},
+                    adam=copy.deepcopy(opt.state_dict()["state"]), step=task.step)
+
+    h = health.HealthState.create()
+    h, m = guarded(h, batches[0], health.INJECT_NONE)  # commits: moments exist
+    verdicts = [m["health_verdict"]]
+    before = state()
+    # A NaN on rank 0 only, then a spike on rank 1 only: both ranks discard both.
+    for s, inject in ((1, health.INJECT_NONFINITE), (2, health.INJECT_SPIKE)):
+        h, m = guarded(h, batches[s], inject if rank == s - 1 else health.INJECT_NONE)
+        verdicts.append(m["health_verdict"])
+    out = dict(verdicts=verdicts, before=before, after=state())
+elif case == "preempt":
+    import signal
+    from dss_ml_at_scale_tpu_torch.models import seeded_resnet
+    from dss_ml_at_scale_tpu_torch.models.resnet import BottleneckBlock
+    from dss_ml_at_scale_tpu_torch.parallel import ClassifierTask, Trainer, TrainerConfig
+    model = seeded_resnet(0, device="cpu", stage_sizes=[1, 1], block_cls=BottleneckBlock,
+                          num_filters=8, num_classes=4, dtype=torch.float32, fused_bn="pallas")
+    from dss_ml_at_scale_tpu_torch.resilience import faults
+    from dss_ml_at_scale_tpu_torch.resilience.health import HealthConfig
+    from dss_ml_at_scale_tpu_torch.resilience.rollback import QuarantineList, RowRange
+    task = ClassifierTask(model=model, learning_rate=1e-2)
+    per = inputs["labels"].shape[1] // world
+
+    def stream():
+        for s in range(len(inputs["images"])):
+            if rank == 0 and s == 4:  # the evictor signals rank 0 alone
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield {"image": inputs["images"][s][rank * per:(rank + 1) * per],
+                   "label": inputs["labels"][s][rank * per:(rank + 1) * per],
+                   "_provenance": [RowRange(f"mem://rank{rank}", s, 0, per)]}
+
+    faults.install_from_spec("grads.nonfinite=1@1")  # every rank runs the same plan
+    health = HealthConfig(policy="skip", quarantine=QuarantineList(f"{work}/q.jsonl"))
+    result = Trainer(TrainerConfig(max_epochs=1, steps_per_epoch=8, log_every_steps=1000,
+                                   checkpoint_dir=f"{work}/ck", feeder_depth=1, health=health),
+                     device="cpu").fit(task, stream())
+    out = dict(preempted=result.preempted, steps=result.steps,
+               skipped=result.skipped_steps)
 elif case == "cli":
     from dss_ml_at_scale_tpu_torch.config import cli
     import contextlib, io
@@ -333,6 +398,45 @@ def test_two_rank_classifier_step_matches_one_rank_on_the_concatenated_batch(tmp
     assert set(got_m) == set(want_m) and got_m
     for key, value in want_m.items():
         assert _rel(got_m[key], value) < 1e-4, key
+
+
+@pytest.mark.parametrize("zero1", [False, True], ids=["ddp", "zero1"])
+def test_a_poisoned_step_is_discarded_on_every_rank(tmp_path, zero1):
+    """The loss and grad-norm signals are summed over the ranks before the
+    verdict, so a NaN or a spike on one rank alone makes both discard: the
+    parameters, the BN statistics, Adam's state (each rank's shard under
+    ZeRO-1) and the step count stay bit-equal to before, on both ranks."""
+    ranks = _ranks(tmp_path, "supervised", _images(steps=3), {"zero1": zero1})
+    for r in ranks:
+        assert r["verdicts"] == [0, 1, 2]
+        assert r["after"]["step"] == r["before"]["step"] == 1
+        for k, v in r["before"]["model"].items():
+            assert torch.equal(v, r["after"]["model"][k]), k
+        assert r["before"]["adam"] and r["before"]["adam"].keys() == r["after"]["adam"].keys()
+        for i, st in r["before"]["adam"].items():
+            for k, v in st.items():
+                assert torch.equal(v, r["after"]["adam"][i][k]), (i, k)
+    for k, v in ranks[0]["after"]["model"].items():
+        assert torch.equal(v, ranks[1]["after"]["model"][k]), k
+
+
+def test_ranks_agree_on_the_step_to_stop_at_for_a_preemption(tmp_path):
+    """SIGTERM reaches rank 0 alone: both ranks stop after the same step
+    (rank 0 would otherwise leave rank 1 blocked in its next all-reduce)
+    and one mid-epoch checkpoint of that step is saved."""
+    from dss_ml_at_scale_tpu_torch.resilience import checkpoint as integrity
+
+    from dss_ml_at_scale_tpu_torch.resilience.rollback import QuarantineList
+
+    r0, r1 = _ranks(tmp_path, "preempt", _images(steps=8))
+    assert r0["preempted"] is r1["preempted"] is True
+    assert r0["steps"] == r1["steps"] and 0 < r0["steps"] < 7
+    assert r0["skipped"] == r1["skipped"] == 1
+    assert integrity.list_steps(tmp_path / "ck") == [r0["steps"]]
+    # The discarded step's rows of both ranks, written once, by process 0.
+    entries = QuarantineList(tmp_path / "q.jsonl").entries
+    assert sorted(Path(e["path"]).name for e in entries) == ["rank0", "rank1"]
+    assert {e["row_group"] for e in entries} == {1}
 
 
 def test_zero1_matches_replicated_adam_and_restores_at_one_rank(tmp_path):

@@ -4,7 +4,9 @@ Under pytest ``tests/conftest.py`` imports jax first, so the runtime check
 runs in a fresh subprocess: it imports every module of the port, serves one
 generation over HTTP on the CPU through the real model, writes a 16-row
 image table and trains the pallas-level ``tiny-bottleneck`` on it through
-the port's ``train`` entry (crop 32, on the CPU), takes one LM train step
+the port's ``train`` entry (crop 32, on the CPU, supervised: a fault plan
+poisons one step, which is discarded and its rows quarantined, and the
+run is journaled in a run store), takes one LM train step
 through the ``lm`` entry with a checkpoint and one more after restoring it
 (``--resume``), and then lists what got loaded. A second check runs one
 data-parallel ``train`` step in two processes (gloo on the CPU, meeting at
@@ -54,9 +56,10 @@ out = io.StringIO()
 with contextlib.redirect_stdout(out):
     assert cli.main(["datagen", "images", "--out", work + "/t", "--n", "16",
                      "--classes", "4", "--size", "32"]) == 0
-    assert cli.main(["train", "--data", work + "/t", "--model", "tiny-bottleneck",
-                     "--pallas-fused", "--batch-size", "8", "--crop", "32",
-                     "--num-classes", "4", "--epochs", "1", "--device", "cpu"]) == 0
+    assert cli.main(["--fault-plan", "grads.nonfinite=1@1", "train", "--data", work + "/t",
+                     "--model", "tiny-bottleneck", "--pallas-fused", "--batch-size", "8",
+                     "--crop", "32", "--num-classes", "4", "--epochs", "1", "--device", "cpu",
+                     "--health-policy", "skip", "--checkpoint-dir", work + "/tck"]) == 0
 train = json.loads(out.getvalue().strip().splitlines()[-1])
 lm = []
 for epochs, extra in (("1", []), ("2", ["--resume"])):
@@ -89,6 +92,8 @@ def test_port_serves_a_generation_without_jax():
     assert report["done"]["done"] == "max_tokens"
     assert report["done"]["tokens"] == 4
     assert report["train"]["steps"] == 2 and report["train"]["device"] == "cpu"
+    # The supervised step discarded the poisoned update and quarantined its rows.
+    assert report["train"]["skipped_steps"] == 1 and report["train"]["quarantined"] == 1
     assert report["train"]["train_loss"] > 0
     assert [r["steps"] for r in report["lm"]] == [1, 2]
     assert report["lm"][1]["best_checkpoint"] is not None
@@ -96,7 +101,9 @@ def test_port_serves_a_generation_without_jax():
     assert loaded == []
     assert "dss_ml_at_scale_tpu_torch.ops.flash_attention" in report["modules"]
     assert "dss_ml_at_scale_tpu_torch.ops.fused_matmul" in report["modules"]
-    assert "dss_ml_at_scale_tpu_torch.resilience.checkpoint" in report["modules"]
+    for name in ("resilience.checkpoint", "resilience.health", "resilience.faults",
+                 "resilience.preemption", "tracking.store"):
+        assert f"dss_ml_at_scale_tpu_torch.{name}" in report["modules"]
 
 
 _RANK = r"""
@@ -147,7 +154,9 @@ def test_two_rank_train_step_without_jax(tmp_path):
 def test_static_scan_covers_runtime_and_native():
     names = {str(p.relative_to(PORT)) for p in _sources() if PORT in p.parents}
     assert {"runtime/distributed.py", "runtime/topology.py", "native/__init__.py",
-            "data/augment.py", "models/pretrained.py"} <= names
+            "data/augment.py", "models/pretrained.py", "resilience/faults.py",
+            "resilience/retry.py", "resilience/durability.py", "resilience/rollback.py",
+            "resilience/health.py", "resilience/preemption.py", "tracking/store.py"} <= names
 
 
 def _sources():

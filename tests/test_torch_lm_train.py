@@ -223,9 +223,20 @@ def test_lm_cli_prints_the_jax_summary_keys(tmp_path):
                                               "tokens_per_sec"))
 
 
-@pytest.mark.parametrize("flag", [["--ffn", "moe"], ["--resume-auto"],
-                                  ["--health-policy", "skip"], ["--max-rollbacks", "3"],
-                                  ["--experiment", "x"]])
+@pytest.mark.parametrize("flag", [["--ffn", "moe"]])
 def test_lm_cli_refuses_what_later_slices_bring(flag, capsys):
     assert cli.main(["lm", "--device", "cpu", *flag]) == 1
     assert "not ported yet" in json.loads(capsys.readouterr().out)["error"]
+
+
+@pytest.mark.parametrize("flag", [["--resume-auto"], ["--health-policy", "skip"],
+                                  ["--max-rollbacks", "3"], ["--experiment", "x"]])
+def test_lm_cli_accepts_the_resilience_and_tracking_flags(flag, capsys, tmp_path):
+    argv = ["lm", "--device", "cpu", "--vocab", "32", "--dim", "32", "--heads", "2",
+            "--layers", "1", "--seq", "16", "--batch-size", "2", "--steps-per-epoch", "1",
+            "--epochs", "1", "--limit-val-batches", "1", "--checkpoint-dir",
+            str(tmp_path / "ck"), "--tracking-root", str(tmp_path / "runs"), *flag]
+    assert cli.main(argv) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["steps"] == 1 and summary["preempted"] is False
+    assert ("skipped_steps" in summary) == (flag[0] == "--health-policy")

@@ -7,11 +7,13 @@ stay within the JAX tests' thresholds of the PIL path
 (``tests/test_native.py:31-43, :95-110``). ``auto`` falls back to PIL per
 image for what the native path rejects (CMYK); an explicit ``native`` that
 cannot build raises with the compiler's error, also through ``train``.
-These tests skip only when the host lacks ``jpeglib.h``.
+The libjpeg headers are vendored beside the source; the library linked is
+the system's, or Pillow's bundled one where the linker finds none.
 """
 
 import contextlib
 import io
+import subprocess
 
 import numpy as np
 import pytest
@@ -108,6 +110,36 @@ def test_transform_spec_native_matches_jax_and_auto_falls_back_per_image():
         imagenet_transform_spec(backend="native")(mixed)
     sub = imagenet_transform_spec(backend="native", on_error="substitute")
     assert np.all(sub(mixed)["image"][1] == 0) and sub.substitutions.count == 1
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(dtype="uint8"), dict(fast_scale=True)],
+                         ids=["float", "uint8", "fast"])
+def test_a_pillow_linked_build_is_the_system_builds_and_jaxs_bit_for_bit(kw, tmp_path,
+                                                                       monkeypatch):
+    """Where the linker finds no system libjpeg (the card's host), the
+    pipeline links Pillow's bundled one by path: on the same JPEGs it
+    decodes what the build against the system's -ljpeg and the JAX
+    package's decoder decode."""
+    lib = native.pillow_jpeg()
+    assert lib is not None, "Pillow's wheel bundles no libjpeg here"
+    rng = np.random.default_rng(5)
+    jpegs = [_jpeg(rng, 300, 256) for _ in range(8)] + [_jpeg(rng, w, h) for w, h in SIZES]
+    system, ok = native.decode_jpeg_batch(jpegs, **kw)
+    system_build = native.library_path()
+    monkeypatch.setattr(native, "jpeg_library",
+                        lambda: ([str(lib), f"-Wl,-rpath,{lib.parent}"], lib))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load_error", None)
+    pillow, pok = native.decode_jpeg_batch(jpegs, **kw)
+    assert native.load_error() is None and ok.all() and pok.all()
+    assert native.library_path().name != system_build.name  # the library is in the hash
+    linked = subprocess.run(["ldd", str(native.library_path())], capture_output=True,
+                            text=True, check=True).stdout
+    assert f"{lib.name} => {lib}" in linked  # the rpath finds Pillow's copy
+    np.testing.assert_array_equal(pillow, system)
+    want, _ = jax_native.decode_jpeg_batch(jpegs, **{"chw": False, **kw})
+    np.testing.assert_array_equal(pillow, want)
 
 
 def test_the_library_builds_into_the_build_directory():
