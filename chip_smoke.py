@@ -129,7 +129,23 @@ Phases (any failure exits non-zero; there is no CPU path):
    ``runs doctor --resume``; ``--health-policy skip`` with one
    ``loss.spike`` (one discarded step); the save and restore times of the
    LM's checkpoint.
-15. a ``kernels`` JSON line, the card line, and the device JSON line last.
+15. group-fit (no kernel: plain batched PyTorch on the card): ``datagen
+   demand`` and ``forecast`` at their defaults through the CLI (the
+   reference's 50 SKUs x 157 weeks, the full 75-order grid, max_iter 200,
+   bfgs_iter 100): 50 groups, 7,850 rows, every Demand_Fitted finite, 1
+   chunk, the tracked run FINISHED; wall time, skus/s, NM iterations, peak
+   memory and the card's idle share (``nvidia-smi`` utilization sampled
+   every 200 ms, read over the forecast's wall_s and over the command). The card against the CPU in float64 on 4 of those SKUs
+   (max orders 1/1/1, max_iter 20, bfgs_iter 5): winning orders equal,
+   params within 1e-6 relative. The golden fixture in float32: loglike
+   and predict at the pinned points with the JAX test's tolerances, and
+   ``sarimax_fit``'s loglike for every d >= 1 order within the JAX test's
+   per-order bar at that test's config (max_iter 600), but for (4, 2, 1),
+   whose float32 fit lands in either of two basins in the JAX package too:
+   its shortfall is printed and held finite. At the 1,024-group chunk
+   shape (230,400 lanes): one NM iteration's ms, one BFGS
+   value-and-gradient's seconds and peak memory.
+16. a ``kernels`` JSON line, the card line, and the device JSON line last.
 """
 
 from __future__ import annotations
@@ -1645,6 +1661,239 @@ def resilience_lm_phase(torch, work: Path, card: str) -> dict:
     return result
 
 
+# The group-fit phase: the reference's demand panel (50 SKUs x 157 weeks)
+# and forecast at their defaults; the card against the CPU in float64 at a
+# small config; the card against the golden fixture in float32; and the
+# 1,024-group chunk shape.
+GF_GROUPS, GF_ROWS = 50, 50 * 157
+GF_F64 = dict(max_p=1, max_d=1, max_q=1, k_exog=3, max_iter=20, bfgs_iter=5)
+GF_F64_SKUS, GF_F64_TOL = 4, 1e-6
+GF_GOLDEN = Path(__file__).resolve().parent / "tests" / "fixtures" / "sarimax_golden.json"
+GF_CHUNK = 1024  # parallel/group_apply.py DEFAULT_GRID_CHUNK
+# The golden fit runs tests/test_sarimax_golden.py's slow-test config.
+GF_GOLDEN_CFG_KW = dict(k_exog=3, max_iter=600)
+# Orders whose float32 fit lands in either of two basins, in the JAX
+# package too: on 16 copies of the series scaled by 1 + 1e-5 z, JAX's fit
+# of (4, 2, 1) trails the oracle by 8.0-16.1 nats on 5 and the port's by
+# 7.8-14.9 on 4, against a bar of 7.5 (scripts/golden_fit_sweep_jax.py and
+# golden_fit_sweep_torch.py --orders 4,2,1 --perturb 16 --max-iter 600,
+# on the CPU). Their shortfall is printed and held finite; every other
+# order is held to its bar.
+GF_GOLDEN_BASIN = {(4, 2, 1)}
+
+
+def _fit_tol(order) -> float:
+    """tests/test_sarimax_golden.py's per-order fit bar (nats)."""
+    p, d, q = order
+    if d == 0 and (p or q):
+        return 30.0
+    return max(1.0, 1.5 * (p + q))
+
+
+def _read_delta(path):
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from dss_ml_at_scale_tpu_torch.data.delta import DeltaTable
+
+    return pa.concat_tables(pq.read_table(u) for u in DeltaTable(path).file_uris())
+
+
+def _util_samples(text: str) -> list[tuple[float, float]]:
+    """``(epoch seconds, utilization %)`` from nvidia-smi's
+    ``timestamp,utilization.gpu`` lines."""
+    from datetime import datetime
+
+    rows = []
+    for line in text.splitlines():
+        stamp, _, util = line.rpartition(",")
+        try:
+            rows.append((datetime.strptime(stamp.strip(), "%Y/%m/%d %H:%M:%S.%f").timestamp(),
+                         float(util)))
+        except ValueError:
+            continue  # a "[N/A]" or a line cut by the sampler's termination
+    return rows
+
+
+def group_fit_phase(torch, card: str) -> dict:
+    """``datagen demand`` and ``forecast`` at their defaults through the
+    CLI on the card; the card against the CPU in float64 and against the
+    golden fixture in float32; one Nelder-Mead iteration and one BFGS
+    value-and-gradient at the 1,024-group chunk shape."""
+    import os
+
+    import numpy as np
+
+    from dss_ml_at_scale_tpu_torch.ops import bfgs, sarimax as sx
+    from dss_ml_at_scale_tpu_torch.ops.neldermead import nelder_mead
+    from dss_ml_at_scale_tpu_torch.parallel.group_apply import grid_fit_panel, pad_groups
+    from dss_ml_at_scale_tpu_torch.workloads.forecasting import EXO_FIELDS, add_exo_variables
+
+    out: dict = {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_groupfit_"))
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    cli = [sys.executable, "-m", "dss_ml_at_scale_tpu_torch.config.cli"]
+
+    # 1. The main path at the reference's size, through the CLI.
+    t0 = time.perf_counter()
+    gen = subprocess.run(cli + ["datagen", "demand", "--out", str(work / "demand")], env=env,
+                         capture_output=True, text=True, timeout=600)
+    check(gen.returncode == 0, f"datagen demand failed: {gen.stderr[-2000:]}")
+    check(f"50 SKUs × 157 weeks = {GF_ROWS} rows" in gen.stdout,
+          f"datagen demand: {gen.stdout.strip()}")
+    out["datagen_s"] = round(time.perf_counter() - t0, 2)
+    runs = work / "runs"
+    # The card's busy share: nvidia-smi's utilization is the fraction of
+    # each sample period in which a kernel was running. Each sample carries
+    # nvidia-smi's local time, so the share is read over the forecast's own
+    # wall_s (Delta read, grid fit, Delta write) and, apart, over the whole
+    # command with its process start.
+    sampler = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,utilization.gpu", "--format=csv,noheader,nounits",
+         "-lms", "200"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    t0 = time.perf_counter()
+    try:
+        fc = subprocess.run(cli + ["forecast", "--data", str(work / "demand"), "--out",
+                                   str(work / "forecast"), "--tracking-root", str(runs)],
+                            env=env, capture_output=True, text=True, timeout=900)
+    finally:
+        wall = time.perf_counter() - t0
+        sampler.terminate()
+        samples, _ = sampler.communicate(timeout=60)
+    check(fc.returncode == 0, f"forecast failed: {fc.stderr[-3000:]}")
+    last = fc.stdout.strip().splitlines()[-1]
+    check(last.startswith(f"forecast: {GF_GROUPS} groups, {GF_ROWS} rows, mse "),
+          f"forecast line: {last}")
+    table = _read_delta(work / "forecast")
+    fitted = table.column("Demand_Fitted").to_numpy()
+    check(table.num_rows == GF_ROWS, f"forecast table has {table.num_rows} rows")
+    check(bool(np.isfinite(fitted).all()), "forecast: non-finite Demand_Fitted")
+    (run_dir,) = list((runs / "forecasting").iterdir())
+    meta = json.loads((run_dir / "meta.json").read_text())
+    check(meta["status"] == "FINISHED", f"forecast run is {meta['status']}")
+    records = {m["name"]: m for m in map(json.loads, (
+        run_dir / "metrics.jsonl").read_text().splitlines())}
+    metrics = {k: m["value"] for k, m in records.items()}
+    check(metrics["grid_chunks"] == 1, f"forecast took {metrics['grid_chunks']} chunks")
+    util = _util_samples(samples)
+    fit_end = records["wall_s"]["ts"]
+    fit_util = [u for t, u in util if fit_end - metrics["wall_s"] <= t <= fit_end]
+    check(len(fit_util) > 0, "no nvidia-smi sample inside the forecast's wall_s")
+    out.update(
+        forecast_wall_s=round(wall, 2), forecast_fit_s=round(metrics["wall_s"], 2),
+        skus_per_s=round(GF_GROUPS / metrics["wall_s"], 3),
+        nm_iterations=int(metrics["nm_iterations"]),
+        peak_mem_gib=round(metrics["peak_mem_bytes"] / 2 ** 30, 3),
+        mse=round(metrics["mse"], 2), grid_chunks=int(metrics["grid_chunks"]),
+        idle_share=round(1.0 - sum(fit_util) / len(fit_util) / 100.0, 3),
+        util_samples=len(fit_util),
+        idle_share_command=round(1.0 - sum(u for _, u in util) / len(util) / 100.0, 3),
+        util_samples_command=len(util), run_status=meta["status"])
+    print(f"group-fit forecast ({card}): {last}", flush=True)
+
+    # 2. The card against the CPU, float64, at a small config.
+    demand = add_exo_variables(_read_delta(work / "demand"))
+    padded = pad_groups(demand, ["Product", "SKU"], ["Demand", *EXO_FIELDS], sort_by="Date")
+    y = padded.values["Demand"]
+    exog = np.stack([padded.values[f] for f in EXO_FIELDS], -1)
+    n_valid = padded.n_valid.astype(np.int32)
+    n_train = np.maximum(n_valid - 40, 1).astype(np.int32)
+    cfg = sx.SarimaxConfig(**GF_F64)
+    k = slice(0, GF_F64_SKUS)
+    res = {dev: grid_fit_panel(cfg, y[k], exog[k], n_train[k], n_valid[k], device=dev,
+                               dtype=torch.float64) for dev in ("cuda", "cpu")}
+    check(bool((res["cuda"].order == res["cpu"].order).all()),
+          f"f64 winning orders differ: {res['cuda'].order.tolist()} vs {res['cpu'].order.tolist()}")
+    rel = float(np.max(np.abs(res["cuda"].params - res["cpu"].params)
+                       / np.maximum(np.abs(res["cpu"].params), 1.0)))
+    check(rel <= GF_F64_TOL, f"f64 params differ card vs CPU by {rel:.3g} relative")
+    out["f64_card_vs_cpu_params_rel"] = rel
+    out["f64_orders"] = res["cuda"].order.tolist()
+
+    # 3. The golden fixture in float32 on the card: loglike and predict at
+    # the pinned points, sarimax_fit's loglike for every d >= 1 order.
+    fix = json.loads(GF_GOLDEN.read_text())
+    gcfg = sx.SarimaxConfig(k_exog=3)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    gy = torch.tensor(fix["y"], **f32)
+    gex = torch.tensor(fix["exog"], **f32)
+    params = torch.tensor(np.stack([np.concatenate([
+        c["beta"], np.pad(c["phi"], (0, 4 - len(c["phi"]))),
+        np.pad(c["theta"], (0, 4 - len(c["theta"]))), [c["log_sigma2"]]])
+        for c in fix["cases"]]), **f32)
+    orders = torch.tensor([c["order"] for c in fix["cases"]], device="cuda")
+    nv = torch.tensor(fix["n_valid"], device="cuda")
+    ll = sx.sarimax_loglike(gcfg, params, gy, gex, orders, nv).cpu().numpy()
+    pred = sx.sarimax_predict(gcfg, params, gy, gex, orders, nv).cpu().numpy()
+    worst_ll = worst_pred = 0.0
+    for i, c in enumerate(fix["cases"]):
+        err = abs(float(ll[i]) - c["loglike"])
+        check(err <= max(1e-4 * abs(c["loglike"]), 0.05),
+              f"golden loglike {c['order']}: {ll[i]} vs {c['loglike']}")
+        worst_ll = max(worst_ll, err)
+        perr = np.abs(pred[i] - np.asarray(c["predict"]))
+        check(bool((perr <= 5e-3 + 1e-3 * np.abs(np.asarray(c["predict"]))).all()),
+              f"golden predict {c['order']}: max error {perr.max()}")
+        worst_pred = max(worst_pred, float(perr.max()))
+    bars = [b for b in fix["fits"] if b["order"][1] >= 1]
+    t0 = time.perf_counter()
+    fit = sx.sarimax_fit(sx.SarimaxConfig(**GF_GOLDEN_CFG_KW), gy, gex,
+                         torch.tensor([b["order"] for b in bars], device="cuda"), nv)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    shortfall = {}
+    for i, b in enumerate(bars):
+        got = float(fit.loglike[i])
+        order = tuple(b["order"])
+        check(math.isfinite(got), f"golden fit {order}: non-finite loglike")
+        shortfall[order] = b["loglike"] - got
+        check(order in GF_GOLDEN_BASIN or b["loglike"] - got <= _fit_tol(order),
+              f"golden fit {order}: loglike {got} trails the oracle's {b['loglike']} "
+              f"by more than {_fit_tol(order)}")
+    held = [v for o, v in shortfall.items() if o not in GF_GOLDEN_BASIN]
+    out.update(golden_loglike_max_abs_err=worst_ll, golden_predict_max_abs_err=worst_pred,
+               golden_fit_orders=len(bars), golden_fit_s=round(fit_s, 2),
+               golden_fit_max_shortfall=round(max(held), 4),
+               golden_fit_basin_shortfall={str(o): round(shortfall[o], 4)
+                                           for o in GF_GOLDEN_BASIN})
+
+    # 4. The 1,024-group chunk shape: 1,024 x 75 orders x 3 starts lanes.
+    fcfg = sx.SarimaxConfig(k_exog=3)
+    K = len(sx.grid_orders(fcfg))
+    gi = np.arange(GF_CHUNK) % len(y)
+    B = GF_CHUNK * K * 3
+    rep = lambda a: torch.as_tensor(np.repeat(a[gi], K * 3, axis=0), device="cuda")  # noqa: E731
+    og = torch.as_tensor(np.tile(np.repeat(sx.grid_orders(fcfg), 3, axis=0), (GF_CHUNK, 1)),
+                         device="cuda").long()
+    obj = sx._Objective(fcfg, rep(y), rep(exog), og, rep(n_train).long())
+    x0 = torch.zeros(B, fcfg.n_params - 1, device="cuda")
+    torch.cuda.synchronize()
+    times = {}
+    for iters in (1, 3):
+        t0 = time.perf_counter()
+        nelder_mead(obj.points, x0, max_iter=iters)
+        torch.cuda.synchronize()
+        times[iters] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f, g = bfgs.value_and_grad(obj, x0, sx.GRAD_LANES)
+    torch.cuda.synchronize()
+    vg_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(f).all()) and bool(torch.isfinite(g).all()),
+          "chunk-shape value and gradient not finite")
+    out.update(chunk_lanes=B, chunk_nm_iter_ms=round((times[3] - times[1]) / 2 * 1e3, 1),
+               chunk_bfgs_vg_s=round(vg_s, 3),
+               chunk_bfgs_vg_peak_gib=round((torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                                            3))
+    del obj, f, g
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if "--dp-rank" in sys.argv:  # one rank of the dp phase, started by it
         return dp_rank_main(int(sys.argv[sys.argv.index("--dp-rank") + 1]),
@@ -1730,6 +1979,9 @@ def main() -> int:
     for name, c in res_step["supervision"].items():
         print(f"resilience supervision cost, {name} step ms, off vs skip, in turns "
               f"({card}): off {c['off_ms']} skip {c['skip_ms']}", flush=True)
+    torch.cuda.empty_cache()
+    group_fit = group_fit_phase(torch, card)
+    print(f"group-fit ({card}): " + json.dumps(group_fit), flush=True)
 
     head = cases[2]  # causal s1024: the largest prefill bucket of the path
     train_case = next(c for c in cases if c["shape"] == "causal b8 h8 s2048 d128")

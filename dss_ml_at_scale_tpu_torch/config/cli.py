@@ -23,12 +23,19 @@ Ports of the JAX package's commands (``config/commands.py``):
   supervisor, ``--sample`` scoring and ``--coordinator`` (each process
   draws its own trajectory of the chain). ``--ffn moe`` raises an error
   naming the later slice that brings it.
+- ``datagen demand`` and ``forecast``: the group-fit track. The weekly
+  ARMA demand panel as a Delta table, then every SKU's SARIMAX tuned over
+  the full (p, d, q) grid, fitted and forecast on the card, with the JAX
+  command's flags and defaults plus ``--device``. ``--no-mesh`` is
+  accepted (one process drives one card); ``--search tpe``,
+  ``--max-evals`` and ``--rstate`` raise an error naming the ROADMAP item
+  that brings them.
 - ``checkpoints verify DIR``, ``quarantine list|clear`` and ``runs
   list|show|doctor [--resume]``: the operator's face of the checkpoint
   manifests, the poison-row blocklist and the run store. They touch no
   device.
 
-``train``, ``lm`` and ``serve-lm`` journal every run in a run store
+``train``, ``lm``, ``forecast`` and ``serve-lm`` journal every run in a run store
 (:mod:`..tracking`), on by default under ``./dsst_runs`` (or
 ``DSST_TRACKING_ROOT``; ``--no-tracking`` opts out); a command that
 raises closes its run as FAILED. The global ``--fault-plan`` (or
@@ -144,6 +151,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_tracking_args(sv, "serve-lm")
     sv.set_defaults(fn=_cmd_serve_lm)
     _register_datagen(sub)
+    _register_forecast(sub)
     _register_train(sub)
     _register_lm(sub)
     _register_checkpoints(sub)
@@ -182,6 +190,131 @@ def _register_datagen(sub) -> None:
         "best achievable accuracy at exactly (1-p)+p/classes",
     )
     img.set_defaults(fn=_cmd_datagen_images)
+
+    demand = gsub.add_parser("demand", help="ARMA weekly demand panel -> Delta")
+    demand.add_argument("--out", required=True, help="Delta table path")
+    demand.add_argument("--skus-per-product", type=int, default=10)
+    demand.add_argument("--years", type=int, default=3)
+    demand.add_argument("--seed", type=int, default=123)
+    demand.add_argument("--device", default="cuda",
+                        help="the card of the pipeline (cuda, cuda:N, or cpu); the "
+                        "generator itself runs on the host")
+    demand.set_defaults(fn=_cmd_datagen_demand)
+
+
+def _cmd_datagen_demand(args: argparse.Namespace) -> int:
+    from ..datagen.demand import DemandConfig, generate_demand, write_demand_delta
+
+    if _no_card(args.device):
+        return 1
+    cfg = DemandConfig(n_skus_per_product=args.skus_per_product,
+                       ts_length_years=args.years, seed=args.seed)
+    table = generate_demand(cfg)
+    write_demand_delta(table, args.out)
+    skus = len(table.column("SKU").unique())
+    weeks = len(table.column("Date").unique())
+    print(f"demand: {skus} SKUs × {weeks} weeks = {table.num_rows} rows -> {args.out}")
+    return 0
+
+
+# The forecast flags of the JAX command that wait for the port's hpo/:
+# (flag, attribute, value that means "not asked for").
+_FORECAST_LATER = (("--search tpe", "search", "grid"), ("--max-evals", "max_evals", None),
+                   ("--rstate", "rstate", None))
+
+
+def _register_forecast(sub) -> None:
+    fc = sub.add_parser(
+        "forecast", help="per-SKU SARIMAX tune + fit + score over a demand table")
+    fc.add_argument("--data", required=True, help="demand Delta table")
+    fc.add_argument("--out", required=True, help="forecast Delta table to write")
+    fc.add_argument(
+        "--search", choices=("grid", "tpe"), default="grid",
+        help="grid: fit the full (p,d,q) order grid in chunks with the argmin "
+        "on the card (exact optimum); tpe is not ported yet")
+    fc.add_argument("--chunk-size", type=int, default=None,
+                    help="groups per grid-fused chunk (default: min(G, 1024))")
+    fc.add_argument("--max-evals", type=int, default=None,
+                    help="TPE rounds (--search tpe only; not ported yet)")
+    fc.add_argument("--horizon", type=int, default=40, help="holdout weeks")
+    fc.add_argument("--rstate", type=int, default=None, help="TPE seed (not ported yet)")
+    fc.add_argument("--no-mesh", action="store_true",
+                    help="accepted for the JAX command's sake: one process drives one card")
+    _add_tracking_args(fc, "forecasting")
+    fc.add_argument("--max-p", type=int, default=4, help="AR order bound")
+    fc.add_argument("--max-d", type=int, default=2, help="differencing bound")
+    fc.add_argument("--max-q", type=int, default=4, help="MA order bound")
+    fc.add_argument("--max-iter", type=int, default=200, help="Nelder-Mead iters")
+    fc.add_argument("--device", default="cuda",
+                    help="torch device of the fits (cuda, cuda:N, or cpu)")
+    fc.set_defaults(fn=_cmd_forecast)
+
+
+def run_forecast(args: argparse.Namespace) -> dict:
+    """What ``forecast`` does, returning its summary; raises ``ValueError``
+    for flags the port does not support yet."""
+    import time
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    from ..data.delta import DeltaTable, write_delta
+    from ..ops.sarimax import SarimaxConfig
+    from ..workloads.forecasting import EXO_FIELDS, add_exo_variables, tune_and_forecast_panel
+
+    for flag, attr, off in _FORECAST_LATER:
+        if getattr(args, attr) != off:
+            raise ValueError(f"forecast {flag} is not ported yet: TPE search comes with "
+                             "the port's hpo/ (ROADMAP Queue 1 item 12)")
+    t0 = time.perf_counter()
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    tracker = _open_tracker(args, "forecast")
+    try:
+        table = pa.concat_tables(pq.read_table(u) for u in DeltaTable(args.data).file_uris())
+        cfg = SarimaxConfig(max_p=args.max_p, max_d=args.max_d, max_q=args.max_q,
+                            k_exog=len(EXO_FIELDS), max_iter=args.max_iter)
+        stats: dict = {}
+        out = tune_and_forecast_panel(add_exo_variables(table), forecast_horizon=args.horizon,
+                                      cfg=cfg, chunk_size=args.chunk_size, device=device,
+                                      stats=stats)
+        write_delta(out, args.out, mode="overwrite")
+    except BaseException:
+        fail_active_tracker()
+        raise
+    wall = time.perf_counter() - t0
+    err = (out.column("Demand").to_numpy().astype(np.float64)
+           - out.column("Demand_Fitted").to_numpy().astype(np.float64))
+    summary = {
+        "groups": stats["groups_fitted"], "rows": out.num_rows,
+        "mse": float((err ** 2).mean()), "wall_s": wall,
+        "grid_chunks": stats["grid_chunks"], "nm_iterations": stats["nm_iterations"],
+        "device": str(device),
+    }
+    if device.type == "cuda":
+        summary["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
+    if tracker is not None:
+        tracker.log_params({"search": args.search, "horizon": args.horizon,
+                            "groups": summary["groups"]})
+        tracker.log_metrics({k: v for k, v in summary.items() if k != "device"}, step=0)
+    _finish_tracker(tracker)
+    return summary
+
+
+def _cmd_forecast(args: argparse.Namespace) -> int:
+    if _no_card(args.device):
+        return 1
+    try:
+        s = run_forecast(args)
+    except ValueError as e:
+        print(json.dumps({"error": str(e)}), flush=True)
+        return 1
+    print(f"forecast: {s['groups']} groups, {s['rows']} rows, mse {s['mse']:.2f}, "
+          f"{s['wall_s']:.1f}s -> {args.out}", flush=True)
+    return 0
 
 
 def _cmd_datagen_images(args: argparse.Namespace) -> int:

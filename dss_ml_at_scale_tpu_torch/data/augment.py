@@ -7,16 +7,14 @@ one flip bit per image from a key that is a pure function of (seed, step),
 window on the device. Eval and predict never augment.
 
 The draws are the JAX package's, bit for bit: :class:`ThreefryKey` ports
-``jax.random``'s threefry2x32 ``key``, ``fold_in``, ``split``, ``uniform``
-and ``bernoulli`` in numpy uint32 arithmetic, with the partitionable
+``jax.random``'s threefry2x32 ``key``, ``fold_in``, ``split``, ``uniform``,
+``bernoulli`` and ``normal`` in numpy uint32 arithmetic, with the partitionable
 counter layout (``jax_threefry_partitionable``, the default of current
 JAX). They are a few dozen numbers per batch, drawn on the host. The box
 math follows XLA's float32 arithmetic on the CPU: its scale-and-shift of a
 uniform is one fused multiply-add, and its ``exp`` and ``log`` are the
 Cephes polynomials with fused multiply-adds (:func:`xla_exp`,
-:func:`xla_log`), so the boxes are the JAX package's bit for bit (the log,
-taken of the two ratio bounds only, may differ by one unit in the last
-place for a bound other than the default ones).
+:func:`xla_log`), so the boxes are the JAX package's bit for bit.
 
 The resample is ``jax.image.scale_and_translate(..., method="bilinear")``
 with its default ``antialias=True``: when it downscales, the triangle
@@ -98,9 +96,60 @@ def xla_log(x) -> np.ndarray:
     y = _fma(_fma(m, f(7.0376836292e-2), f(-1.1514610310e-1)), m, f(1.1676998740e-1))
     y1 = _fma(_fma(m, f(-1.2420140846e-1), f(1.4249322787e-1)), m, f(-1.6668057665e-1))
     y2 = _fma(_fma(m, f(2.0000714765e-1), f(-2.4999993993e-1)), m, f(3.3333331174e-1))
-    y = _fma(_fma(y, m3, y1), m3, y2) * m3
-    y = y + e * f(-2.12194440e-4)
-    return (m - m2 * f(0.5)) + y + e * f(0.693359375)
+    # The product with m^3 and the exponent's low part are one fused
+    # multiply-add, as is the exponent's high part at the end.
+    y = _fma(_fma(_fma(y, m3, y1), m3, y2), m3, e * f(-2.12194440e-4))
+    return _fma(e, f(0.693359375), (m - m2 * f(0.5)) + y)
+
+
+def xla_log1p(x) -> np.ndarray:
+    """float32 ``log1p`` as XLA computes it on the CPU: the Cephes rational
+    approximation with fused multiply-adds where ``|x| < sqrt(2) - 1``,
+    :func:`xla_log` of ``1 + x`` elsewhere."""
+    f = np.float32
+    x = np.asarray(x, f)
+
+    def horner(coeffs):
+        r = np.zeros_like(x)
+        for c in coeffs:
+            r = _fma(r, x, f(c))
+        return r
+
+    x2 = x * x
+    small = (x * x2) * (horner(_LOG1P_NUM) / horner(_LOG1P_DEN))
+    small = x + _fma(f(-0.5), x2, small)
+    return np.where(np.abs(x) < f(0.41421356237309504880), small, xla_log(x + f(1.0)))
+
+
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+# Giles' single-precision erfinv polynomials ("Approximating the erfinv
+# function"), for w = -log(1 - x^2) below 5 and at or above it.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def xla_erfinv(x) -> np.ndarray:
+    """float32 ``erfinv`` as XLA computes it (``chlo.erf_inv``): Giles'
+    polynomials in ``w = -log1p(-x^2)``, evaluated with fused
+    multiply-adds; ``+-inf`` at ``+-1``."""
+    f = np.float32
+    x = np.asarray(x, f)
+    w = -xla_log1p(x * -x)
+    lt = w < f(5.0)
+    w = np.where(lt, w - f(2.5), np.sqrt(w) - f(3.0))
+    p = np.where(lt, f(_ERFINV_LT5[0]), f(_ERFINV_GE5[0]))
+    for lo, hi in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma(p, w, np.where(lt, f(lo), f(hi)))
+    with np.errstate(over="ignore", invalid="ignore"):
+        return np.where(np.abs(x) == f(1.0), x * f(np.inf), p * x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +197,13 @@ class ThreefryKey:
 
     def bernoulli(self, n: int, p: float = 0.5) -> np.ndarray:
         return self.uniform(n) < np.float32(p)
+
+    def normal(self, n: int) -> np.ndarray:
+        """``jax.random.normal`` in float32: ``sqrt(2) * erfinv(u)`` of a
+        uniform ``u`` in ``(-1, 1)``."""
+        f = np.float32
+        u = self.uniform(n, np.nextafter(f(-1.0), f(0.0)), 1.0)
+        return f(np.sqrt(2)) * xla_erfinv(u)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,7 +8,8 @@ the port's ``train`` entry (crop 32, on the CPU, supervised: a fault plan
 poisons one step, which is discarded and its rows quarantined, and the
 run is journaled in a run store), takes one LM train step
 through the ``lm`` entry with a checkpoint and one more after restoring it
-(``--resume``), and then lists what got loaded. A second check runs one
+(``--resume``), generates a demand table and forecasts it (``datagen
+demand`` and ``forecast`` on the CPU), and then lists what got loaded. A second check runs one
 data-parallel ``train`` step in two processes (gloo on the CPU, meeting at
 a ``file://`` rendezvous), each of which lists what it loaded. The static
 scan reads every source file of the port (``runtime/`` and ``native/``
@@ -70,7 +71,16 @@ for epochs, extra in (("1", []), ("2", ["--resume"])):
                          "--limit-val-batches", "1", "--device", "cpu", "--epochs", epochs,
                          "--checkpoint-dir", work + "/ck", *extra]) == 0
     lm.append(json.loads(out.getvalue().strip().splitlines()[-1]))
-print(json.dumps({"done": lines[-1], "train": train, "lm": lm, "modules": sorted(sys.modules)}))
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli.main(["datagen", "demand", "--out", work + "/d", "--skus-per-product", "1",
+                     "--years", "1", "--seed", "2", "--device", "cpu"]) == 0
+    assert cli.main(["forecast", "--data", work + "/d", "--out", work + "/f", "--max-p", "0",
+                     "--max-d", "1", "--max-q", "0", "--max-iter", "3", "--horizon", "10",
+                     "--device", "cpu", "--no-tracking"]) == 0
+forecast = out.getvalue().strip().splitlines()[-1]
+print(json.dumps({"done": lines[-1], "train": train, "lm": lm, "forecast": forecast,
+                  "modules": sorted(sys.modules)}))
 """
 
 
@@ -96,13 +106,16 @@ def test_port_serves_a_generation_without_jax():
     assert report["train"]["skipped_steps"] == 1 and report["train"]["quarantined"] == 1
     assert report["train"]["train_loss"] > 0
     assert [r["steps"] for r in report["lm"]] == [1, 2]
+    assert report["forecast"].startswith("forecast: 5 groups, 265 rows, mse ")
     assert report["lm"][1]["best_checkpoint"] is not None
     loaded = [m for m in report["modules"] if _forbidden(m)]
     assert loaded == []
     assert "dss_ml_at_scale_tpu_torch.ops.flash_attention" in report["modules"]
     assert "dss_ml_at_scale_tpu_torch.ops.fused_matmul" in report["modules"]
     for name in ("resilience.checkpoint", "resilience.health", "resilience.faults",
-                 "resilience.preemption", "tracking.store"):
+                 "resilience.preemption", "tracking.store", "ops.sarimax", "ops.kalman",
+                 "ops.neldermead", "ops.bfgs", "ops.arma", "datagen.demand",
+                 "parallel.group_apply", "workloads.forecasting"):
         assert f"dss_ml_at_scale_tpu_torch.{name}" in report["modules"]
 
 
@@ -156,7 +169,10 @@ def test_static_scan_covers_runtime_and_native():
     assert {"runtime/distributed.py", "runtime/topology.py", "native/__init__.py",
             "data/augment.py", "models/pretrained.py", "resilience/faults.py",
             "resilience/retry.py", "resilience/durability.py", "resilience/rollback.py",
-            "resilience/health.py", "resilience/preemption.py", "tracking/store.py"} <= names
+            "resilience/health.py", "resilience/preemption.py", "tracking/store.py",
+            "ops/kalman.py", "ops/arma.py", "ops/neldermead.py", "ops/bfgs.py",
+            "ops/sarimax.py", "datagen/demand.py", "parallel/group_apply.py",
+            "workloads/forecasting.py"} <= names
 
 
 def _sources():
@@ -165,7 +181,9 @@ def _sources():
                                          ROOT / "scripts" / "profile_torch_lm.py",
                                          ROOT / "scripts" / "profile_torch_train.py",
                                          ROOT / "scripts" / "resnet_grad_sensitivity.py",
-                                         ROOT / "scripts" / "lm_curve_torch.py"]
+                                         ROOT / "scripts" / "lm_curve_torch.py",
+                                         ROOT / "scripts" / "profile_torch_groupfit.py",
+                                         ROOT / "scripts" / "golden_fit_sweep_torch.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

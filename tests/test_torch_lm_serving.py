@@ -411,6 +411,20 @@ def _stream(port, payload, headers=None):
     return resp.status, trace, lines[:-1], lines[-1]
 
 
+def _poll_access_row(log, request_id, timeout_s=5.0):
+    """The access-log row of ``request_id``, polled until a deadline."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        text = log.read_text() if log.exists() else ""
+        # Whole lines only: the writer may be mid-line.
+        rows = [json.loads(l) for l in text.split("\n")[:-1] if l.strip()]
+        row = next((r for r in rows if r["request_id"] == request_id), None)
+        if row is not None or time.monotonic() > deadline:
+            assert row is not None, f"no access-log row for {request_id} within {timeout_s}s"
+            return row
+        time.sleep(0.02)
+
+
 def test_streamed_trace_matches_access_log(lm_server):
     """The cross-process observability hop: an injected trace id comes
     back on the response header AND the done-line AND the access-log
@@ -427,8 +441,9 @@ def test_streamed_trace_matches_access_log(lm_server):
     assert done["done"] == "max_tokens"
     assert done["trace"] == injected
     assert len(tokens) == 4
-    rows = [json.loads(l) for l in log.read_text().splitlines()]
-    row = next(r for r in rows if r["request_id"] == injected)
+    # The server writes the row after the terminal chunk has gone out (its
+    # latency covers the send), so the client may read the log first.
+    row = _poll_access_row(log, injected)
     assert row["trace_inherited"] is True
     assert row["status"] == 200
     assert row["tokens"] == 4
