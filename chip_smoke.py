@@ -145,7 +145,41 @@ Phases (any failure exits non-zero; there is no CPU path):
    its shortfall is printed and held finite. At the 1,024-group chunk
    shape (230,400 lanes): one NM iteration's ms, one BFGS
    value-and-gradient's seconds and peak memory.
-16. a ``kernels`` JSON line, the card line, and the device JSON line last.
+16. moe-lm: ``lm --ffn moe --num-experts 8 --aux-loss-weight 0.01`` at the
+   LM-training width (capacity factor 1.25), 2 epochs of 4 steps, 2 val
+   batches, checkpoints, ``--sample 16``: K4's launches exactly (4 per train
+   step and per val batch, plus the sample prefill's 4), finite metrics,
+   val_loss below the untrained model's, intact manifests, and the first
+   step's ``train_loss`` equal to its next-token loss plus 0.01 x the
+   blocks' aux losses recomputed on its batch (1e-5 relative); tokens/s,
+   step ms, data wait, peak GiB, checkpoint bytes and save seconds.
+17. moe-parity, one seeded batch at full width: the MoE LM with flash
+   against reference attention (logits of the tokens routed alike in every
+   block and the loss within 2e-2 of max-abs; the two bf16 roundings move
+   the router's logits, so a token with a near-tie may take another
+   expert: every such change explained by a top-1 margin within twice the
+   token's logit difference, the capacity boundaries moved by at most two
+   places per change, at most 5% of tokens routed apart; every block's qkv
+   and w_up gradients nonzero and within 5e-2); one MoE layer at 8 x 2048 tokens: the index
+   dispatch bit-equal to the dense one-hot plain version, routing equal,
+   and the times of both, the experts' FFN and the router; f32 routing on
+   the card equal to the CPU's.
+18. moe-dp: two gloo ranks on the card, batch 4 each, experts split 4 + 4,
+   against one process at batch 8: loss and aux within 2e-2, per-block
+   qkv/w_up/router gradients within 5e-2 of max-abs and equal on both ranks.
+19. ring: two gloo ranks, the sequence split 1024 + 1024: ring attention at
+   causal b8 h8 s2048 d128 bf16 against plain attention (output and
+   dq/dk/dv within 2e-2 of max-abs); one train step of the full-width ring
+   LM against the reference LM (loss 2e-2, qkv gradients 5e-2); the hop's ms.
+20. pipeline: four gloo ranks, ``PipelinedLM`` at vocab 8192, dim 1024, 8
+   heads, 4 stages, max_seq 2048, f32, 4 microbatches of 2, against the
+   same blocks in sequence in one process: logits within 2e-5, one
+   ``PipelinedLMTask`` step's gradients within atol 1e-5 / rtol 1e-4, the
+   ``pipeline_utilization`` gauge 4/7; the tick's ms.
+   Each rank of 18-20 first checks gloo's all_reduce, all_gather,
+   broadcast, and the port's all_to_all and ring hop on CUDA tensors, and
+   prints which ops go through host memory.
+21. a ``kernels`` JSON line, the card line, and the device JSON line last.
 """
 
 from __future__ import annotations
@@ -1028,64 +1062,17 @@ def dp_work(torch, rank: int, world: int) -> dict:
     return out
 
 
-def dp_rank_main(rank: int, work: str) -> int:
-    """One rank of the dp phase (``chip_smoke.py --dp-rank R --work DIR``,
-    started by the dp phase): checks gloo's collectives on CUDA tensors,
-    then saves :func:`dp_work`'s result in ``DIR``."""
-    import torch
-    import torch.distributed as dist
-
-    from dss_ml_at_scale_tpu_torch.runtime import initialize_distributed, shutdown_distributed
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # Bit-identical gradients from run to run, so ZeRO-1 on and off can be
-    # held to equality.
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    initialize_distributed(f"file://{work}/rdzv", DP_WORLD, rank, backend="gloo", device="cuda")
-    try:
-        t = torch.full((4,), float(rank + 1), device="cuda")
-        dist.all_reduce(t)
-        check(t.tolist() == [3.0] * 4, f"gloo all_reduce of a CUDA tensor gave {t.tolist()}")
-        b = torch.full((3,), float(rank), device="cuda")
-        dist.broadcast(b, src=1)
-        check(b.tolist() == [1.0] * 3, f"gloo broadcast of a CUDA tensor gave {b.tolist()}")
-        parts = [torch.empty(2, device="cuda") for _ in range(DP_WORLD)]
-        dist.all_gather(parts, torch.full((2,), float(rank), device="cuda"))
-        check([p.tolist() for p in parts] == [[0.0, 0.0], [1.0, 1.0]],
-              f"gloo all_gather of CUDA tensors gave {[p.tolist() for p in parts]}")
-        torch.save(dp_work(torch, rank, DP_WORLD), Path(work) / f"dp{rank}.pt")
-    finally:
-        shutdown_distributed()
-    return 0
-
-
 def dp_phase(torch, card: str) -> dict:
     """Two processes on the one card (gloo: NCCL takes one rank per card)
     against one process at the global batch: loss, global BN running
     statistics, per-block gradients, K1-K3 launches per rank, ZeRO-1 on and
     off; then the same collectives' time on NCCL in a group of one."""
-    import os
-
     from dss_ml_at_scale_tpu_torch.runtime import initialize_distributed, shutdown_distributed
 
     ref = dp_work(torch, 0, 1)
     torch.cuda.empty_cache()
-    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH", "")]))
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(r),
-                               "--work", work], env=env) for r in range(DP_WORLD)]
-    try:
-        rcs = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    check(rcs == [0] * DP_WORLD, f"dp ranks exited {rcs}")
-    ranks = [torch.load(Path(work) / f"dp{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+    work = _spawn_ranks("dp", DP_WORLD)
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(DP_WORLD)]
     want = {"K1": 16, "K2": 16, "K3": 16}
     for r in ranks:
         check(r["launches"] == want, f"dp rank {r['rank']}: kernel launches {r['launches']}, "
@@ -1894,10 +1881,628 @@ def group_fit_phase(torch, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The LM's parallel extras (MoE, ring attention, the pipeline)
+# ---------------------------------------------------------------------------
+
+MOE_ARGS = ["--ffn", "moe", "--num-experts", "8", "--aux-loss-weight", "0.01"]
+MOE_STEPS, MOE_E, MOE_AUX = 4, 8, 0.01
+MOE_LM = dict(LM, ffn="moe", num_experts=MOE_E)
+
+
+def _moe_argv(steps: int, *extra: str) -> list[str]:
+    argv = [a for a in LM_TRAIN]
+    argv[argv.index("--steps-per-epoch") + 1] = str(steps)
+    return ["lm", *argv, *MOE_ARGS, *extra]
+
+
+def moe_lm_phase(torch, card: str) -> dict:
+    """``lm --ffn moe`` at full width: 2 epochs of 4 steps, 2 val batches,
+    checkpoints and ``--sample 16``; K4's launches counted over the run."""
+    from dss_ml_at_scale_tpu_torch.config import cli
+    from dss_ml_at_scale_tpu_torch.datagen.tokens import TokenStreamConfig, token_batches
+    from dss_ml_at_scale_tpu_torch.models import collect_aux_loss, next_token_loss, seeded_lm
+    from dss_ml_at_scale_tpu_torch.ops.flash_attention import flash_attention
+    from dss_ml_at_scale_tpu_torch.parallel import LMTask
+    from dss_ml_at_scale_tpu_torch.parallel import trainer as trainer_mod
+    from dss_ml_at_scale_tpu_torch.resilience import checkpoint as integrity
+
+    t_phase = time.perf_counter()
+    stream = TokenStreamConfig(vocab_size=8192, batch_size=8, seq_len=2048,
+                               concentration=0.05, seed=0)
+    # The entry's seed-0 weights, untrained, on its val batches.
+    untrained = seeded_lm(0, device="cuda", attention="flash", **MOE_LM)
+    with torch.no_grad():
+        losses = [float(next_token_loss(untrained(t), t)) for t in (
+            torch.as_tensor(b["tokens"], device="cuda")
+            for b in token_batches(stream, LM_VAL, sample_seed=100_000))]
+    untrained_val = statistics.mean(losses)
+    # Record the first step's batch and the train_loss the task returned
+    # for it, and how long each checkpoint save took.
+    first, saves = {}, []
+    compute, save = LMTask.compute_update, trainer_mod._save
+
+    def recording_compute(self, batch):
+        metrics = compute(self, batch)
+        if not first:
+            first.update(tokens=batch["tokens"].clone(), loss=float(metrics["train_loss"]))
+        return metrics
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return save(*a, **kw)
+        finally:
+            saves.append(time.perf_counter() - t0)
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    args = cli.build_parser().parse_args(
+        _moe_argv(MOE_STEPS, "--epochs", "2", "--checkpoint-dir", ckpt, "--sample", str(LM_SAMPLE)))
+    LMTask.compute_update, trainer_mod._save = recording_compute, timed_save
+    try:
+        # The main path: counts set to 0 just before, read just after.
+        flash_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary = cli.run_lm(args)
+        wall = time.perf_counter() - t0
+        launches = flash_attention.launches
+    finally:
+        LMTask.compute_update, trainer_mod._save = compute, save
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    layers = 4
+    want = layers * (2 * MOE_STEPS + 2 * LM_VAL) + layers  # + the --sample prefill
+    check(launches == want, f"moe-lm: K4 launched {launches} times, want {want}")
+    check(summary["steps"] == 2 * MOE_STEPS, f"moe-lm ran {summary['steps']} steps")
+    for h in summary["history"]:
+        for key in ("train_loss", "train_ppl", "grad_norm", "val_loss", "val_ppl"):
+            check(math.isfinite(h[key]), f"moe-lm metric {key}: {h[key]}")
+    check(summary["val_loss"] < untrained_val,
+          f"moe-lm val_loss {summary['val_loss']} not below the untrained {untrained_val}")
+    check(len(summary["sample_tokens"]) == 4 + LM_SAMPLE, "moe-lm --sample length")
+    report = integrity.verify_checkpoint_dir(ckpt)
+    check(report and all(r["status"] == "intact" for r in report),
+          f"moe-lm checkpoints not intact: {report}")
+    # The reported objective: the next-token loss plus w * sum of the blocks'
+    # aux losses, recomputed on the first step's batch with the weights it saw.
+    with torch.no_grad():
+        t = first["tokens"]
+        ntl = float(next_token_loss(untrained(t), t))
+        aux = float(collect_aux_loss(untrained))
+    objective = ntl + MOE_AUX * aux
+    obj_err = abs(first["loss"] - objective) / abs(objective)
+    check(obj_err <= 1e-5, f"moe-lm train_loss {first['loss']} != next-token {ntl} + "
+          f"{MOE_AUX} x aux {aux}")
+    del untrained
+    torch.cuda.empty_cache()
+    steady = summary["history"][-1]
+    result = {
+        "launches": launches, "wall_s": wall, "steps": summary["steps"],
+        "train_loss": summary["train_loss"], "val_loss": summary["val_loss"],
+        "untrained_val_loss": untrained_val, "val_loss_by_epoch":
+            [h["val_loss"] for h in summary["history"]],
+        "first_step": {"train_loss": first["loss"], "next_token_loss": ntl, "aux_sum": aux,
+                       "rel_err": obj_err},
+        "steady_tokens_per_sec": steady["steady_tokens_per_sec"],
+        "steady_step_ms": steady["steady_step_time_s"] * 1e3,
+        "steady_data_wait_ms": steady["steady_data_wait_s"] * 1e3,
+        "peak_memory_gib": peak,
+        "checkpoint_bytes": [(Path(ckpt) / str(r["step"]) / "state.pt").stat().st_size
+                             for r in report],
+        "save_s": saves,
+        "sample_mean_true_prob": summary["sample_mean_true_prob"],
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(f"moe-lm ({card}): " + json.dumps(result), flush=True)
+    return result
+
+
+def _route_spy(torch, logits: list | None = None):
+    """Record every routing the port's MoE layers compute (and, given a
+    list, their router logits), until undone."""
+    from dss_ml_at_scale_tpu_torch.models import moe
+
+    seen, real = [], moe.route
+
+    def spy(tokens, weight, *a, **kw):
+        seen.append(real(tokens, weight, *a, **kw))
+        if logits is not None:
+            with torch.no_grad():
+                logits.append(torch.nn.functional.linear(tokens.float(), weight.float()))
+        return seen[-1]
+
+    moe.route = spy
+    return seen, lambda: setattr(moe, "route", real)
+
+
+def moe_parity_phase(torch, card: str) -> dict:
+    """The MoE LM with flash against reference attention on one seeded batch
+    at full width; the index dispatch against the dense one-hot plain
+    version; routing on the card against the CPU in f32."""
+    from dss_ml_at_scale_tpu_torch.models import (
+        MoEMLP, collect_aux_loss, init_lm_state, moe_dense_reference, next_token_loss, seeded_lm,
+    )
+    from dss_ml_at_scale_tpu_torch.models.moe import route
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, 8192, (8, 2048), generator=gen, device="cuda")
+    out = {}
+    for attention in ("flash", "reference"):  # one model at a time
+        router_logits = []
+        seen, undo = _route_spy(torch, router_logits)
+        try:
+            model = seeded_lm(0, device="cuda", attention=attention, **MOE_LM).train()
+            logits = model(tokens)
+            loss = next_token_loss(logits, tokens) + MOE_AUX * collect_aux_loss(model)
+            loss.backward()
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        out[attention] = dict(
+            logits=logits.detach(), loss=loss.item(),
+            routes=[(r.expert, r.kept) for r in seen], router_logits=router_logits,
+            grads=[(b.qkv.weight.grad.clone(), b.moe.w_up.grad.clone()) for b in model.blocks])
+        del model, logits, loss
+        torch.cuda.empty_cache()
+    fl, rf = out["flash"], out["reference"]
+    # The two attention implementations round differently in bf16, which
+    # moves the router's logits a little: a token whose top-1 margin is
+    # below that move may take another expert (and each such token moves
+    # its two experts' capacity boundary by one place). Such a token is
+    # routed apart; the logits are held on the tokens routed alike in
+    # every block. Every change of expert must be explained by a margin
+    # within twice the token's largest logit difference between the runs.
+    alike = torch.ones(8 * 2048, dtype=torch.bool, device="cuda")
+    flips, unexplained, keep_shifts = [], 0, []
+    for (e1, k1), (e2, k2), l1, l2 in zip(fl["routes"], rf["routes"], fl["router_logits"],
+                                          rf["router_logits"]):
+        alike &= (e1 == e2) & (k1 == k2)
+        flip = e1 != e2
+        top2 = l2.topk(2, dim=-1).values
+        unexplained += int((flip & (top2[:, 0] - top2[:, 1] > 2 * (l1 - l2).abs().amax(-1))).sum())
+        flips.append(int(flip.sum()))
+        keep_shifts.append(int((~flip & (k1 != k2)).sum()))
+    apart = int((~alike).sum())
+    mask = alike.view(8, 2048)
+    logits_err = _rel(fl["logits"][mask], rf["logits"][mask])
+    loss_err = abs(fl["loss"] - rf["loss"]) / abs(rf["loss"])
+    grad_errs = {}
+    for i, ((q1, w1), (q2, w2)) in enumerate(zip(fl["grads"], rf["grads"])):
+        for name, a, b in (("qkv", q1, q2), ("w_up", w1, w2)):
+            check(a.abs().max().item() > 0, f"block {i}: zero {name} gradient")
+            grad_errs[f"{i}.{name}"] = _rel(a, b)
+    finite = bool(torch.isfinite(fl["logits"]).all())
+    del out, fl, rf
+    torch.cuda.empty_cache()
+    lm_parity = {"tokens_routed_apart": apart, "expert_flips_by_block": flips,
+                 "keep_shifts_by_block": keep_shifts, "logits_rel_err": logits_err,
+                 "loss_rel_err": loss_err, "grad_rel_errs": grad_errs}
+    print("moe-parity LM: " + json.dumps(lm_parity), flush=True)
+    check(finite, "non-finite MoE LM logits")
+    check(unexplained == 0, f"moe parity: {unexplained} expert changes not explained by a "
+          "margin within the logits' difference")
+    check(all(k <= 2 * f for k, f in zip(keep_shifts, flips)),
+          f"moe parity: capacity boundaries moved more than the flips explain: {keep_shifts}, "
+          f"{flips}")
+    check(apart <= 0.05 * alike.numel(), f"moe parity: {apart} tokens routed apart")
+    check(logits_err <= PARITY_LOGITS, f"MoE LM logits differ by {logits_err} of max-abs")
+    check(loss_err <= PARITY_LOGITS, f"MoE LM loss differs by {loss_err}")
+    worst = max(grad_errs, key=grad_errs.get)
+    check(grad_errs[worst] <= LM_GRADS, f"block {worst} gradient differs by {grad_errs[worst]}")
+
+    # One MoE layer at the full-width shape: index dispatch vs dense one-hot.
+    layer = MoEMLP(1024, MOE_E, device="cuda")
+    state = init_lm_state(seeded_lm(0, device="meta", **{**MOE_LM, "num_layers": 1}), 3)
+    layer.load_state_dict({k[len("blocks.0.moe."):]: v for k, v in state.items()
+                           if k.startswith("blocks.0.moe.")})
+    x = torch.randn(8, 2048, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    flat = x.view(-1, 1024)
+    dense_layer = lambda: moe_dense_reference(  # noqa: E731
+        flat, route(flat, layer.router.weight, MOE_E, 1.25), layer)
+    seen, undo = _route_spy(torch)
+    try:
+        with torch.no_grad():
+            index = layer(x).view(-1, 1024)
+    finally:
+        undo()
+    with torch.no_grad():
+        plain_route = route(flat, layer.router.weight, MOE_E, 1.25)
+        dense = moe_dense_reference(flat, plain_route, layer)
+    torch.cuda.synchronize()
+    same_route = all(torch.equal(getattr(seen[0], f), getattr(plain_route, f))
+                     for f in ("expert", "position", "kept"))
+    check(same_route, "index and dense dispatch routed differently")
+    check(torch.equal(index, dense), "the index dispatch differs from the dense one-hot form")
+    dropped = int((~seen[0].kept).sum())
+    with torch.no_grad():
+        index_ms = device_ms(lambda: layer(x), launches=5)
+        dense_ms = device_ms(dense_layer, launches=5)
+        ffn_ms = device_ms(lambda: layer._experts(
+            torch.zeros(MOE_E, seen[0].capacity, 1024, dtype=torch.bfloat16, device="cuda"),
+            0, MOE_E), launches=5)
+        route_ms = device_ms(lambda: route(x.view(-1, 1024), layer.router.weight, MOE_E, 1.25),
+                             launches=5)
+    # Routing in f32 on the card and on the CPU.
+    tokens32 = x.view(-1, 1024).float()
+    card_r = route(tokens32, layer.router.weight, MOE_E, 1.25)
+    cpu_r = route(tokens32.cpu(), layer.router.weight.cpu(), MOE_E, 1.25)
+    logits = (tokens32.double() @ layer.router.weight.double().t()).sort(dim=-1).values
+    margin = (logits[:, -1] - logits[:, -2]).min().item()
+    check(torch.equal(card_r.expert.cpu(), cpu_r.expert)
+          and torch.equal(card_r.kept.cpu(), cpu_r.kept),
+          f"f32 routing differs between the card and the CPU (least margin {margin})")
+    del layer, x, index, dense
+    torch.cuda.empty_cache()
+    result = {
+        **lm_parity, "grad_rel_err_max": grad_errs[worst], "dispatch_bit_equal": True, "capacity": seen[0].capacity, "dropped_tokens": dropped,
+        "layer_index_ms": index_ms, "layer_dense_ms": dense_ms, "expert_ffn_ms": ffn_ms,
+        "router_ms": route_ms, "f32_routing_card_eq_cpu": True, "f32_least_margin": margin,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(f"moe-parity ({card}): " + json.dumps(result), flush=True)
+    return result
+
+
+def _spawn_ranks(phase: str, world: int, timeout: float = 600) -> Path:
+    """``world`` processes of this script on the one card (gloo), each
+    running ``{phase}_work``; returns the directory of their results."""
+    import os
+
+    work = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--par-rank",
+                               phase, str(r), str(world), str(work)], env=env)
+             for r in range(world)]
+    try:
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(rcs == [0] * world, f"{phase} ranks exited {rcs}")
+    return work
+
+
+def par_rank_main(phase: str, rank: int, world: int, work: str) -> int:
+    """One rank of a multi-rank phase (``chip_smoke.py --par-rank PHASE R N
+    DIR``, started by the phase): joins the gloo group, checks the
+    collectives the phases run on CUDA tensors, then saves
+    ``{phase}_work``'s result in ``DIR``."""
+    import torch
+    import torch.distributed as dist
+
+    from dss_ml_at_scale_tpu_torch import runtime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # Bit-identical gradients from run to run, so the dp phase can hold
+    # ZeRO-1 on and off to equality.
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runtime.initialize_distributed(f"file://{work}/rdzv", world, rank, backend="gloo",
+                                   device="cuda")
+    try:
+        t = torch.full((2,), float(rank + 1), device="cuda")
+        dist.all_reduce(t)
+        check(t.tolist() == [world * (world + 1) / 2] * 2, f"gloo all_reduce gave {t.tolist()}")
+        parts = [torch.empty(1, device="cuda") for _ in range(world)]
+        dist.all_gather(parts, torch.full((1,), float(rank), device="cuda"))
+        check([p.item() for p in parts] == list(range(world)), "gloo all_gather of CUDA tensors")
+        b = torch.full((1,), float(rank), device="cuda")
+        dist.broadcast(b, src=world - 1)
+        check(b.item() == world - 1, "gloo broadcast of a CUDA tensor")
+        x = torch.arange(world, device="cuda", dtype=torch.float32) + 10 * rank
+        got = runtime.all_to_all(x.view(world, 1)).view(-1)
+        check(got.tolist() == [10 * j + rank for j in range(world)],
+              f"all_to_all of a CUDA tensor gave {got.tolist()}")
+        hop = runtime.ring_shift(torch.full((3,), float(rank), device="cuda"))
+        check(hop.device.type == "cuda" and hop.tolist() == [float((rank - 1) % world)] * 3,
+              f"ring_shift of a CUDA tensor gave {hop.tolist()}")
+        print(f"{phase} rank {rank}: gloo all_reduce, all_gather, broadcast, all_to_all and "
+              f"send/recv of CUDA tensors checked; copied through host memory: "
+              f"{runtime.host_routed()}", flush=True)
+        result = globals()[f"{phase}_work"](torch, rank, world)
+        result["host_routed"] = runtime.host_routed()
+        torch.save(result, Path(work) / f"rank{rank}.pt")
+    finally:
+        runtime.shutdown_distributed()
+    return 0
+
+
+def _moe_batch(torch):
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    return torch.randint(0, 8192, (8, 2048), generator=gen, device="cuda")
+
+
+def moe_dp_work(torch, rank: int, world: int) -> dict:
+    """One DDP step of ``LMTask`` on the MoE LM (aux weight 0.01) at this
+    rank's rows of the seeded batch (world 1: the one-process reference at
+    the whole batch): loss, aux, per-block gradients, the experts run."""
+    import torch.distributed as dist
+
+    from dss_ml_at_scale_tpu_torch.models import collect_aux_loss, seeded_lm
+    from dss_ml_at_scale_tpu_torch.ops.flash_attention import flash_attention
+    from dss_ml_at_scale_tpu_torch.parallel import LMTask, Trainer, TrainerConfig
+
+    multi = world > 1
+    model = seeded_lm(0, device="cuda", attention="flash", **MOE_LM,
+                      expert_group=dist.group.WORLD if multi else None, shard_experts=multi)
+    task = LMTask(model=model, aux_loss_weight=MOE_AUX)
+    Trainer(TrainerConfig(), device="cuda").data_parallel(task)
+    rows = slice(rank * 8 // world, (rank + 1) * 8 // world)
+    tokens = _moe_batch(torch)[rows].contiguous()
+    torch.cuda.synchronize()
+    # The main path of this phase: the count set to 0 just before, read after.
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    metrics = task.compute_update({"tokens": tokens})
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = flash_attention.launches
+    stats = torch.stack([metrics["train_loss"].float(), collect_aux_loss(model).detach()])
+    if multi:
+        dist.all_reduce(stats)
+        stats /= world
+    out = {"rank": rank, "loss": stats[0].item(), "aux": stats[1].item(), "step_ms": step_ms,
+           "launches": launches, "experts": [b.moe.computed_experts for b in model.blocks],
+           "grads": {}}
+    for i, b in enumerate(model.blocks):
+        out["grads"][f"{i}.qkv"] = b.qkv.weight.grad.float().cpu()
+        out["grads"][f"{i}.w_up"] = b.moe.w_up.grad.float().cpu()
+        out["grads"][f"{i}.router"] = b.moe.router.weight.grad.float().cpu()
+    del task, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_dp_phase(torch, card: str) -> dict:
+    """Two gloo ranks on the card, batch 4 each, expert-sharded, against one
+    process at batch 8 on the same seeded weights and data."""
+    t_phase = time.perf_counter()
+    ref = moe_dp_work(torch, 0, 1)
+    torch.cuda.empty_cache()
+    work = _spawn_ranks("moe_dp", 2)
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    loss_err = abs(ranks[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+    aux_err = abs(ranks[0]["aux"] - ref["aux"]) / abs(ref["aux"])
+    check(math.isfinite(ranks[0]["loss"]) and loss_err <= PARITY_LOGITS,
+          f"moe-dp loss {ranks[0]['loss']} vs one process {ref['loss']}")
+    check(aux_err <= PARITY_LOGITS, f"moe-dp aux {ranks[0]['aux']} vs one process {ref['aux']}")
+    for r in ranks:
+        want = [(4 * r["rank"], 4 * r["rank"] + 4)] * 4
+        check(r["experts"] == want, f"moe-dp rank {r['rank']} ran experts {r['experts']}")
+        check(r["launches"] == 4, f"moe-dp rank {r['rank']}: K4 launched {r['launches']} "
+              "times in the step, want 4 (one per block)")
+    grad_errs = {n: _rel(ranks[0]["grads"][n], g) for n, g in ref["grads"].items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    check(grad_errs[worst] <= PARITY_GRADS, f"moe-dp {worst}: gradient differs by "
+          f"{grad_errs[worst]} of max-abs")
+    check(min(g.abs().max().item() for g in ranks[0]["grads"].values()) > 0,
+          "a moe-dp block gradient is zero")
+    check(all(torch.equal(ranks[0]["grads"][n], ranks[1]["grads"][n]) for n in grad_errs),
+          "the ranks' DDP gradients differ")
+    result = {"loss": ranks[0]["loss"], "loss_one_process": ref["loss"], "loss_rel_err": loss_err,
+              "aux": ranks[0]["aux"], "aux_one_process": ref["aux"], "aux_rel_err": aux_err,
+              "grad_rel_err_max": grad_errs[worst], "worst": worst,
+              "experts_per_rank": [r["experts"][0] for r in ranks],
+              "launches_per_rank": [r["launches"] for r in ranks],
+              "step_ms_two_ranks": [r["step_ms"] for r in ranks],
+              "step_ms_one_process": ref["step_ms"], "host_routed": ranks[0]["host_routed"],
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"moe-dp ({card}; two ranks on one card are no scaling result): "
+          + json.dumps(result), flush=True)
+    return result
+
+
+def _ring_inputs(torch):
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    qkv = [torch.randn(8, 8, 2048, 128, generator=gen, device="cuda").to(torch.bfloat16)
+           for _ in range(3)]
+    cot = torch.randn(8, 8, 2048, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    return qkv, cot
+
+
+def ring_work(torch, rank: int, world: int) -> dict:
+    """This rank's half of the sequence: ring attention at causal b8 h8
+    s2048 d128 bf16 with its gradients; one train step of the ring LM; the
+    hop's ms."""
+    import torch.distributed as dist
+
+    from dss_ml_at_scale_tpu_torch import runtime
+    from dss_ml_at_scale_tpu_torch.models import seeded_lm
+    from dss_ml_at_scale_tpu_torch.parallel import LMTask, ring_attention
+
+    g = dist.group.WORLD
+    qkv, cot = _ring_inputs(torch)
+    part = slice(rank * 1024, (rank + 1) * 1024)
+    times = []
+    for _ in range(2):  # the second call is timed: the first sets up the library handles
+        leaves = [t[:, :, part].contiguous().requires_grad_() for t in qkv]
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = ring_attention(*leaves, group=g, causal=True)
+        o.backward(cot[:, :, part])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"attn_ms": times[-1], "attn_first_ms": times[0], "out": o.detach().cpu(),
+           "grads": [t.grad.cpu() for t in leaves]}
+    kv = torch.stack((leaves[1].detach(), leaves[2].detach()))
+    hops = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runtime.ring_shift(kv, g)
+        torch.cuda.synchronize()
+        hops.append((time.perf_counter() - t0) * 1e3)
+    out["hop_ms"] = statistics.median(hops[1:])
+    out["hop_bytes"] = kv.numel() * kv.element_size()
+    del qkv, cot, leaves, o, kv
+    torch.cuda.empty_cache()
+    task = LMTask(model=seeded_lm(0, device="cuda", attention="ring", group=g, **LM))
+    metrics = task.compute_update({"tokens": _moe_batch(torch)})
+    out["lm_loss"] = metrics["train_loss"].item()
+    out["qkv_grads"] = [b.qkv.weight.grad.float().cpu() for b in task.model.blocks]
+    del task
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_phase(torch, card: str) -> dict:
+    """Two gloo ranks, the sequence split 1024 + 1024, against one process."""
+    from dss_ml_at_scale_tpu_torch.models import next_token_loss, seeded_lm
+    from dss_ml_at_scale_tpu_torch.ops.flash_attention import attention_reference
+
+    t_phase = time.perf_counter()
+    work = _spawn_ranks("ring", 2)
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    qkv, cot = _ring_inputs(torch)
+    leaves = [t.clone().requires_grad_() for t in qkv]
+    ref = attention_reference(*leaves, causal=True)
+    ref.backward(cot)
+    errs = {"out": _rel(torch.cat([r["out"] for r in ranks], dim=2), ref.detach().cpu())}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        got = torch.cat([r["grads"][i] for r in ranks], dim=2)
+        check(got.abs().max().item() > 0, f"ring {name} is zero")
+        errs[name] = _rel(got, leaves[i].grad.cpu())
+    for k, e in errs.items():
+        check(e <= ATOL, f"ring attention {k} differs by {e} of max-abs")
+    del qkv, cot, leaves, ref
+    torch.cuda.empty_cache()
+    model = seeded_lm(0, device="cuda", attention="reference", **LM).train()
+    tokens = _moe_batch(torch)
+    loss = next_token_loss(model(tokens), tokens)
+    loss.backward()
+    loss_err = abs(ranks[0]["lm_loss"] - loss.item()) / abs(loss.item())
+    check(loss_err <= PARITY_LOGITS, f"ring LM loss {ranks[0]['lm_loss']} vs {loss.item()}")
+    qkv_errs = []
+    for i, b in enumerate(model.blocks):
+        for r in ranks:
+            qkv_errs.append(_rel(r["qkv_grads"][i], b.qkv.weight.grad.cpu()))
+            check(qkv_errs[-1] <= LM_GRADS, f"ring LM block {i}: qkv gradient differs by "
+                  f"{qkv_errs[-1]}")
+    one_process = loss.item()
+    del model, loss
+    torch.cuda.empty_cache()
+    result = {"attention_rel_err": errs, "lm_loss": ranks[0]["lm_loss"],
+              "lm_loss_one_process": one_process, "lm_loss_rel_err": loss_err, "qkv_grad_rel_err_max": max(qkv_errs),
+              "hop_ms": [r["hop_ms"] for r in ranks], "hop_bytes": ranks[0]["hop_bytes"],
+              "attention_fwd_bwd_ms": [r["attn_ms"] for r in ranks],
+              "attention_fwd_bwd_first_ms": [r["attn_first_ms"] for r in ranks],
+              "host_routed": ranks[0]["host_routed"], "phase_s": time.perf_counter() - t_phase}
+    print(f"ring ({card}; two ranks on one card are no scaling result): " + json.dumps(result),
+          flush=True)
+    return result
+
+
+PIPE = dict(vocab_size=8192, dim=1024, num_heads=8, max_seq=2048)
+PIPE_STAGES, PIPE_MICRO, PIPE_MB = 4, 4, 2
+
+
+def _pipe_tokens(torch):
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    return torch.randint(0, 8192, (PIPE_MICRO, PIPE_MB, 2048), generator=gen, device="cuda")
+
+
+def pipeline_work(torch, rank: int, world: int) -> dict:
+    """This rank's stage of the 4-stage PipelinedLM (seed-0 weights, f32):
+    the logits of 4 microbatches of 2, then one PipelinedLMTask step."""
+    from dss_ml_at_scale_tpu_torch import telemetry
+    from dss_ml_at_scale_tpu_torch.models import (
+        PipelinedLM, PipelinedLMTask, init_pipelined_lm_state,
+    )
+    from dss_ml_at_scale_tpu_torch.parallel import pipe_grid
+
+    grid = pipe_grid(PIPE_STAGES)
+    lm = PipelinedLM(**PIPE, grid=grid, device="cuda")
+    lm.load_state_dict(init_pipelined_lm_state(lm, 0))
+    tokens = _pipe_tokens(torch)
+    with torch.no_grad():
+        lm(tokens)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = lm(tokens)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+    task = PipelinedLMTask(lm)
+    units = task.batch_units({"tokens": tokens})  # publishes the gauge
+    util = next(m["value"] for m in telemetry.snapshot()["metrics"]
+                if m["name"] == "pipeline_utilization")
+    metrics = task.compute_update({"tokens": tokens})
+    torch.cuda.synchronize()
+    out = {"stage": grid.stage, "units": units, "utilization": util, "forward_ms": fwd_ms,
+           "tick_ms": fwd_ms / (PIPE_MICRO + PIPE_STAGES - 1),
+           "loss": metrics["train_loss"].item(),
+           "grads": {n: p.grad.cpu() for n, p in lm.named_parameters()}}
+    if rank == 0:
+        out["logits"] = logits.cpu()
+    del lm, task, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_phase(torch, card: str) -> dict:
+    """Four gloo ranks, one stage each, against the same blocks run in
+    sequence in one process."""
+    from dss_ml_at_scale_tpu_torch.models import (
+        PipelinedLM, init_pipelined_lm_state, next_token_loss, rms_norm,
+    )
+    from dss_ml_at_scale_tpu_torch.models.transformer import _select_attention
+    from dss_ml_at_scale_tpu_torch.parallel import PipeGrid
+
+    t_phase = time.perf_counter()
+    work = _spawn_ranks("pipeline", PIPE_STAGES)
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(PIPE_STAGES)]
+    # The same weights in one process: every stage's block, in sequence.
+    stages = [PipelinedLM(**PIPE, grid=PipeGrid(PIPE_STAGES, 1, s, 0), device="cuda")
+              for s in range(PIPE_STAGES)]
+    for lm in stages:
+        lm.load_state_dict(init_pipelined_lm_state(lm, 0))
+    head = stages[0]
+    attention = _select_attention("reference")
+    tokens = _pipe_tokens(torch)
+    x = torch.nn.functional.embedding(tokens, head.tok) + head.pos[:2048]
+    for lm in stages:
+        x = torch.stack([lm.block(x[m], attention) for m in range(PIPE_MICRO)])
+    logits = rms_norm(x, head.norm_scale) @ head.head
+    logits_err = (ranks[0]["logits"] - logits.detach().cpu()).abs().max().item()
+    check(logits_err <= 2e-5, f"pipeline logits differ from the sequential blocks by {logits_err}")
+    loss = next_token_loss(logits.reshape(-1, 2048, 8192), tokens.reshape(-1, 2048))
+    loss.backward()
+    check(abs(ranks[0]["loss"] - loss.item()) <= 1e-5 * abs(loss.item()),
+          f"pipeline loss {ranks[0]['loss']} vs sequential {loss.item()}")
+    worst = 0.0
+    for r in ranks:
+        want = {f"block.{n}": p.grad.cpu() for n, p in stages[r["stage"]].block.named_parameters()}
+        want.update({n: getattr(head, n).grad.cpu() for n in ("tok", "pos", "norm_scale", "head")})
+        for n, g in r["grads"].items():
+            w = want[n]
+            bad = (g - w).abs() > 1e-5 + 1e-4 * w.abs()
+            check(not bad.any(), f"pipeline stage {r['stage']} {n}: gradient off by "
+                  f"{(g - w).abs().max().item()}")
+            worst = max(worst, ((g - w).abs() / (1e-5 + 1e-4 * w.abs())).max().item())
+    check(all(r["utilization"] == 4 / 7 for r in ranks),
+          f"pipeline_utilization {[r['utilization'] for r in ranks]}, want 4/7")
+    del stages, head, x, logits, loss
+    torch.cuda.empty_cache()
+    result = {"logits_max_abs_err": logits_err, "grad_worst_over_tolerance": worst,
+              "loss": ranks[0]["loss"], "utilization": ranks[0]["utilization"],
+              "tick_ms": [r["tick_ms"] for r in ranks],
+              "forward_ms": [r["forward_ms"] for r in ranks],
+              "host_routed": ranks[0]["host_routed"], "phase_s": time.perf_counter() - t_phase}
+    print(f"pipeline ({card}; four ranks on one card are no scaling result): "
+          + json.dumps(result), flush=True)
+    return result
+
+
 def main() -> int:
-    if "--dp-rank" in sys.argv:  # one rank of the dp phase, started by it
-        return dp_rank_main(int(sys.argv[sys.argv.index("--dp-rank") + 1]),
-                            sys.argv[sys.argv.index("--work") + 1])
+    if "--par-rank" in sys.argv:  # one rank of a multi-rank phase, started by it
+        i = sys.argv.index("--par-rank")
+        phase, rank, world, work = sys.argv[i + 1:i + 5]
+        return par_rank_main(phase, int(rank), int(world), work)
     import torch
     import torch.nn.functional as F
 
@@ -1982,6 +2587,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     group_fit = group_fit_phase(torch, card)
     print(f"group-fit ({card}): " + json.dumps(group_fit), flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_lm = moe_lm_phase(torch, card)
+    torch.cuda.empty_cache()
+    moe_parity_phase(torch, card)
+    moe_dp = moe_dp_phase(torch, card)
+    ring_phase(torch, card)
+    pipeline_phase(torch, card)
+    print(f"parallel-extras phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     head = cases[2]  # causal s1024: the largest prefill bucket of the path
     train_case = next(c for c in cases if c["shape"] == "causal b8 h8 s2048 d128")
@@ -1991,9 +2605,12 @@ def main() -> int:
         "source": "dss_ml_at_scale_tpu_torch/csrc/flash_attention.cu",
         "replaces": "dss_ml_at_scale_tpu/ops/flash_attention.py:70",
         "launches": (serving["launches"] + lm_train["launches"] + lm_dp["launches"]
-                     + res_lm["launches"]),
+                     + res_lm["launches"] + moe_lm["launches"]
+                     + sum(moe_dp["launches_per_rank"])),
         "launches_by_path": {"serving": serving["launches"], "lm_train": lm_train["launches"],
-                             "lm_dp": lm_dp["launches"], "resilience": res_lm["launches"]},
+                             "lm_dp": lm_dp["launches"], "resilience": res_lm["launches"],
+                             "moe_lm": moe_lm["launches"],
+                             "moe_dp_per_rank": moe_dp["launches_per_rank"]},
         "training": {k: train_case[k] for k in ("shape", "max_abs_err", "mean_rel_err", "ms",
                                                 "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")},

@@ -21,8 +21,11 @@ Ports of the JAX package's commands (``config/commands.py``):
   persisted as ``dsst_lm.json`` beside the checkpoints, for a flag-less
   ``--resume``), checkpoints, resume and ``--resume-auto``, the health
   supervisor, ``--sample`` scoring and ``--coordinator`` (each process
-  draws its own trajectory of the chain). ``--ffn moe`` raises an error
-  naming the later slice that brings it.
+  draws its own trajectory of the chain). ``--ffn moe`` (with
+  ``--num-experts``, ``--aux-loss-weight``) swaps every block's MLP for the
+  top-1 MoE layer, its aux loss in the objective; across ranks it routes
+  the global batch, and computes each rank's share of the experts when
+  the number of processes divides ``--num-experts``.
 - ``datagen demand`` and ``forecast``: the group-fit track. The weekly
   ARMA demand panel as a Delta table, then every SKU's SARIMAX tuned over
   the full (p, d, q) grid, fitted and forecast on the card, with the JAX
@@ -781,13 +784,6 @@ def _cmd_train(args: argparse.Namespace) -> int:
     return _run_command(run_train, args)
 
 
-# The lm flags of the JAX command that wait for later slices of the port:
-# (flag, attribute, value that means "not asked for", what brings it).
-_LM_LATER = (
-    ("--ffn moe", "ffn", "dense", "the MoE FFN (ROADMAP Queue 1 item 14)"),
-)
-
-
 def _register_lm(sub) -> None:
     lm = sub.add_parser(
         "lm",
@@ -807,7 +803,10 @@ def _register_lm(sub) -> None:
                     help="flash: the hand-written kernel on the card (its plain "
                     "version on the CPU); reference: plain attention")
     lm.add_argument("--ffn", choices=["dense", "moe"], default="dense",
-                    help="moe is not ported yet")
+                    help="moe swaps every block's MLP for a top-1 routed mixture of "
+                    "experts with the load-balance aux loss in the objective; across "
+                    "processes the experts are split over them when their count "
+                    "divides --num-experts")
     lm.add_argument("--num-experts", type=int, default=8, help="with --ffn moe")
     lm.add_argument("--aux-loss-weight", type=float, default=0.01, help="with --ffn moe")
     lm.add_argument(
@@ -868,14 +867,11 @@ def resolve_lr_schedule(args: argparse.Namespace, meta: dict, total_steps: int):
 def run_lm(args: argparse.Namespace) -> dict:
     """What ``lm`` does, returning its summary (with the per-epoch history)
     instead of printing it. Raises ``ValueError`` for flags that do not fit
-    together or that the port does not support yet. With a coordinator this
-    process joins the process group for the run and leaves it after."""
+    together. With a coordinator this process joins the process group for
+    the run and leaves it after."""
 
     from ..runtime import initialize_distributed, shutdown_distributed
 
-    for flag, attr, off, later in _LM_LATER:
-        if getattr(args, attr) != off:
-            raise ValueError(f"lm {flag} is not ported yet: it comes with {later}")
     if args.sample > 0 and args.seq <= 4:
         raise ValueError("--sample needs --seq > 4 (4 prompt tokens + at least one "
                          "generated token must fit in max_seq)")
@@ -893,6 +889,7 @@ def run_lm(args: argparse.Namespace) -> dict:
 def _lm(args: argparse.Namespace) -> dict:
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from ..datagen.tokens import (
         TokenStreamConfig, entropy_floor, token_batches, transition_matrix,
@@ -908,10 +905,17 @@ def _lm(args: argparse.Namespace) -> dict:
                                seq_len=args.seq, concentration=args.concentration,
                                seed=args.seed)
     floor = entropy_floor(stream)
-    # Weights from seed 0, as the JAX trainer's default init key.
+    moe = args.ffn == "moe"
+    ranks = topo.process_count
+    # Weights from seed 0, as the JAX trainer's default init key. Across
+    # ranks the MoE routes the global batch, and splits the experts' work
+    # when the rank count divides their number (JAX commands.py:1039-1041).
     model = seeded_lm(0, device=device, vocab_size=args.vocab, dim=args.dim,
                       num_heads=args.heads, num_layers=args.layers, max_seq=args.seq,
-                      attention=args.attention)
+                      attention=args.attention, ffn=args.ffn,
+                      num_experts=args.num_experts if moe else 0,
+                      expert_group=dist.group.WORLD if moe and ranks > 1 else None,
+                      shard_experts=moe and ranks > 1 and args.num_experts % ranks == 0)
     meta_path = Path(args.checkpoint_dir) / "dsst_lm.json" if args.checkpoint_dir else None
     meta = (json.loads(meta_path.read_text())
             if meta_path is not None and meta_path.exists() else {})
@@ -919,7 +923,8 @@ def _lm(args: argparse.Namespace) -> dict:
     if meta_path is not None and topo.is_coordinator:
         meta_path.parent.mkdir(parents=True, exist_ok=True)
         durability.durable_write_json(meta_path, meta)
-    task = LMTask(model=model, learning_rate=lr)
+    task = LMTask(model=model, learning_rate=lr,
+                  aux_loss_weight=args.aux_loss_weight if moe else 0.0)
     _mark_interrupted_predecessors(args)
     tracker = _open_tracker(args, "lm")
     if tracker is not None:

@@ -45,6 +45,22 @@ def lm_state_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     """flax ``TransformerLM`` params (nested, or flat with ``/``-joined
     keys; with or without the outer ``"params"``) -> the port's
     ``state_dict``, as f32 CPU tensors."""
+
+    def carry(take, flat):
+        take("tok_embed/embedding", "tok_embed.weight")
+        take("pos_embed", "pos_embed")
+        n_layers = len({k.split("/")[0] for k in flat if k.startswith("block_")})
+        for i in range(n_layers):
+            _take_block(take, flat, f"block_{i}/", f"blocks.{i}.")
+        take("RMSNorm_0/scale", "norm.scale")
+        take("lm_head/kernel", "lm_head.weight", transpose=True)
+
+    return _carry(params, carry)
+
+
+def _carry(params: Mapping, carry) -> dict[str, torch.Tensor]:
+    """``carry(take, flat)`` takes each flax param (``flat``, by ``/``-joined
+    key) onto a port name, kernels transposed; every param must be taken."""
     flat = _flatten(params.get("params", params))
     out: dict[str, torch.Tensor] = {}
 
@@ -52,53 +68,70 @@ def lm_state_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
         a = flat.pop(src).astype(np.float32)
         out[dst] = torch.from_numpy(np.ascontiguousarray(a.T if transpose else a))
 
-    take("tok_embed/embedding", "tok_embed.weight")
-    take("pos_embed", "pos_embed")
-    n_layers = len({k.split("/")[0] for k in flat if k.startswith("block_")})
-    for i in range(n_layers):
-        src, dst = f"block_{i}", f"blocks.{i}"
-        take(f"{src}/RMSNorm_0/scale", f"{dst}.norm1.scale")
-        take(f"{src}/qkv/kernel", f"{dst}.qkv.weight", transpose=True)
-        take(f"{src}/proj/kernel", f"{dst}.proj.weight", transpose=True)
-        take(f"{src}/RMSNorm_1/scale", f"{dst}.norm2.scale")
-        for name in ("mlp_up", "mlp_down"):
-            take(f"{src}/{name}/kernel", f"{dst}.{name}.weight", transpose=True)
-            take(f"{src}/{name}/bias", f"{dst}.{name}.bias")
-    take("RMSNorm_0/scale", "norm.scale")
-    take("lm_head/kernel", "lm_head.weight", transpose=True)
+    carry(take, flat)
     if flat:
         raise ValueError(f"flax params not carried over: {sorted(flat)}")
     return out
 
 
+def _take_block(take, flat: Mapping, src: str, dst: str) -> None:
+    """One flax ``TransformerBlock``'s params (keys under ``src``), dense or
+    MoE, onto the port's names under ``dst``."""
+    take(f"{src}RMSNorm_0/scale", f"{dst}norm1.scale")
+    take(f"{src}qkv/kernel", f"{dst}qkv.weight", transpose=True)
+    take(f"{src}proj/kernel", f"{dst}proj.weight", transpose=True)
+    take(f"{src}RMSNorm_1/scale", f"{dst}norm2.scale")
+    if f"{src}moe/router/kernel" in flat:
+        take(f"{src}moe/router/kernel", f"{dst}moe.router.weight", transpose=True)
+        for name in ("w_up", "b_up", "w_down", "b_down"):
+            take(f"{src}moe/{name}", f"{dst}moe.{name}")
+        return
+    for name in ("mlp_up", "mlp_down"):
+        take(f"{src}{name}/kernel", f"{dst}{name}.weight", transpose=True)
+        take(f"{src}{name}/bias", f"{dst}{name}.bias")
+
+
+def block_state_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """One flax ``TransformerBlock``'s params -> the port's
+    ``TransformerBlock`` ``state_dict``, as f32 CPU tensors."""
+    return _carry(params, lambda take, flat: _take_block(take, flat, "", ""))
+
+
 def init_lm_state(model: TransformerLM, seed: int) -> dict[str, torch.Tensor]:
     """Seeded random weights for ``model``, as an f32 CPU ``state_dict``.
 
-    Like flax's defaults: Dense kernels (every Linear weight and
-    ``lm_head``) LeCun-normal, a normal of std ``1/sqrt(fan_in)`` truncated
-    at two deviations and rescaled by ``1/0.87962566`` as flax's
-    ``variance_scaling`` does (as :func:`init_resnet_state`); biases zero,
-    RMSNorm scales one, the position table normal(0.02), the token table
-    an untruncated normal with std ``1/sqrt(vocab)`` (``nn.Embed``).
+    Like flax's defaults: Dense kernels (every Linear weight, the MoE
+    router and ``lm_head``) LeCun-normal, a normal of std
+    ``1/sqrt(fan_in)`` truncated at two deviations and rescaled by
+    ``1/0.87962566`` as flax's ``variance_scaling`` does (as
+    :func:`init_resnet_state`); the MoE expert kernels ``[E, d, h]`` and
+    ``[E, h, d]`` too, with flax's fan-in of a 3-D kernel, which counts the
+    expert axis as receptive field (``E * d`` and ``E * h``); biases
+    (``b_up``, ``b_down`` too) zero, RMSNorm scales one, the position table
+    normal(0.02), the token table an untruncated normal with std
+    ``1/sqrt(vocab)`` (``nn.Embed``).
     """
     gen = torch.Generator().manual_seed(int(seed))
-    state = {}
-    for name, p in model.state_dict().items():
-        shape = tuple(p.shape)
-        if name.endswith(".bias"):
-            t = torch.zeros(shape)
-        elif name.endswith("scale"):
-            t = torch.ones(shape)
-        elif name == "pos_embed":
-            t = torch.randn(shape, generator=gen) * 0.02
-        elif name == "tok_embed.weight":
-            t = torch.randn(shape, generator=gen) / math.sqrt(shape[0])
-        else:  # Linear weight [out, in]
-            t = torch.empty(shape)
-            std = 1.0 / math.sqrt(shape[1]) / 0.87962566103423978
-            torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
-        state[name] = t
-    return state
+    return {name: _init_tensor(name, tuple(p.shape), gen)
+            for name, p in model.state_dict().items()}
+
+
+def _init_tensor(name: str, shape: tuple, gen: torch.Generator) -> torch.Tensor:
+    """One parameter of :func:`init_lm_state`, drawn from ``gen``."""
+    if name.endswith((".bias", ".b_up", ".b_down")):
+        return torch.zeros(shape)
+    if name.endswith("scale"):
+        return torch.ones(shape)
+    if name == "pos_embed":
+        return torch.randn(shape, generator=gen) * 0.02
+    if name == "tok_embed.weight":
+        return torch.randn(shape, generator=gen) / math.sqrt(shape[0])
+    # A Linear weight [out, in], or an expert kernel [E, in, out].
+    fan_in = shape[0] * shape[1] if name.endswith((".w_up", ".w_down")) else shape[1]
+    t = torch.empty(shape)
+    std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+    torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+    return t
 
 
 def seeded_lm(seed: int = 0, *, device="cuda", **config) -> TransformerLM:

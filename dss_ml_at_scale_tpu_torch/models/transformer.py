@@ -20,6 +20,17 @@ writes the given one in place and returns it. A single-token decode step
 takes ``pos`` as an int or as one position per row (the serving arena's
 per-slot positions); nothing clamps an out-of-range position, so callers
 bound it (``generate`` and the serving engine do).
+
+``ffn="moe"`` swaps every block's MLP for the top-1 :class:`..moe.MoEMLP`
+(in all three passes: full, prefill and decode). With ``expert_group`` a
+full pass routes over the tokens of every rank of the group, and with
+``shard_experts`` each rank computes its share of the experts; a cached
+pass (generation) routes the process's own tokens.
+
+``attention="ring"`` runs :func:`..parallel.ring.ring_attention` over
+``group``: the model then takes this rank's shard of the sequence
+(``[b, S / ranks]``, rank order) and places it at its global positions.
+It does not decode, as in JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from ..ops.flash_attention import (
     attention_reference,
     flash_attention,
 )
+from ..runtime import distributed as rt
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -66,7 +78,7 @@ def _dense(x: torch.Tensor, linear: nn.Linear, dtype) -> torch.Tensor:
     return y
 
 
-def _select_attention(kind: str) -> Callable:
+def _select_attention(kind: str, group=None) -> Callable:
     if kind == "flash":
         return lambda q, k, v: flash_attention(q, k, v, causal=True)
     if kind == "flash_one_block":
@@ -76,31 +88,43 @@ def _select_attention(kind: str) -> Callable:
     if kind == "reference":
         return lambda q, k, v: attention_reference(q, k, v, causal=True)
     if kind == "ring":
-        raise ValueError(
-            "attention='ring' is not ported yet: sequence-parallel ring "
-            "attention comes with a later slice of the port (ROADMAP, "
-            "Queue 1: parallel extras)"
-        )
+        if group is None:
+            raise ValueError("attention='ring' needs group= (the ranks the sequence is sharded over)")
+        from ..parallel.ring import ring_attention
+
+        return lambda q, k, v: ring_attention(q, k, v, group=group, causal=True)
     raise ValueError(f"unknown attention backend {kind!r}")
 
 
 class TransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, *, ffn: str = "dense",
+                 num_experts: int = 0, capacity_factor: float = 1.25,
+                 router_noise: float = 0.0):
         super().__init__()
+        if ffn not in ("dense", "moe"):
+            raise ValueError(f"unknown ffn {ffn!r}: expected 'dense' or 'moe'")
         self.num_heads = num_heads
         self.dtype = dtype
         self.norm1 = RMSNorm(dim, dtype=dtype, device=device)
         self.qkv = nn.Linear(dim, 3 * dim, bias=False, device=device)
         self.proj = nn.Linear(dim, dim, bias=False, device=device)
         self.norm2 = RMSNorm(dim, dtype=dtype, device=device)
-        self.mlp_up = nn.Linear(dim, mlp_ratio * dim, device=device)
-        self.mlp_down = nn.Linear(mlp_ratio * dim, dim, device=device)
+        if ffn == "moe":
+            from .moe import MoEMLP
 
-    def forward(self, x, attention_fn=None, *, cache=None, pos=None):
+            self.moe = MoEMLP(dim, num_experts, mlp_ratio, capacity_factor, dtype,
+                              router_noise, device=device)
+        else:
+            self.mlp_up = nn.Linear(dim, mlp_ratio * dim, device=device)
+            self.mlp_down = nn.Linear(mlp_ratio * dim, dim, device=device)
+
+    def forward(self, x, attention_fn=None, *, cache=None, pos=None, **moe_kw):
         """Full-context pass, or with ``cache``: a decode step (``x`` is
         ``[b, 1, dim]``, ``pos`` a LongTensor ``[b]``) or a pos-0 prefill
-        writing the whole chunk's k/v into the cache."""
+        writing the whole chunk's k/v into the cache. ``moe_kw`` goes to
+        the MoE layer (``group``, ``shard_experts``, ``deterministic``,
+        ``generator``)."""
         b, s, dim = x.shape
         head_dim = dim // self.num_heads
 
@@ -138,6 +162,8 @@ class TransformerBlock(nn.Module):
         x = x + _dense(attn, self.proj, self.dtype)
 
         h = self.norm2(x)
+        if hasattr(self, "moe"):
+            return x + self.moe(h, **moe_kw)
         h = F.gelu(_dense(h, self.mlp_up, self.dtype), approximate="tanh")
         return x + _dense(h, self.mlp_down, self.dtype)
 
@@ -145,25 +171,34 @@ class TransformerBlock(nn.Module):
 class TransformerLM(nn.Module):
     """Causal LM: token + learned position embeddings, N pre-norm blocks.
 
-    ``attention``: "flash" (the hand-written kernel on the card) or
-    "reference". ``attention="ring"`` and ``ffn="moe"`` raise: they come
-    with later slices of the port.
+    ``attention``: "flash" (the hand-written kernel on the card),
+    "reference", or "ring" (sequence-parallel over ``group``). ``ffn``:
+    "dense", or "moe" with ``num_experts``, ``capacity_factor`` and
+    ``router_noise`` (its routing over ``expert_group``, its experts split
+    over it with ``shard_experts``). "moe" with "ring" is refused: JAX
+    routes the global ``[b, S]`` batch in its token order and adds the aux
+    term, which a sequence shard routed on its own does not compute.
     """
 
     def __init__(self, vocab_size: int, dim: int = 512, num_heads: int = 8,
                  num_layers: int = 4, max_seq: int = 2048, mlp_ratio: int = 4,
                  dtype=torch.bfloat16, attention: str = "flash",
-                 ffn: str = "dense", device=None):
+                 ffn: str = "dense", device=None, *, num_experts: int = 0,
+                 capacity_factor: float = 1.25, router_noise: float = 0.0,
+                 group=None, expert_group=None, shard_experts: bool = False):
         super().__init__()
-        if ffn == "moe":
-            raise ValueError(
-                "ffn='moe' is not ported yet: the expert-parallel MoE MLP "
-                "comes with a later slice of the port (ROADMAP, Queue 1: "
-                "parallel extras)"
-            )
-        if ffn != "dense":
+        if ffn not in ("dense", "moe"):
             raise ValueError(f"unknown ffn {ffn!r}: expected 'dense' or 'moe'")
-        _select_attention(attention)  # fail at construction, not first use
+        if ffn == "moe" and num_experts < 1:
+            raise ValueError("ffn='moe' requires num_experts >= 1")
+        if ffn == "moe" and attention == "ring":
+            raise ValueError("ffn='moe' with attention='ring' is not supported: a sequence "
+                             "shard would route apart from the global batch")
+        _select_attention(attention, group)  # fail at construction, not first use
+        self.group = group
+        self.expert_group = expert_group
+        self.shard_experts = shard_experts
+        self.ffn = ffn
         self.vocab_size = vocab_size
         self.dim = dim
         self.num_heads = num_heads
@@ -174,7 +209,9 @@ class TransformerLM(nn.Module):
         self.tok_embed = nn.Embedding(vocab_size, dim, device=device)
         self.pos_embed = nn.Parameter(torch.zeros(max_seq, dim, device=device))
         self.blocks = nn.ModuleList(
-            TransformerBlock(dim, num_heads, mlp_ratio, dtype, device=device)
+            TransformerBlock(dim, num_heads, mlp_ratio, dtype, device=device, ffn=ffn,
+                             num_experts=num_experts, capacity_factor=capacity_factor,
+                             router_noise=router_noise)
             for _ in range(num_layers)
         )
         self.norm = RMSNorm(dim, dtype=dtype, device=device)
@@ -185,17 +222,29 @@ class TransformerLM(nn.Module):
         return self.pos_embed.device
 
     def forward(self, tokens: torch.Tensor, *, cache=None, pos=None,
-                attention: str | None = None):
+                attention: str | None = None, deterministic: bool = True,
+                generator: torch.Generator | None = None):
         """``[b, s]`` int tokens -> ``[b, s, vocab]`` f32 logits; with
         ``cache``/``pos``: ``(logits, cache)`` — one decode step on
         ``[b, 1]`` tokens (logits ``[b, vocab]``) or a pos-0 prefill of the
         whole prompt (logits ``[b, s, vocab]``). ``attention`` overrides
         the model's backend for this call (the retry of :func:`generate`
-        at prompt lengths off the flash block contract)."""
+        at prompt lengths off the flash block contract). ``deterministic``
+        False with a ``generator`` jitters the MoE routers
+        (``router_noise``)."""
         b, s = tokens.shape
-        if s > self.max_seq:
-            raise ValueError(f"seq {s} > max_seq {self.max_seq}")
         decoding = cache is not None
+        ring = (attention or self.attention) == "ring"
+        if decoding and ring:
+            raise ValueError(
+                "KV-cache decode is single-process; a sequence-sharded (ring) model "
+                "should decode with attention='flash' or 'reference' on the gathered "
+                "sequence")
+        # A ring model takes this rank's shard of the sequence.
+        offset = rt.group_rank(self.group) * s if ring else 0
+        length = s * rt.group_size(self.group) if ring else s
+        if length > self.max_seq:
+            raise ValueError(f"seq {length} > max_seq {self.max_seq}")
         if decoding and s > 1 and (not isinstance(pos, int) or pos != 0):
             # A multi-token cached pass attends only WITHIN the chunk;
             # continuing from a non-empty cache would silently ignore the
@@ -206,18 +255,23 @@ class TransformerLM(nn.Module):
             )
         attention_fn = (
             None if decoding and s == 1
-            else _select_attention(attention or self.attention)
+            else _select_attention(attention or self.attention, self.group)
         )
         x = F.embedding(tokens, self.tok_embed.weight).to(self.dtype)
         if decoding and s == 1:
             pos = _row_positions(pos, b, tokens.device)
             pos_emb = self.pos_embed[pos][:, None, :]
         else:
-            pos_emb = self.pos_embed[None, :s]
+            pos_emb = self.pos_embed[None, offset:offset + s]
         x = x + pos_emb.to(self.dtype)
+        moe_kw = {}
+        if self.ffn == "moe":
+            moe_kw = dict(group=None if decoding else self.expert_group,
+                          shard_experts=self.shard_experts and not decoding,
+                          deterministic=deterministic, generator=generator)
         for i, block in enumerate(self.blocks):
             x = block(x, attention_fn, cache=cache[i] if decoding else None,
-                      pos=pos)
+                      pos=pos, **moe_kw)
         x = self.norm(x)
         # Logits in f32 for a stable softmax cross-entropy.
         logits = F.linear(x.float(), self.lm_head.weight.float())

@@ -1,7 +1,19 @@
-"""Training loop of the port (single card)."""
+"""Training loop of the port, and its parallel layouts: data (DDP and
+ZeRO-1), sequence (ring attention) and pipeline (GPipe)."""
 
+from .pipeline import (
+    PipeGrid,
+    PipelinedTask,
+    pipe_grid,
+    pipeline_utilization,
+    spmd_pipeline,
+    stack_stage_params,
+)
+from .ring import ring_attention, sequence_shard, sharded_next_token_loss
 from .schedules import warmup_cosine_decay_schedule
 from .trainer import ClassifierTask, FitResult, LMTask, Trainer, TrainerConfig
 
-__all__ = ["ClassifierTask", "FitResult", "LMTask", "Trainer", "TrainerConfig",
+__all__ = ["ClassifierTask", "FitResult", "LMTask", "PipeGrid", "PipelinedTask", "Trainer",
+           "TrainerConfig", "pipe_grid", "pipeline_utilization", "ring_attention",
+           "sequence_shard", "sharded_next_token_loss", "spmd_pipeline", "stack_stage_params",
            "warmup_cosine_decay_schedule"]

@@ -8,7 +8,19 @@ Two tasks run under one ``Trainer``:
   ``augment`` the train step crops and flips on the device
   (:mod:`..data.augment`), keyed by the step count.
 - ``LMTask``: next-token cross entropy of a ``TransformerLM`` on
-  ``tokens`` batches, Adam at 3e-4 or a learning-rate schedule.
+  ``tokens`` batches (plus ``aux_loss_weight`` times the MoE layers'
+  load-balance loss), Adam at 3e-4 or a learning-rate schedule.
+
+A task's ``layout`` says how its ranks share the work. ``"data"`` (the
+default): each rank reads its own shard and DDP averages the gradients.
+``"sequence"`` (an ``LMTask`` of a ring-attention model, the counterpart
+of JAX's ``batch_specs={"tokens": P(None, "sp")}``): every rank reads the
+same batch and takes its shard of the sequence; the gradients are summed
+over the ranks. ``"pipeline"`` (:mod:`.pipeline`, :mod:`..models.pipelined_lm`):
+every rank reads the same batch and the task shares it out itself. Outside
+``"data"`` there is no DDP, ZeRO-1 is refused (as the JAX trainer refuses
+``shard_opt_state`` for a task that declares its own layout), and the
+throughput counts the one batch once.
 
 ``optax.adam(lr)`` and ``torch.optim.Adam(lr, betas=(0.9, 0.999),
 eps=1e-8)`` compute the same update: both divide the bias-corrected first
@@ -101,6 +113,7 @@ from .. import telemetry
 from ..data.prefetch import Feeder, split_provenance
 from ..data.transform import IMAGENET_MEAN, IMAGENET_STD
 from ..models.metrics import cross_entropy_loss, multiclass_accuracy, topk_accuracy
+from ..models.moe import collect_aux_loss
 from ..models.transformer import next_token_loss
 from ..resilience import checkpoint as integrity
 from ..resilience import durability, health
@@ -108,6 +121,7 @@ from ..resilience.faults import maybe_fail
 from ..resilience.preemption import PreemptionGuard
 from ..runtime import distributed as rt
 from ..utils.profiling import StepTimer
+from .ring import sequence_shard, sharded_next_token_loss
 
 log = logging.getLogger(__name__)
 
@@ -226,14 +240,32 @@ def _adam(model: torch.nn.Module, learning_rate, zero1: bool = False):
     return optimizer, scheduler
 
 
-def _backward(model: torch.nn.Module, optimizer, loss: torch.Tensor) -> torch.Tensor:
-    """Backward; returns the gradients' global norm
+def _backward(model: torch.nn.Module, optimizer, loss: torch.Tensor, group=None,
+              mean: bool = False) -> torch.Tensor:
+    """Backward; then, with a ``group``, the gradients summed (``mean``:
+    averaged) over its ranks; returns their global norm
     (``optax.global_norm``) as a 0-d tensor."""
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if group is not None and rt.group_size(group) > 1:
+        _reduce_grads(model, group, mean)
     norms = [torch.linalg.vector_norm(p.grad.float())
              for p in model.parameters() if p.grad is not None]
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def _reduce_grads(model: torch.nn.Module, group, mean: bool) -> None:
+    """Every gradient of ``model`` summed (``mean``: averaged) over
+    ``group``, in one all-reduce of their concatenation."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = _flatten_dense_tensors(grads)
+    dist.all_reduce(flat, group=group)
+    if mean:
+        flat /= rt.group_size(group)
+    for g, new in zip(grads, _unflatten_dense_tensors(flat, grads)):
+        g.copy_(new)
 
 
 def _update(optimizer, scheduler=None) -> None:
@@ -256,23 +288,22 @@ class LMTask:
 
     model: torch.nn.Module
     learning_rate: float | Callable[[int], float] = 3e-4
-    # The MoE load-balance loss of the JAX task; the MoE FFN is not ported.
+    # The weight of the MoE layers' load-balance loss in the objective (a
+    # model without MoE layers adds 0, as in JAX).
     aux_loss_weight: float = 0.0
     optimizer: torch.optim.Optimizer = dataclasses.field(init=False)
     scheduler: Any = dataclasses.field(init=False, default=None)
     net: torch.nn.Module = dataclasses.field(init=False)
     # Updates taken so far (the JAX ``state.step``).
     step: int = dataclasses.field(init=False, default=0)
+    # "data", or "sequence" for a ring-attention model (module docstring).
+    layout: str = dataclasses.field(init=False, default="data")
     throughput_unit = "tokens"
     default_best_metric = "val_loss"
     default_best_mode = "min"
 
     def __post_init__(self):
-        if self.aux_loss_weight > 0.0:
-            raise ValueError(
-                "aux_loss_weight > 0 needs the MoE FFN, which a later slice of "
-                "the port brings (ROADMAP Queue 1 item 14)"
-            )
+        self.layout = "sequence" if getattr(self.model, "attention", None) == "ring" else "data"
         self.net = self.model
         self.optimizer, self.scheduler = _adam(self.model, self.learning_rate)
 
@@ -290,12 +321,24 @@ class LMTask:
         return metrics
 
     def compute_update(self, batch: Batch) -> dict[str, torch.Tensor]:
-        """A step up to its update: forward, backward, the gradients' norm."""
+        """A step up to its update: forward, backward, the gradients' norm.
+        ``train_loss`` is the objective, aux term included, as JAX reports
+        it."""
         tokens = batch["tokens"]
         self.model.train()
-        loss = next_token_loss(self.net(tokens), tokens)
-        grad_norm = _backward(self.model, self.optimizer, loss)
-        loss = loss.detach()
+        if self.layout == "sequence":
+            group = self.model.group
+            share = sharded_next_token_loss(self.net(sequence_shard(tokens, group)), tokens,
+                                            group)
+            grad_norm = _backward(self.model, self.optimizer, share, group)
+            loss = share.detach().clone()
+            dist.all_reduce(loss, group=group)
+        else:
+            loss = next_token_loss(self.net(tokens), tokens)
+            if self.aux_loss_weight > 0.0:
+                loss = loss + self.aux_loss_weight * collect_aux_loss(self.model)
+            grad_norm = _backward(self.model, self.optimizer, loss)
+            loss = loss.detach()
         return {"train_loss": loss, "train_ppl": torch.exp(loss), "grad_norm": grad_norm}
 
     def commit_update(self) -> None:
@@ -305,9 +348,16 @@ class LMTask:
 
     @torch.no_grad()
     def eval_step(self, batch: Batch) -> dict[str, torch.Tensor]:
+        """The next-token loss alone (no aux term, as JAX's)."""
         tokens = batch["tokens"]
         self.model.eval()
-        loss = next_token_loss(self.model(tokens), tokens)
+        if self.layout == "sequence":
+            group = self.model.group
+            loss = sharded_next_token_loss(self.model(sequence_shard(tokens, group)), tokens,
+                                           group)
+            dist.all_reduce(loss, group=group)
+        else:
+            loss = next_token_loss(self.model(tokens), tokens)
         return {"val_loss": loss, "val_ppl": torch.exp(loss)}
 
 
@@ -394,7 +444,13 @@ class Trainer:
     def data_parallel(self, task) -> None:
         """Wrap the task's model for a run of several ranks, and shard its
         optimizer (ZeRO-1) when asked; once per task, before its first step
-        and any restore."""
+        and any restore. A task of another layout shares its work itself."""
+        if getattr(task, "layout", "data") != "data":
+            if self.config.shard_opt_state:
+                raise ValueError(
+                    f"shard_opt_state=True conflicts with a task of layout "
+                    f"{task.layout!r}, which lays its state out itself")
+            return
         if rt.process_count() > 1 and task.net is task.model:
             from torch.nn.parallel import DistributedDataParallel
 
@@ -449,7 +505,9 @@ class Trainer:
         raw_first = next(train_iter)
         first, _ = split_provenance(raw_first)
         batch_size = len(next(iter(first.values())))
-        units = task.batch_units(first) * rt.process_count()
+        # Outside the "data" layout every rank reads the one batch.
+        units = task.batch_units(first) * (
+            rt.process_count() if getattr(task, "layout", "data") == "data" else 1)
         unit = task.throughput_unit
         steps_per_epoch = self._steps_per_epoch(batch_size)
         sign = 1.0 if cfg.best_mode == "max" else -1.0
@@ -836,7 +894,12 @@ def _save(root: Path, task, step: int, epoch: int, metrics: dict, *, write: bool
     place. Every rank calls it; only the one with ``write`` writes.
     Returns the step's directory where this rank wrote it."""
     maybe_fail("checkpoint.save")
-    optimizer_state = _optimizer_state(task)
+    gather = getattr(task, "checkpoint_state", None)  # a pipeline's stacked stages
+    if gather is not None:
+        model_state, optimizer_state = gather()
+    else:
+        optimizer_state = _optimizer_state(task)
+        model_state = task.model.state_dict() if write else None
     if not write:
         return None
     root.mkdir(parents=True, exist_ok=True)
@@ -846,7 +909,7 @@ def _save(root: Path, task, step: int, epoch: int, metrics: dict, *, write: bool
     tmp.mkdir()
     scheduler = task.scheduler
     state = {
-        "model": task.model.state_dict(),
+        "model": model_state,
         "optimizer": optimizer_state,
         "scheduler": scheduler.state_dict() if scheduler is not None else None,
         "step": step,
@@ -927,8 +990,11 @@ def _restore_with_fallback(root: Path, task, record: bool = True) -> int:
             # and Adam keeps its step counts on the CPU, as a fresh Adam does.
             state = torch.load(root / str(step) / STATE_FILE, map_location="cpu",
                                weights_only=True)
-            task.model.load_state_dict(state["model"])
-            task.optimizer.load_state_dict(state["optimizer"])
+            if hasattr(task, "load_checkpoint_state"):
+                task.load_checkpoint_state(state["model"], state["optimizer"])
+            else:
+                task.model.load_state_dict(state["model"])
+                task.optimizer.load_state_dict(state["optimizer"])
             if (task.scheduler is None) != (state["scheduler"] is None):
                 raise ValueError("the checkpoint's learning-rate schedule does not match the task's")
             if task.scheduler is not None:

@@ -2,12 +2,15 @@
 
 from .distributed import (
     all_reduce_sum,
+    all_to_all,
     barrier,
+    host_routed,
     initialize_distributed,
     mean_over_ranks,
     process_count,
     process_device,
     process_index,
+    ring_shift,
     shutdown_distributed,
     stats_group,
 )
@@ -16,13 +19,16 @@ from .topology import Topology, local_topology
 __all__ = [
     "Topology",
     "all_reduce_sum",
+    "all_to_all",
     "barrier",
+    "host_routed",
     "initialize_distributed",
     "local_topology",
     "mean_over_ranks",
     "process_count",
     "process_device",
     "process_index",
+    "ring_shift",
     "shutdown_distributed",
     "stats_group",
 ]

@@ -11,8 +11,15 @@ coordinator it does nothing and the run is one process.
 The collectives the rest of the port needs live here too: the sum of a
 tensor over the group that autograd differentiates (its gradient is the
 sum of the ranks' gradients, as ``SyncBatchNorm``'s), the group the
-BatchNorm statistics are reduced over, and the mean of metrics over the
-ranks.
+BatchNorm statistics are reduced over, the mean of metrics over the
+ranks, and the two differentiable moves of the parallel extras:
+:func:`ring_shift` (JAX's ``lax.ppermute`` one hop round a ring, whose
+transpose is the hop back) and :func:`all_to_all` (its own transpose).
+
+On gloo the port hands point-to-point ops and ``all_to_all`` host copies
+of CUDA tensors, explicitly (whether gloo would take device memory there
+is not relied on), and logs the first such copy of each op
+(:func:`host_routed` lists them). NCCL moves CUDA tensors as they are.
 """
 
 from __future__ import annotations
@@ -130,6 +137,116 @@ class _AllReduceSum(torch.autograd.Function):
         grad = grad.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(grad, group=ctx.group)
         return grad, None
+
+
+def group_rank(group=None) -> int:
+    """This process's rank within ``group`` (``None``: every rank)."""
+    return dist.get_rank(group) if dist.is_initialized() else 0
+
+
+def group_size(group=None) -> int:
+    return dist.get_world_size(group) if dist.is_initialized() else 1
+
+
+def global_rank(group, rank: int) -> int:
+    """The global rank of ``group``'s rank ``rank``."""
+    if group is None or group is dist.group.WORLD:
+        return rank
+    return dist.get_global_rank(group, rank)
+
+
+_HOST_ROUTED: set[str] = set()
+
+
+def host_routed() -> list[str]:
+    """The ops that have copied CUDA tensors through host memory for gloo."""
+    return sorted(_HOST_ROUTED)
+
+
+def _via_host(op: str, tensor: torch.Tensor, group) -> bool:
+    if not tensor.is_cuda or dist.get_backend(group) != "gloo":
+        return False
+    if op not in _HOST_ROUTED:
+        _HOST_ROUTED.add(op)
+        log.warning("gloo: %s of CUDA tensors is copied through host memory", op)
+    return True
+
+
+def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    """``x`` of every rank sent ``step`` ranks on round ``group``'s ring;
+    returns what arrived from ``step`` ranks back."""
+    size = group_size(group)
+    if size == 1 or step % size == 0:
+        return x.clone()
+    me = group_rank(group)
+    host = _via_host("send/recv", x, group)
+    buf = (x.detach().cpu() if host else x.detach()).contiguous()
+    out = torch.empty_like(buf)
+    reqs = [dist.isend(buf, global_rank(group, (me + step) % size), group=group),
+            dist.irecv(out, global_rank(group, (me - step) % size), group=group)]
+    for req in reqs:
+        req.wait()
+    return out.to(x.device) if host else out
+
+
+def send(x: torch.Tensor, dst: int) -> None:
+    """``x`` to global rank ``dst`` (blocking)."""
+    host = _via_host("send/recv", x, None)
+    dist.send((x.detach().cpu() if host else x.detach()).contiguous(), dst)
+
+
+def recv(like: torch.Tensor, src: int) -> torch.Tensor:
+    """A tensor shaped, typed and placed as ``like``, from global rank ``src``."""
+    host = _via_host("send/recv", like, None)
+    buf = torch.empty(like.shape, dtype=like.dtype, device="cpu" if host else like.device)
+    dist.recv(buf, src)
+    return buf.to(like.device) if host else buf
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, step):
+        ctx.group, ctx.step = group, step
+        return _shift(x, group, step)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.group, -ctx.step), None, None
+
+
+def ring_shift(x: torch.Tensor, group=None, step: int = 1) -> torch.Tensor:
+    """One hop round ``group``'s ring, differentiable: rank ``i`` gets rank
+    ``i - step``'s ``x``; the gradient takes the hop back."""
+    return _RingShift.apply(x, group, step)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    host = _via_host("all_to_all", x, group)
+    src = (x.detach().cpu() if host else x.detach()).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(x.device) if host else out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` is ``[ranks, ...]``: chunk ``j`` goes to rank ``j`` of
+    ``group``, and chunk ``j`` of the result came from rank ``j``.
+    Differentiable; the op is its own transpose."""
+    if x.shape[0] != group_size(group):
+        raise ValueError(f"all_to_all needs a leading axis of {group_size(group)} chunks, "
+                         f"got {tuple(x.shape)}")
+    return _AllToAll.apply(x, group)
 
 
 def all_reduce_sum(tensor: torch.Tensor, group) -> torch.Tensor:

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on the machine with the card:
 
-    python3 scripts/profile_torch_train.py [--out DIR] [--reader-sweep | --lm]
+    python3 scripts/profile_torch_train.py [--out DIR] [--reader-sweep | --lm [--ffn moe]]
 
 Builds the full-width ResNet-50 of ``chip_smoke.py``'s training phase
 (1000 classes, bf16, seeded weights) at the fused BN level and at the
@@ -30,6 +30,16 @@ kernel), the attention backward (every kernel launched inside
 ``attention_backward``, the chunked f32 recompute), bf16 products, f32
 products (the ``lm_head``: the model's only f32 matrix products outside
 the attention backward), and elementwise and other work.
+
+``--lm --ffn moe`` does the same for the MoE LM of ``chip_smoke.py``'s
+moe-lm phase (8 experts, capacity factor 1.25, ``LMTask`` with aux weight
+0.01). The forward's MoE work is told apart by annotation (the router,
+the experts' products, the index dispatch and combine around them); the
+backward's kernels fall into the kinds above. Then each part of one
+block alone, forward and backward at the step's shapes, timed on the
+device (``chip_smoke.device_ms``): the router over 16,384 tokens, the
+dispatch and combine, the experts' FFN over their 8 x 2,560 slots, and
+the flash attention forward and backward; times 4 blocks a step.
 
 ``--reader-sweep`` runs the port's ``train`` entry on real data instead:
 ``chip_smoke.py``'s 848-row table (``datagen images``, 256 px, 1000
@@ -90,13 +100,18 @@ def by_kind(trace: Path, steps: int) -> tuple[dict[str, float], float]:
 MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 
 
-def lm_kinds(trace: Path, steps: int, region: str) -> tuple[dict[str, float], float]:
+REGIONS = {"attention_backward": "attention backward (chunked f32 recompute)",
+           "moe_router": "MoE router (forward)", "moe_experts": "MoE expert products (forward)",
+           "moe_dispatch": "MoE dispatch and combine (forward)"}
+
+
+def lm_kinds(trace: Path, steps: int) -> tuple[dict[str, float], float]:
     """Device ms per step by kind for the LM step, and launches per step.
 
     A kernel's launch is found by its correlation id; a kernel launched
-    inside a ``region`` annotation is the attention backward's; otherwise
-    the innermost matrix-product op around its launch (inputs recorded
-    with the profile's shapes) says bf16 or f32 product."""
+    inside an annotation of :data:`REGIONS` takes the innermost one's kind;
+    otherwise the innermost matrix-product op around its launch (inputs
+    recorded with the profile's shapes) says bf16 or f32 product."""
     events = json.loads(trace.read_text())["traceEvents"]
     launch_at: dict = {}
     regions, products = [], []
@@ -104,8 +119,8 @@ def lm_kinds(trace: Path, steps: int, region: str) -> tuple[dict[str, float], fl
         cat, args = e.get("cat"), e.get("args", {})
         if str(cat).startswith("cuda_") and "correlation" in args:  # the launch API calls
             launch_at[args["correlation"]] = (e.get("tid"), e["ts"])
-        elif cat == "user_annotation" and e.get("name") == region:
-            regions.append((e["ts"], e["ts"] + e["dur"]))
+        elif cat == "user_annotation" and e.get("name") in REGIONS:
+            regions.append((e["ts"], e["ts"] + e["dur"], REGIONS[e["name"]]))
         elif cat == "cpu_op" and e.get("name") in MATMULS:
             products.append((e.get("tid"), e["ts"], e["ts"] + e["dur"],
                              " ".join(str(t) for t in args.get("Input type", []))))
@@ -116,10 +131,11 @@ def lm_kinds(trace: Path, steps: int, region: str) -> tuple[dict[str, float], fl
             continue
         launches += 1
         tid, ts = launch_at.get(e.get("args", {}).get("correlation"), (None, None))
+        inside = [r for r in regions if ts is not None and r[0] <= ts <= r[1]]
         if "flash_fwd" in e["name"] or "flash_combine" in e["name"]:
             k = "K4"
-        elif ts is not None and any(a <= ts <= b for a, b in regions):
-            k = "attention backward (chunked f32 recompute)"
+        elif inside:
+            k = min(inside, key=lambda r: r[1] - r[0])[2]
         else:
             around = [p for p in products if p[0] == tid and ts is not None and p[1] <= ts <= p[2]]
             if not around:
@@ -131,23 +147,83 @@ def lm_kinds(trace: Path, steps: int, region: str) -> tuple[dict[str, float], fl
     return dict(sorted(totals.items(), key=lambda kv: -kv[1])), launches / steps
 
 
-def lm_profile(torch, out_dir: Path) -> None:
+def _annotate(torch, owner, attr: str, region: str) -> None:
+    """Wrap ``owner.attr`` so its kernels fall inside ``region`` in the trace."""
+    inner = getattr(owner, attr)
+
+    def annotated(*args, **kwargs):
+        with torch.profiler.record_function(region):
+            return inner(*args, **kwargs)
+
+    setattr(owner, attr, annotated)
+
+
+def moe_parts(torch) -> dict:
+    """Device ms of each part of one MoE block alone, forward and backward,
+    at the full-width step's shapes."""
+    import chip_smoke
+    from dss_ml_at_scale_tpu_torch.models import MoEMLP
+    from dss_ml_at_scale_tpu_torch.models.moe import expert_ffn, route
+    from dss_ml_at_scale_tpu_torch.ops.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    layer = MoEMLP(1024, 8, device="cuda")
+    with torch.no_grad():
+        for p in (layer.router.weight, layer.w_up, layer.w_down):
+            p.normal_(0.0, 0.02, generator=gen)
+    tokens = torch.randn(16384, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        r = route(tokens, layer.router.weight, 8, 1.25)
+    slots_in = torch.randn(8, r.capacity, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def router():
+        x = tokens.detach().requires_grad_()
+        q = route(x, layer.router.weight, 8, 1.25)
+        (q.gate.sum() + q.aux_loss).backward()
+
+    def dispatch_combine():  # the index moves around an identity expert
+        x = tokens.detach().requires_grad_()
+        layer._experts = lambda t, a, b: t
+        try:
+            layer._index_dispatch(x, r, None, False).float().sum().backward()
+        finally:
+            del layer._experts
+
+    def experts():
+        x = slots_in.detach().requires_grad_()
+        expert_ffn(x, layer.w_up, layer.b_up, layer.w_down, layer.b_down,
+                   torch.bfloat16).float().sum().backward()
+
+    q, k, v = (torch.randn(8, 8, 2048, 128, generator=gen, device="cuda").to(torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+
+    def attention():
+        flash_attention(q, k, v, causal=True).float().sum().backward()
+
+    parts = {name: chip_smoke.device_ms(fn, launches=5) for name, fn in (
+        ("router", router), ("dispatch_and_combine", dispatch_combine), ("experts", experts),
+        ("attention", attention))}
+    return {"block_fwd_bwd_ms": parts, "step_ms_4_blocks": {k: 4 * v for k, v in parts.items()},
+            "capacity": r.capacity, "dropped_tokens": int((~r.kept).sum())}
+
+
+def lm_profile(torch, out_dir: Path, ffn: str = "dense") -> None:
     import importlib
 
-    from dss_ml_at_scale_tpu_torch.models import seeded_lm
+    from dss_ml_at_scale_tpu_torch.models import moe, seeded_lm
     from dss_ml_at_scale_tpu_torch.parallel import LMTask
 
     fa = importlib.import_module("dss_ml_at_scale_tpu_torch.ops.flash_attention")
-    inner = fa.attention_backward
-
-    def annotated(*args, **kwargs):  # marks the recompute's kernels in the trace
-        with torch.profiler.record_function("attention_backward"):
-            return inner(*args, **kwargs)
-
-    fa.attention_backward = annotated
+    _annotate(torch, fa, "attention_backward", "attention_backward")
+    extra, aux = {}, 0.0
+    if ffn == "moe":
+        _annotate(torch, moe, "route", "moe_router")
+        _annotate(torch, moe.MoEMLP, "_experts", "moe_experts")
+        _annotate(torch, moe.MoEMLP, "_index_dispatch", "moe_dispatch")
+        extra, aux = {"ffn": "moe", "num_experts": 8}, 0.01
     model = seeded_lm(0, device="cuda", attention="flash", vocab_size=8192, dim=1024,
-                      num_heads=8, num_layers=4, max_seq=2048)
-    task = LMTask(model=model, learning_rate=3e-4)
+                      num_heads=8, num_layers=4, max_seq=2048, **extra)
+    task = LMTask(model=model, learning_rate=3e-4, aux_loss_weight=aux)
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = {"tokens": torch.randint(0, 8192, (8, 2048), generator=gen, device="cuda")}
     for _ in range(2):
@@ -167,11 +243,16 @@ def lm_profile(torch, out_dir: Path) -> None:
         for _ in range(2):
             task.train_step(batch)
 
-    row = profile(torch, "lm_train_2_steps", steps, out_dir, top=12, record_shapes=True)
+    name = f"lm_{ffn}_train_2_steps"
+    row = profile(torch, name, steps, out_dir, top=12, record_shapes=True)
     row["step_ms"] = row["wall_ms"] / 2
     row["device_ms_per_step_by_kind"], row["launches_per_step"] = lm_kinds(
-        out_dir / "lm_train_2_steps.json", 2, "attention_backward")
+        out_dir / f"{name}.json", 2)
     print(json.dumps(row), flush=True)
+    if ffn == "moe":
+        del task, model
+        torch.cuda.empty_cache()
+        print(json.dumps({"moe_parts": moe_parts(torch)}), flush=True)
 
 
 def reader_sweep(torch) -> None:
@@ -205,6 +286,8 @@ def main() -> int:
                         help="time the train entry on real data under several reader settings")
     parser.add_argument("--lm", action="store_true",
                         help="profile the full-width LM train step instead of ResNet-50")
+    parser.add_argument("--ffn", choices=["dense", "moe"], default="dense",
+                        help="with --lm: the dense LM or the MoE LM (8 experts)")
     args = parser.parse_args()
     import torch
 
@@ -226,7 +309,7 @@ def main() -> int:
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     if args.lm:
-        lm_profile(torch, out_dir)
+        lm_profile(torch, out_dir, args.ffn)
         print(f"card: {card}", flush=True)
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)

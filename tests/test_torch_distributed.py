@@ -30,9 +30,6 @@ compares in its own process.
 """
 
 import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import flax.linen as nn
@@ -44,19 +41,13 @@ import torch
 
 from dss_ml_at_scale_tpu.ops import fused_norm as jax_fn
 from dss_ml_at_scale_tpu.ops.fused_matmul import bn_relu_matmul as jax_matmul
+from torch_ranks import run_ranks
 
-ROOT = Path(__file__).resolve().parents[1]
-
+# The ranks' script after torch_ranks' prelude: ``args`` holds the case and
+# its extra arguments.
 _RANK = r'''
-import json, os, sys
-import numpy as np
-import torch
-from dss_ml_at_scale_tpu_torch import runtime
-
-case, work, rank, world = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
-runtime.initialize_distributed(f"file://{work}/rdzv", world, rank, backend="gloo", device="cpu")
 assert runtime.process_count() == world and runtime.process_index() == rank
-inputs = dict(np.load(f"{work}/inputs.npz")) if os.path.exists(f"{work}/inputs.npz") else {}
+case, extra = args["case"], args.get("extra")
 
 
 def mine(a):
@@ -68,7 +59,6 @@ def whole(a):
     return torch.tensor(a, requires_grad=True)
 
 
-out = {}
 if case == "bn_act":
     from dss_ml_at_scale_tpu_torch.ops.fused_norm import bn_act
     for relu in (False, True):
@@ -107,7 +97,7 @@ elif case == "fused_matmul":
         out[with_res] = dict(out=o.detach(), dy=y.grad, dgamma=gamma.grad, dbeta=beta.grad,
                              dw=w.grad, dres=res.grad if with_res else None)
 elif case == "classifier":
-    task = classifier_fit(inputs, rank, world, **json.loads(sys.argv[5]))
+    task = classifier_fit(inputs, rank, world, **extra)
     opt = task.optimizer
     if hasattr(opt, "consolidate_state_dict"):
         opt.consolidate_state_dict(to=0)
@@ -119,7 +109,7 @@ elif case == "supervised":
     from dss_ml_at_scale_tpu_torch.models.resnet import BottleneckBlock
     from dss_ml_at_scale_tpu_torch.parallel import ClassifierTask, Trainer, TrainerConfig
     from dss_ml_at_scale_tpu_torch.resilience import health
-    zero1 = json.loads(sys.argv[5])["zero1"]
+    zero1 = extra["zero1"]
     model = seeded_resnet(0, device="cpu", stage_sizes=[1, 1], block_cls=BottleneckBlock,
                           num_filters=8, num_classes=4, dtype=torch.float32, fused_bn="pallas")
     task = ClassifierTask(model=model, learning_rate=1e-2)
@@ -176,7 +166,7 @@ elif case == "cli":
     from dss_ml_at_scale_tpu_torch.config import cli
     import contextlib, io
     runtime.shutdown_distributed()  # the command joins through its own flags
-    argv = json.loads(sys.argv[5])
+    argv = extra
     env = {"NUM_PROCESSES": str(world), "PROCESS_ID": str(rank)}
     os.environ.update(env)
     buf = io.StringIO()
@@ -184,38 +174,13 @@ elif case == "cli":
         rc = cli.main(argv + ["--coordinator", f"file://{work}/rdzv2"])
     assert rc == 0, buf.getvalue()
     out = json.loads(buf.getvalue().strip().splitlines()[-1])
-torch.save(out, f"{work}/out{rank}.pt")
-runtime.shutdown_distributed()
 '''
 
 
 def _ranks(tmp_path, case, inputs=None, extra=None, world=2, timeout=180):
     """Run ``case`` on ``world`` gloo ranks; returns each rank's output."""
-    if inputs is not None:
-        np.savez(tmp_path / "inputs.npz", **inputs)
-    script = tmp_path / "rank.py"
-    script.write_text(_CLASSIFIER + _RANK)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(ROOT)
-    env["OMP_NUM_THREADS"] = "2"  # two ranks beside the other test workers
-    env.pop("COORDINATOR_ADDRESS", None)
-    procs = [subprocess.Popen(
-        [sys.executable, str(script), case, str(tmp_path), str(r), str(world),
-         *([json.dumps(extra)] if extra is not None else [])],
-        cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)]
-    errs = []
-    for p in procs:
-        try:
-            _, err = p.communicate(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise
-        errs.append(err)
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r}:\n{errs[r][-4000:]}"
-    return [torch.load(tmp_path / f"out{r}.pt", weights_only=False) for r in range(world)]
+    return run_ranks(tmp_path, _CLASSIFIER + _RANK, world, inputs,
+                     {"case": case, "extra": extra}, timeout)
 
 
 def _cat(a, b):

@@ -73,6 +73,13 @@ for epochs, extra in (("1", []), ("2", ["--resume"])):
     lm.append(json.loads(out.getvalue().strip().splitlines()[-1]))
 out = io.StringIO()
 with contextlib.redirect_stdout(out):
+    assert cli.main(["lm", "--vocab", "32", "--dim", "32", "--heads", "2", "--layers", "1",
+                     "--seq", "16", "--batch-size", "2", "--steps-per-epoch", "1",
+                     "--limit-val-batches", "1", "--device", "cpu", "--epochs", "1",
+                     "--ffn", "moe", "--num-experts", "4", "--no-tracking"]) == 0
+lm.append(json.loads(out.getvalue().strip().splitlines()[-1]))
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
     assert cli.main(["datagen", "demand", "--out", work + "/d", "--skus-per-product", "1",
                      "--years", "1", "--seed", "2", "--device", "cpu"]) == 0
     assert cli.main(["forecast", "--data", work + "/d", "--out", work + "/f", "--max-p", "0",
@@ -105,7 +112,7 @@ def test_port_serves_a_generation_without_jax():
     # The supervised step discarded the poisoned update and quarantined its rows.
     assert report["train"]["skipped_steps"] == 1 and report["train"]["quarantined"] == 1
     assert report["train"]["train_loss"] > 0
-    assert [r["steps"] for r in report["lm"]] == [1, 2]
+    assert [r["steps"] for r in report["lm"]] == [1, 2, 1]  # the last: --ffn moe
     assert report["forecast"].startswith("forecast: 5 groups, 265 rows, mse ")
     assert report["lm"][1]["best_checkpoint"] is not None
     loaded = [m for m in report["modules"] if _forbidden(m)]
@@ -115,7 +122,8 @@ def test_port_serves_a_generation_without_jax():
     for name in ("resilience.checkpoint", "resilience.health", "resilience.faults",
                  "resilience.preemption", "tracking.store", "ops.sarimax", "ops.kalman",
                  "ops.neldermead", "ops.bfgs", "ops.arma", "datagen.demand",
-                 "parallel.group_apply", "workloads.forecasting"):
+                 "parallel.group_apply", "workloads.forecasting", "models.moe",
+                 "parallel.ring", "parallel.pipeline", "models.pipelined_lm"):
         assert f"dss_ml_at_scale_tpu_torch.{name}" in report["modules"]
 
 
@@ -172,7 +180,8 @@ def test_static_scan_covers_runtime_and_native():
             "resilience/health.py", "resilience/preemption.py", "tracking/store.py",
             "ops/kalman.py", "ops/arma.py", "ops/neldermead.py", "ops/bfgs.py",
             "ops/sarimax.py", "datagen/demand.py", "parallel/group_apply.py",
-            "workloads/forecasting.py"} <= names
+            "workloads/forecasting.py", "models/moe.py", "parallel/ring.py",
+            "parallel/pipeline.py", "models/pipelined_lm.py"} <= names
 
 
 def _sources():

@@ -36,7 +36,7 @@ from dss_ml_at_scale_tpu.config.commands import _resolve_lr_schedule
 from dss_ml_at_scale_tpu.models import TransformerLM as JaxLM
 from dss_ml_at_scale_tpu.parallel.trainer import LMTask as JaxLMTask
 from dss_ml_at_scale_tpu_torch.config import cli
-from dss_ml_at_scale_tpu_torch.models import TransformerLM, lm_state_from_flax
+from dss_ml_at_scale_tpu_torch.models import TransformerLM, init_lm_state, lm_state_from_flax
 from dss_ml_at_scale_tpu_torch.parallel import LMTask, warmup_cosine_decay_schedule
 
 LR = 3e-4
@@ -123,8 +123,14 @@ def test_lm_task_defaults_and_refusals():
     task = LMTask(model=torch.nn.Linear(1, 1))
     assert task.optimizer.param_groups[0]["lr"] == 3e-4 and task.scheduler is None
     assert (task.default_best_metric, task.default_best_mode) == ("val_loss", "min")
-    with pytest.raises(ValueError, match="MoE"):
-        LMTask(model=torch.nn.Linear(1, 1), aux_loss_weight=0.01)
+    # On a dense model the aux term adds 0, as JAX's empty collect_aux_loss.
+    losses = []
+    for weight in (0.0, 0.01):
+        tm = TransformerLM(attention="reference", dtype=torch.float32, device="cpu", **KW)
+        tm.load_state_dict(init_lm_state(tm, 0))
+        aux = LMTask(model=tm, aux_loss_weight=weight)
+        losses.append(aux.compute_update({"tokens": torch.from_numpy(_tokens())})["train_loss"])
+    assert torch.equal(losses[0], losses[1])
 
 
 @pytest.mark.parametrize("warmup", [0, 1, 2, 10, 39])
@@ -224,9 +230,20 @@ def test_lm_cli_prints_the_jax_summary_keys(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--ffn", "moe"]])
-def test_lm_cli_refuses_what_later_slices_bring(flag, capsys):
-    assert cli.main(["lm", "--device", "cpu", *flag]) == 1
-    assert "not ported yet" in json.loads(capsys.readouterr().out)["error"]
+def test_lm_cli_refuses_what_later_slices_bring(flag, tmp_path):
+    # The flag this test once saw refused now runs: a CPU `lm --ffn moe`
+    # prints every key of the JAX command's summary.
+    from dss_ml_at_scale_tpu.config.cli import main as jax_main
+
+    common = ["lm", "--vocab", "16", "--dim", "16", "--heads", "2", "--layers", "1",
+              "--seq", "16", "--batch-size", "8", "--steps-per-epoch", "2", "--epochs", "1",
+              "--limit-val-batches", "1", "--num-experts", "4", "--attention", "reference",
+              *flag]
+    want = _run(jax_main, common + ["--no-tracking"])
+    got = _run(cli.main, common + ["--device", "cpu"])
+    assert set(want) <= set(got)
+    assert got["steps"] == want["steps"] == 2
+    assert all(np.isfinite(got[k]) for k in ("train_loss", "val_loss", "val_ppl"))
 
 
 @pytest.mark.parametrize("flag", [["--resume-auto"], ["--health-policy", "skip"],
