@@ -179,7 +179,38 @@ Phases (any failure exits non-zero; there is no CPU path):
    Each rank of 18-20 first checks gloo's all_reduce, all_gather,
    broadcast, and the port's all_to_all and ring hop on CUDA tensors, and
    prints which ops go through host memory.
-21. a ``kernels`` JSON line, the card line, and the device JSON line last.
+21. image-serve (no kernel: a ``--pallas-fused`` checkpoint scores at the
+   fused level, as the JAX resolver rebuilds it): the train-flags phase's
+   ResNet-50 checkpoint behind ``serve`` in a subprocess (``chip_smoke.py
+   --serve-child``) at the JAX defaults (micro-batch 8, queue depth 64,
+   window 5 ms, deadline 2000 ms, 2 decode workers), then at micro-batch
+   32: 32 concurrent single-image clients (8 requests each), then 3
+   clients posting the val table as JSON batches of 1-20 images, twice;
+   every prediction equal to ``predict``'s on the same row at the same
+   batch shape; K1-K4 launched 0 times by the server and by ``predict``; a
+   flood of 8 x 20 images gets 429 with Retry-After; SIGINT drains with
+   rc 0. Latency p50/p99, images/s, mean batch fill, score ms per batch,
+   time in queue, the card's idle share (``nvidia-smi`` sampled every
+   100 ms), and the host's decode ms per image on one thread.
+22. vit (no kernel: the ViT's attention is the plain version, as JAX's):
+   ``train --model vit-s16`` at batch 212, crop 224, 1000 classes, 4
+   steps and 1 eval batch (finite metrics, an intact checkpoint, K1-K4 0),
+   then ``predict`` and ``export``, then ``train --pretrained`` from the
+   export at learning rate 0 (its weights the checkpoint's, its eval loss
+   the first run's within 2e-2); the card's logits against the CPU's on
+   the same weights and images within 2e-2 of max-abs. Images/s, step ms
+   and peak GiB.
+23. ring-moe: two gloo ranks, the sequence split 1024 + 1024, the ring MoE
+   LM (2 layers at the LM-training width, E 8, cf 1.25, aux weight 0.01)
+   through ``LMTask``, against one process on the whole sequence with
+   reference attention: the objective within 1e-4 (a tenth of the aux
+   term's share); every change of expert
+   explained by a top-1 margin within twice the token's router-logit
+   difference, capacity boundaries moved by at most two places per change,
+   at most 5% of tokens routed apart; the qkv, w_up and router gradients within
+   5e-2 of max-abs on tokens routed alike (the one-process model given the
+   ranks' routing) and equal on both ranks.
+24. a ``kernels`` JSON line, the card line, and the device JSON line last.
 """
 
 from __future__ import annotations
@@ -1186,6 +1217,7 @@ def train_flags_phase(torch, tables, card: str) -> dict:
         "images_per_sec_steps_2_4": epoch.get("steady_images_per_sec"),
         "step_ms_steps_2_4": epoch.get("steady_step_time_s", math.nan) * 1e3,
         "stem_drift_from_pretrained": drift.item(),
+        "checkpoint_dir": str(work / "ckpt"),
     }
     print(f"train-flags ({card}): " + json.dumps(result), flush=True)
     return result
@@ -2498,11 +2530,562 @@ def pipeline_phase(torch, card: str) -> dict:
     return result
 
 
+# -- slice 10: image serving, the ViT, ring attention with MoE ---------------
+
+SERVE_ROUNDS = 8  # requests per single-image client
+SERVE_BATCHES = tuple(range(1, 21))  # JSON batch sizes, cycled over the table
+
+
+def serve_child_main(argv: list[str]) -> int:
+    """``chip_smoke.py --serve-child ARGS``: the port's ``serve`` command in
+    this process (TF32 off, as ``predict`` runs in the parent), then one
+    JSON line with every kernel's launch count over the server's life."""
+    import torch
+
+    from dss_ml_at_scale_tpu_torch.config import cli
+    from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
+    from dss_ml_at_scale_tpu_torch.ops.flash_attention import flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rc = cli.main(["serve", *argv])
+    print(json.dumps({"serve_rc": rc, "launches": {
+        "K1": fm.bn_relu_matmul_fwd.launches, "K2": fm.bn_relu_matmul_bwd_da.launches,
+        "K3": fm.bn_relu_matmul_bwd_dw.launches, "K4": flash_attention.launches}}), flush=True)
+    return rc
+
+
+def _http(port: int, body: bytes, content_type: str, timeout: float = 60):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.perf_counter()
+    conn.request("POST", "/predict", body=body, headers={"Content-Type": content_type})
+    resp = conn.getresponse()
+    raw = resp.read()
+    ms = (time.perf_counter() - t0) * 1e3
+    headers = dict(resp.getheaders())
+    conn.close()
+    return resp.status, json.loads(raw), headers, ms
+
+
+SERVE_HISTOGRAMS = ("serving_batch_fill", "predict_batch_seconds",
+                    "serving_time_in_queue_seconds")
+
+
+def _histograms(port: int) -> dict[str, tuple[float, float]]:
+    """``{name: (sum, count)}`` of the unlabelled ``SERVE_HISTOGRAMS`` on the
+    server's /metrics."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    conn.request("GET", "/metrics")
+    text = conn.getresponse().read().decode()
+    conn.close()
+    vals = {}
+    for line in text.splitlines():
+        name, _, value = line.partition(" ")
+        if name.endswith(("_sum", "_count")):
+            vals[name] = float(value)
+    return {n: (vals.get(n + "_sum", 0.0), vals.get(n + "_count", 0.0))
+            for n in SERVE_HISTOGRAMS}
+
+
+def _means(before: dict, after: dict) -> dict:
+    """Each histogram's mean over the window between two scrapes."""
+    return {n: (after[n][0] - before[n][0]) / max(after[n][1] - before[n][1], 1)
+            for n in SERVE_HISTOGRAMS}
+
+
+def _in_threads(n: int, fn) -> list:
+    """``fn(i)`` for ``i < n`` on ``n`` threads started together; a
+    thread's failure (a failed check too) fails the phase."""
+    barrier = threading.Barrier(n)
+    out: list = [None] * n
+    errors: list = []
+
+    def run(i):
+        barrier.wait()
+        try:
+            out[i] = fn(i)
+        except BaseException as e:  # SystemExit from check() included
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    check(not any(t.is_alive() for t in threads), "a client thread did not finish")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _serve_traffic(port: int, jpegs: list[bytes], flood: bool) -> tuple[dict, dict, list]:
+    """32 concurrent single-image clients (``SERVE_ROUNDS`` requests each),
+    then 3 concurrent clients posting the table as JSON batches of 1-20
+    images, twice (at most 60 images pending: under the 64-image queue,
+    so none is refused); the card's utilization sampled meanwhile. With
+    ``flood``: 8 concurrent 20-image requests against the 64-image queue."""
+    import base64
+
+    sampler = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,utilization.gpu", "--format=csv,noheader,nounits",
+         "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        h0 = _histograms(port)
+        t0 = time.perf_counter()
+        singles = _in_threads(32, lambda i: [
+            ((i * SERVE_ROUNDS + r) % len(jpegs),
+             *_http(port, jpegs[(i * SERVE_ROUNDS + r) % len(jpegs)], "image/jpeg"))
+            for r in range(SERVE_ROUNDS)])
+        singles_s = time.perf_counter() - t0
+        h1 = _histograms(port)
+        chunks, lo = [], 0
+        while lo < len(jpegs):
+            size = SERVE_BATCHES[len(chunks) % len(SERVE_BATCHES)]
+            chunks.append((lo, jpegs[lo:lo + size]))
+            lo += size
+        served: dict[int, dict] = {}
+
+        def client(i):
+            rows = []
+            for k in range(i, 2 * len(chunks), 3):  # the table twice
+                lo, part = chunks[k % len(chunks)]
+                body = json.dumps({"instances": [base64.b64encode(j).decode() for j in part]})
+                status, payload, _, ms = _http(port, body.encode(), "application/json")
+                check(status == 200, f"image-serve JSON batch of {len(part)}: {status} {payload}")
+                rows.append((lo, payload["predictions"], ms, len(part)))
+            return rows
+
+        t0 = time.perf_counter()
+        batches = [r for rows in _in_threads(3, client) for r in rows]
+        batches_s = time.perf_counter() - t0
+        h2 = _histograms(port)
+    finally:
+        sampler.terminate()
+        samples, _ = sampler.communicate(timeout=60)
+    for lo, preds, _, n in batches:
+        check(len(preds) == n, f"image-serve: {len(preds)} predictions for {n} images")
+        for k, p in enumerate(preds):
+            served.setdefault(lo + k, p)
+    lat = [ms for rows in singles for *_, ms in rows]
+    served_singles = []
+    for rows in singles:
+        for row, status, payload, _, _ in rows:
+            check(status == 200 and len(payload["predictions"]) == 1,
+                  f"image-serve single: {status} {payload}")
+            served_singles.append((row, payload["predictions"][0]))
+    util = [u for _, u in _util_samples(samples)]
+    singles_mean, batches_mean = _means(h0, h1), _means(h1, h2)
+    out = {
+        "single_requests": len(lat),
+        "single_p50_ms": statistics.median(lat),
+        "single_p99_ms": sorted(lat)[max(0, math.ceil(0.99 * len(lat)) - 1)],
+        "single_images_per_s": len(lat) / singles_s,
+        "single_mean_batch_fill": singles_mean["serving_batch_fill"],
+        "single_score_ms_per_batch": singles_mean["predict_batch_seconds"] * 1e3,
+        "single_time_in_queue_ms": singles_mean["serving_time_in_queue_seconds"] * 1e3,
+        "batch_requests": len(batches),
+        "batch_p50_ms": statistics.median(ms for *_, ms, _ in batches),
+        "batch_p99_ms": sorted(ms for *_, ms, _ in batches)[
+            max(0, math.ceil(0.99 * len(batches)) - 1)],
+        "batch_images_per_s": sum(n for *_, n in batches) / batches_s,
+        "batch_mean_batch_fill": batches_mean["serving_batch_fill"],
+        "batch_score_ms_per_batch": batches_mean["predict_batch_seconds"] * 1e3,
+        "batch_time_in_queue_ms": batches_mean["serving_time_in_queue_seconds"] * 1e3,
+        "idle_share": round(1.0 - sum(util) / max(len(util), 1) / 100.0, 3),
+        "util_samples": len(util),
+    }
+    if flood:
+        big = json.dumps({"instances": [base64.b64encode(j).decode()
+                                        for j in jpegs[:20]]}).encode()
+        statuses, retry = [], []
+        for _ in range(5):
+            for status, payload, headers, _ in _in_threads(
+                    8, lambda i: _http(port, big, "application/json")):
+                statuses.append(status)
+                if status == 429:
+                    retry.append(int(headers["Retry-After"]))
+                    check("full" in payload["error"], f"429 without the queue: {payload}")
+            if retry:
+                break
+        check(retry and min(retry) >= 1, f"no 429 with Retry-After in a flood: {statuses}")
+        check(set(statuses) <= {200, 429}, f"flood statuses {statuses}")
+        out.update(flood_statuses={s: statuses.count(s) for s in set(statuses)},
+                   retry_after_s=sorted(set(retry)))
+    return out, served, served_singles
+
+
+def _predict_rows(cli, data: str, ckpt: str, batch: int, device: str) -> tuple[dict, dict]:
+    """``predict`` through the port's CLI in this process: its JSON line and
+    ``{row: (pred_index, pred_prob)}``."""
+    import contextlib
+    import io
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_predict_")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["predict", "--data", data, "--checkpoint-dir", ckpt, "--out", out,
+                       "--batch-size", str(batch), "--device", device])
+    check(rc == 0, f"predict exited {rc}: {buf.getvalue()[-2000:]}")
+    table = _read_delta(out).to_pylist()
+    return (json.loads(buf.getvalue().strip().splitlines()[-1]),
+            {r["row"]: (r["pred_index"], r["pred_prob"]) for r in table})
+
+
+def image_serve_phase(torch, tables, ckpt: str, card: str, device: str = "cuda") -> dict:
+    """The train-flags phase's ResNet-50 checkpoint (``--pallas-fused``,
+    full width) behind ``serve`` in a subprocess at the JAX defaults, then
+    at ``--micro-batch 32``: traffic, predictions equal to ``predict`` on
+    the same rows at the same batch shape, no fused-matmul kernel (the
+    checkpoint scores at the fused level), a flood's 429s, the SIGINT
+    drain."""
+    import os
+    import signal
+
+    from dss_ml_at_scale_tpu_torch.config import cli
+
+    t_phase = time.perf_counter()
+    _, val = tables
+    jpegs = _read_delta(val).column("content").to_pylist()
+    meta = json.loads((Path(ckpt) / "dsst_model.json").read_text())
+    check(meta["fused_bn"] == "pallas" and meta["model"] == "resnet50",
+          f"image-serve checkpoint meta {meta}")
+    result: dict = {"checkpoint": {k: meta[k] for k in ("model", "fused_bn", "crop",
+                                                        "num_classes")}}
+    # The host's decode of one JPEG, on one thread, as a decode worker runs it.
+    import numpy as np
+
+    from dss_ml_at_scale_tpu_torch.data.transform import imagenet_transform_spec
+
+    spec = imagenet_transform_spec(crop=int(meta["crop"]))
+    t0 = time.perf_counter()
+    for jpeg in jpegs:
+        spec({"content": np.array([jpeg], dtype=object), "label_index": np.zeros(1, np.int64)})
+    result["decode_ms_per_image_one_thread"] = (time.perf_counter() - t0) * 1e3 / len(jpegs)
+    result["decode_backend"] = spec.backend
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH", "")]))
+    for micro in (8, 32):
+        # predict at the server's batch shape, on the same rows: the main
+        # path's counts set to 0 just before, read just after.
+        _zero_fused_launches()
+        summary, want = _predict_rows(cli, val, ckpt, micro, device)
+        check(_fused_launches()["K1"] == 0, f"predict launched K1: {_fused_launches()}")
+        check(summary["rows"] == len(jpegs), f"predict scored {summary['rows']} rows")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--serve-child",
+             "--checkpoint-dir", ckpt, "--port", "0", "--micro-batch", str(micro),
+             "--device", device],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            boot = json.loads(proc.stdout.readline())
+            boot_s = time.perf_counter() - t0
+            check(boot["model"] == "resnet50" and boot["micro_batch"] == micro
+                  and boot["queue_depth"] == 64 and boot["batch_window_ms"] == 5.0
+                  and boot["deadline_ms"] == 2000.0, f"serve boot line {boot}")
+            traffic, served, singles = _serve_traffic(boot["port"], jpegs, flood=micro == 8)
+            proc.send_signal(signal.SIGINT)
+            out, err = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(proc.returncode == 0, f"serve exited {proc.returncode}: {err[-3000:]}")
+        lines = [json.loads(x) for x in out.strip().splitlines()]
+        check(lines[0].get("draining") is True, f"serve drain line {lines[0]}")
+        launches = lines[-1]["launches"]
+        check(launches["K1"] == 0, f"serve launched K1 {launches['K1']} times: the checkpoint "
+              "must score at the fused level")
+        check(sorted(served) == list(range(len(jpegs))), "image-serve missed rows")
+        # Every JSON-batch row and every single (coalesced across requests
+        # into mixed batches) against predict's row for the same image.
+        rows = [*served.items(), *singles]
+        wrong = sorted({i for i, p in rows if p["pred_index"] != want[i][0]})
+        check(not wrong, f"served != predict on rows {wrong[:10]} at micro-batch {micro}")
+        prob_err = max(abs(p["pred_prob"] - want[i][1]) for i, p in rows)
+        check(prob_err <= 1e-6, f"served pred_prob differs from predict's by {prob_err}")
+        result[f"micro_batch_{micro}"] = {**traffic, "boot_s": boot_s, "launches": launches,
+                                          "predict_accuracy": summary["accuracy_vs_label_index"],
+                                          "pred_prob_max_diff": prob_err}
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(f"image-serve ({card}): " + json.dumps(result), flush=True)
+    return result
+
+
+def vit_phase(torch, tables, card: str) -> dict:
+    """``train --model vit-s16`` at full width (batch 212, crop 224, 1000
+    classes, 4 steps, 1 eval batch), ``predict``, ``export``, ``train
+    --pretrained`` from the export at learning rate 0, and the card's
+    logits against the CPU's."""
+    import contextlib
+    import io
+
+    from dss_ml_at_scale_tpu_torch.config import cli
+    from dss_ml_at_scale_tpu_torch.config.checkpoints import build_classifier_model
+    from dss_ml_at_scale_tpu_torch.data.transform import imagenet_transform_spec
+    from dss_ml_at_scale_tpu_torch.ops.flash_attention import flash_attention
+    from dss_ml_at_scale_tpu_torch.resilience import checkpoint as integrity
+
+    t_phase = time.perf_counter()
+    train, val = tables
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_vit_"))
+    base = ["train", "--data", train, "--val-data", val, "--model", "vit-s16", "--batch-size",
+            str(BATCH), "--crop", "224", "--num-classes", "1000", "--epochs", "1",
+            "--limit-val-batches", "1"]
+    # The main path: counts set to 0 just before, read just after.
+    _zero_fused_launches()
+    flash_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary = cli.run_train(cli.build_parser().parse_args(
+        base + ["--checkpoint-dir", str(work / "ck")]))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {**_fused_launches(), "K4": flash_attention.launches}
+    check(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0},
+          f"vit launched a kernel: {launches} (its attention is the plain version, as JAX's)")
+    epoch = summary["history"][0]
+    check(summary["steps"] == STEPS, f"vit ran {summary['steps']} steps, want {STEPS}")
+    for key in ("train_loss", "train_acc", "grad_norm", "val_loss", "val_acc"):
+        check(math.isfinite(epoch[key]), f"vit metric {key}: {epoch[key]}")
+    report = integrity.verify_checkpoint_dir(work / "ck")
+    check([r["step"] for r in report] == [STEPS] and report[0]["status"] == "intact",
+          f"vit checkpoints {report}")
+    meta = json.loads((work / "ck" / "dsst_model.json").read_text())
+    check(meta["model"] == "vit-s16" and meta["crop"] == 224, f"vit dsst_model.json {meta}")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_p = cli.main(["predict", "--data", val, "--checkpoint-dir", str(work / "ck"),
+                         "--out", str(work / "preds")])
+        rc_e = cli.main(["export", "--checkpoint-dir", str(work / "ck"), "--out",
+                         str(work / "vit.npz")])
+    check(rc_p == 0 and rc_e == 0, f"vit predict/export exited {rc_p}/{rc_e}: "
+          f"{buf.getvalue()[-2000:]}")
+    pred, export = (json.loads(x) for x in buf.getvalue().strip().splitlines()[-2:])
+    check(pred["rows"] == VAL_ROWS and export["checkpoint_step"] == STEPS,
+          f"vit predict {pred}, export {export}")
+
+    # train --pretrained from the export at lr 0: every forward is the first
+    # one's weights, the checkpoint's; its eval batch scores as the first
+    # run's eval did (same weights).
+    again = cli.run_train(cli.build_parser().parse_args(
+        base + ["--pretrained", str(work / "vit.npz"), "--learning-rate", "0",
+                "--checkpoint-dir", str(work / "ck2")]))
+    first_state = torch.load(work / "ck" / str(STEPS) / "state.pt", map_location="cpu",
+                             weights_only=True)["model"]
+    second_state = torch.load(work / "ck2" / str(STEPS) / "state.pt", map_location="cpu",
+                              weights_only=True)["model"]
+    check(all(torch.equal(first_state[k], second_state[k]) for k in first_state),
+          "train --pretrained at lr 0 did not keep the exported weights")
+    val_err = abs(again["history"][0]["val_loss"] - epoch["val_loss"]) / abs(epoch["val_loss"])
+    check(val_err <= PARITY_LOGITS, f"vit --pretrained val_loss {again['history'][0]['val_loss']}"
+          f" vs the checkpoint's {epoch['val_loss']}")
+
+    # The card's logits against the CPU's, same weights and images.
+    spec = imagenet_transform_spec(crop=224)
+    content = _read_delta(val).column("content").to_pylist()[:8]
+    import numpy as np
+
+    cols = spec({"content": np.array(content, dtype=object),
+                 "label_index": np.zeros(len(content), np.int64)})
+    images = torch.from_numpy(cols["image"])
+    logits = {}
+    for device in ("cuda", "cpu"):
+        model = build_classifier_model("vit-s16", num_classes=1000, torch_padding=False,
+                                       device=device)
+        model.load_state_dict(first_state)
+        with torch.inference_mode():
+            logits[device] = model(images.to(device)).float().cpu()
+        del model
+    cpu_err = _rel(logits["cuda"], logits["cpu"])
+    check(cpu_err <= PARITY_LOGITS, f"vit logits on the card vs the CPU differ by {cpu_err}")
+    torch.cuda.empty_cache()
+    result = {
+        "launches": launches, "wall_s": wall, "steps": summary["steps"],
+        "train_loss": epoch["train_loss"], "val_loss": epoch["val_loss"],
+        "val_acc": epoch["val_acc"],
+        "images_per_sec_steps_2_4": epoch["steady_images_per_sec"],
+        "step_ms_steps_2_4": epoch["steady_step_time_s"] * 1e3,
+        "data_wait_ms_steps_2_4": epoch["steady_data_wait_s"] * 1e3,
+        "peak_memory_gib": peak, "predict": pred, "export_tensors": export["tensors"],
+        "pretrained_val_loss_rel_err": val_err, "card_vs_cpu_logits_rel_err": cpu_err,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(f"vit ({card}): " + json.dumps(result), flush=True)
+    return result
+
+
+RING_MOE_LAYERS = 2  # the LM-training width, at the depth the phase's time allows
+# The ring MoE objective against one process's, relative: the aux term is
+# about 1e-3 of it (weight 0.01, a loss near 9.5), so a missing aux term fails.
+RING_MOE_LOSS = 1e-4
+
+
+def ring_moe_work(torch, rank: int, world: int) -> dict:
+    """One ``LMTask`` gradient of the ring MoE LM (aux weight 0.01) on this
+    rank's half of the sequence of the seeded batch: the objective, each
+    block's routing and router logits, its qkv, w_up and router gradients
+    (summed over the ranks by the task)."""
+    import torch.distributed as dist
+
+    from dss_ml_at_scale_tpu_torch.models import seeded_lm
+    from dss_ml_at_scale_tpu_torch.parallel import LMTask
+
+    router_logits = []
+    seen, undo = _route_spy(torch, router_logits)
+    try:
+        model = seeded_lm(0, device="cuda", attention="ring", group=dist.group.WORLD,
+                          **{**MOE_LM, "num_layers": RING_MOE_LAYERS})
+        task = LMTask(model=model, aux_loss_weight=MOE_AUX)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = task.compute_update({"tokens": _moe_batch(torch)})
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        undo()
+    out = {"loss": metrics["train_loss"].item(), "step_ms": step_ms, "layout": task.layout,
+           "routes": [{"expert": r.expert.cpu(), "position": r.position.cpu(),
+                       "kept": r.kept.cpu(), "capacity": r.capacity} for r in seen],
+           "router_logits": [x.cpu() for x in router_logits],
+           "grads": _ring_moe_grads(model)}
+    del task, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ring_moe_grads(model) -> dict:
+    # The router's gradient is mostly the aux term's: a rank that dropped
+    # its share of the aux term would fail there.
+    return {f"{i}.{n}": t.grad.float().cpu() for i, b in enumerate(model.blocks)
+            for n, t in (("qkv", b.qkv.weight), ("w_up", b.moe.w_up),
+                         ("router", b.moe.router.weight))}
+
+
+def _reference_moe_pass(torch, tokens, forced: list | None = None):
+    """The one-process MoE LM (reference attention) on the whole batch:
+    objective, routes, router logits, gradients. ``forced``: per block, the
+    ring's global routing (expert, place, kept), taken in place of the
+    reference's own; the gates and the aux term's mean probabilities stay
+    the reference's, so its values are compared on tokens routed alike."""
+    import torch.nn.functional as F
+
+    from dss_ml_at_scale_tpu_torch.models import collect_aux_loss, moe, next_token_loss, seeded_lm
+
+    real = moe.route
+
+    def force(tokens_, weight, e, cf, **kw):
+        r = real(tokens_, weight, e, cf, **kw)
+        f = forced[len(seen)]  # this block's: the spy appends once this returns
+        probs = torch.softmax(F.linear(tokens_.float(), weight.float()), dim=-1)
+        expert = f["expert"].to(tokens_.device)
+        counts = F.one_hot(expert, e).float().sum(dim=0)
+        return moe.Routing(
+            expert=expert, gate=probs.gather(1, expert[:, None])[:, 0],
+            position=f["position"].to(tokens_.device), kept=f["kept"].to(tokens_.device),
+            capacity=r.capacity,
+            aux_loss=e * torch.sum(counts / expert.numel() * probs.mean(dim=0)))
+
+    router_logits = []
+    if forced is not None:
+        moe.route = force
+    seen, undo = _route_spy(torch, router_logits)
+    try:
+        model = seeded_lm(0, device="cuda", attention="reference",
+                          **{**MOE_LM, "num_layers": RING_MOE_LAYERS}).train()
+        loss = next_token_loss(model(tokens), tokens) + MOE_AUX * collect_aux_loss(model)
+        loss.backward()
+    finally:
+        undo()
+        moe.route = real
+    out = {"loss": loss.item(), "routes": seen, "router_logits": router_logits,
+           "grads": _ring_moe_grads(model)}
+    del model, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_moe_phase(torch, card: str) -> dict:
+    """Two gloo ranks, the sequence split 1024 + 1024, the ring MoE LM at
+    the LM-training width against one process on the whole sequence with
+    reference attention: the objective with aux and the routing (each
+    change of expert explained by its margin) against the reference's own
+    routing; the qkv, w_up and router gradients on tokens routed alike
+    (the reference given the ring's routing)."""
+    t_phase = time.perf_counter()
+    work = _spawn_ranks("ring_moe", 2)
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    check(all(r["layout"] == "sequence" for r in ranks), "ring-moe task layout")
+    tokens = _moe_batch(torch)
+    own = _reference_moe_pass(torch, tokens)
+    # Rank k's tokens, in their row-major [8, 1024] order, are the global
+    # tokens r * 2048 + k * 1024 + p.
+    order = torch.cat([(torch.arange(8)[:, None] * 2048 + k * 1024
+                        + torch.arange(1024)[None, :]).reshape(-1) for k in range(2)])
+    ring_routes, flips, keep_shifts, unexplained, apart = [], [], [], 0, 0
+    for block, ref_route in enumerate(own["routes"]):
+        glob = {}
+        for key in ("expert", "position", "kept"):
+            glob[key] = torch.empty_like(torch.cat([r["routes"][block][key] for r in ranks]))
+            glob[key][order] = torch.cat([r["routes"][block][key] for r in ranks])
+        logits = torch.empty(8 * 2048, MOE_E)
+        logits[order] = torch.cat([r["router_logits"][block] for r in ranks])
+        ring_routes.append(glob)
+        check(ranks[0]["routes"][block]["capacity"] == ref_route.capacity,
+              f"ring-moe capacity {ranks[0]['routes'][block]['capacity']} vs "
+              f"{ref_route.capacity}")
+        e2, k2 = ref_route.expert.cpu(), ref_route.kept.cpu()
+        l2 = own["router_logits"][block].cpu()
+        flip = glob["expert"] != e2
+        top2 = l2.topk(2, dim=-1).values
+        unexplained += int((flip & (top2[:, 0] - top2[:, 1]
+                                    > 2 * (logits - l2).abs().amax(-1))).sum())
+        flips.append(int(flip.sum()))
+        keep_shifts.append(int((~flip & (glob["kept"] != k2)).sum()))
+        apart += int((flip | (glob["kept"] != k2)).sum())
+    alike = _reference_moe_pass(torch, tokens, forced=ring_routes)
+    loss_err = abs(ranks[0]["loss"] - own["loss"]) / abs(own["loss"])
+    alike_loss_err = abs(ranks[0]["loss"] - alike["loss"]) / abs(alike["loss"])
+    grad_errs = {name: _rel(ranks[0]["grads"][name], want)
+                 for name, want in alike["grads"].items()}
+    own_grad_errs = {name: _rel(ranks[0]["grads"][name], want)
+                     for name, want in own["grads"].items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    result = {"loss": ranks[0]["loss"], "loss_one_process": own["loss"],
+              "loss_rel_err": loss_err, "loss_rel_err_routed_alike": alike_loss_err,
+              "expert_flips_by_block": flips, "keep_shifts_by_block": keep_shifts,
+              "tokens_routed_apart": apart, "unexplained_flips": unexplained,
+              "grad_rel_errs_routed_alike": grad_errs, "grad_rel_err_max": grad_errs[worst],
+              "grad_rel_errs_own_routing": own_grad_errs,
+              "step_ms_two_ranks": [r["step_ms"] for r in ranks],
+              "layers": RING_MOE_LAYERS, "host_routed": ranks[0]["host_routed"],
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"ring-moe ({card}; two ranks on one card are no scaling result): "
+          + json.dumps(result), flush=True)
+    check(ranks[0]["loss"] == ranks[1]["loss"], "the ranks report different objectives")
+    check(loss_err <= RING_MOE_LOSS and alike_loss_err <= RING_MOE_LOSS,
+          f"ring-moe loss {ranks[0]['loss']} vs one process {own['loss']} / {alike['loss']}")
+    check(unexplained == 0, f"ring-moe: {unexplained} expert changes not explained by a margin")
+    check(all(k <= 2 * f for k, f in zip(keep_shifts, flips)),
+          f"ring-moe: capacity boundaries moved more than the flips explain: {keep_shifts}")
+    check(apart <= 0.05 * 8 * 2048 * RING_MOE_LAYERS, f"ring-moe: {apart} tokens routed apart")
+    for name in grad_errs:
+        check(ranks[0]["grads"][name].abs().max().item() > 0, f"ring-moe {name} gradient is 0")
+        check(torch.equal(ranks[0]["grads"][name], ranks[1]["grads"][name]),
+              f"ring-moe {name}: the ranks' summed gradients differ")
+    check(grad_errs[worst] <= LM_GRADS, f"ring-moe {worst} gradient differs by "
+          f"{grad_errs[worst]} of max-abs on tokens routed alike")
+    return result
+
+
 def main() -> int:
     if "--par-rank" in sys.argv:  # one rank of a multi-rank phase, started by it
         i = sys.argv.index("--par-rank")
         phase, rank, world, work = sys.argv[i + 1:i + 5]
         return par_rank_main(phase, int(rank), int(world), work)
+    if "--serve-child" in sys.argv:  # the image-serve phase's server
+        return serve_child_main(sys.argv[sys.argv.index("--serve-child") + 1:])
     import torch
     import torch.nn.functional as F
 
@@ -2596,6 +3179,12 @@ def main() -> int:
     ring_phase(torch, card)
     pipeline_phase(torch, card)
     print(f"parallel-extras phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    image_serve = image_serve_phase(torch, training["tables"], flags["checkpoint_dir"], card)
+    vit_phase(torch, training["tables"], card)
+    ring_moe_phase(torch, card)
+    print(f"slice-10 phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     head = cases[2]  # causal s1024: the largest prefill bucket of the path
     train_case = next(c for c in cases if c["shape"] == "causal b8 h8 s2048 d128")
@@ -2638,7 +3227,9 @@ def main() -> int:
             "launches_by_path": {"train": training["launches"][key],
                                  "train_flags": flags["launches"][key],
                                  "dp_per_rank": [r[key] for r in dp["launches_per_rank"]],
-                                 "resilience": res_train["launches"][key]},
+                                 "resilience": res_train["launches"][key],
+                                 "serve": [image_serve[f"micro_batch_{m}"]["launches"][key]
+                                           for m in (8, 32)]},
             "max_abs_err": max(c["max_abs_err"] for c in fused[key]),
             "ms": head["ms"],
             "plain_ms": head["plain_ms"],

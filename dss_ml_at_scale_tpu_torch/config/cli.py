@@ -12,9 +12,21 @@ Ports of the JAX package's commands (``config/commands.py``):
   ``--pretrained`` torchvision-layout weights, the native decoder and
   ``--fast-decode``, ``--profile-dir``, checkpoints, ``--resume`` and
   ``--resume-auto``, the health supervisor (``--health-policy`` and its
-  knobs); the model's padding and the learning-rate trajectory persist as
-  ``dsst_model.json`` beside the checkpoints, for a flag-less
-  ``--resume``. The ViT models wait for their port.
+  knobs); the model, its crop and padding and the learning-rate
+  trajectory persist as ``dsst_model.json`` beside the checkpoints, for a
+  flag-less ``--resume`` and for the inference commands. ``--model``
+  takes the ResNets and the ViTs (``vit-t16``, ``vit-s16``, the CI-sized
+  ``vit-tiny``; ``--pretrained`` reads a torchvision ``VisionTransformer``
+  layout for them).
+- ``predict``, ``export`` and ``serve``: the inference commands over a
+  ``train`` checkpoint directory, with the JAX commands' flags plus
+  ``--device``. ``predict`` writes one prediction row per table row to a
+  Delta table, ``export`` a torchvision-layout ``.npz``, and ``serve``
+  answers ``POST /predict`` through the serving scheduler (admission,
+  decode pool, cross-request batcher); a boot JSON line first, and SIGINT
+  drains. They score at the level ``dsst_model.json`` resolves to: a
+  ``--pallas-fused`` checkpoint at the fused level, without the
+  fused-matmul kernels, as the JAX package scores it.
 - ``lm``: TransformerLM training on the seeded Markov token stream, with
   the JAX command's flags and defaults, plus ``--device``: flash or
   reference attention, a constant or cosine learning rate (the trajectory
@@ -156,6 +168,7 @@ def build_parser() -> argparse.ArgumentParser:
     _register_datagen(sub)
     _register_forecast(sub)
     _register_train(sub)
+    _register_inference(sub)
     _register_lm(sub)
     _register_checkpoints(sub)
     _register_quarantine(sub)
@@ -669,16 +682,17 @@ def _train(args: argparse.Namespace, fused_bn) -> dict:
         durability.durable_write_json(meta_path, meta)
     model = build_classifier_model(
         args.model, num_classes=args.num_classes,
-        torch_padding=torch_padding, fused_bn=fused_bn, device=device)
+        torch_padding=torch_padding, fused_bn=fused_bn, device=device, crop=args.crop)
     restoring = (args.resume and args.checkpoint_dir is not None
                  and bool(integrity.list_steps(args.checkpoint_dir)))
     if args.pretrained and (args.resume_auto or not restoring):
         # A restore would overwrite these weights: skip the load then. Under
         # --resume-auto load them anyway: when every step on disk is torn
         # the run starts fresh, and from the requested weights.
-        from ..models.pretrained import load_pretrained_resnet
+        from ..models.pretrained import load_pretrained_resnet, load_pretrained_vit
 
-        load_pretrained_resnet(args.pretrained, model)
+        load = load_pretrained_vit if args.model.startswith("vit") else load_pretrained_resnet
+        load(args.pretrained, model)
     task = ClassifierTask(model=model, learning_rate=lr, eval_topk=tuple(args.eval_topk),
                           augment=AugmentConfig() if args.augment else None)
     _mark_interrupted_predecessors(args)
@@ -782,6 +796,242 @@ def _run_command(run, args: argparse.Namespace) -> int:
 
 def _cmd_train(args: argparse.Namespace) -> int:
     return _run_command(run_train, args)
+
+
+def _register_inference(sub) -> None:
+    """``predict``, ``export`` and ``serve``: the JAX commands' flags, plus
+    ``--device``."""
+    pr = sub.add_parser(
+        "predict",
+        help="classify a Delta table of images with a trained checkpoint and write "
+        "predictions to a Delta table")
+    pr.add_argument("--data", required=True, help="Delta table (content/label_index)")
+    pr.add_argument("--checkpoint-dir", required=True,
+                    help="a train checkpoint dir (the model is read from its "
+                    "dsst_model.json)")
+    pr.add_argument("--out", required=True, help="predictions Delta table")
+    pr.add_argument("--step", type=int, default=None,
+                    help="explicit checkpoint step (default: the best step by the tracked "
+                    "metric, else the latest)")
+    pr.add_argument("--batch-size", type=int, default=64)
+    pr.add_argument("--crop", type=int, default=None,
+                    help="default: the crop persisted in dsst_model.json, else 224")
+    pr.add_argument("--decode-backend", choices=["auto", "native", "pil"], default="auto")
+    pr.add_argument("--device", default="cuda",
+                    help="torch device of the model (cuda, cuda:N, or cpu)")
+    pr.set_defaults(fn=_cmd_predict)
+
+    ex = sub.add_parser(
+        "export",
+        help="trained checkpoint -> torchvision-layout .npz state dict (readable by "
+        "torch-ecosystem consumers and by train --pretrained, here and in the JAX package)")
+    ex.add_argument("--checkpoint-dir", required=True,
+                    help="a train checkpoint dir (dsst_model.json)")
+    ex.add_argument("--out", required=True, help=".npz output path")
+    ex.add_argument("--step", type=int, default=None,
+                    help="explicit checkpoint step (default: best, else latest)")
+    ex.add_argument("--device", default="cuda",
+                    help="torch device the weights are restored on (cuda, cuda:N, or cpu)")
+    ex.set_defaults(fn=_cmd_export)
+
+    sv = sub.add_parser(
+        "serve",
+        help="HTTP inference server over a trained checkpoint: GET /healthz + /readyz, "
+        'POST /predict (raw JPEG body or JSON {"instances": ["<base64 jpeg>", ...]}); '
+        "scheduler-mediated scoring (bounded admission queue, cross-request batching "
+        "into one fixed-shape scorer, graceful drain), label names from the trained "
+        "vocabulary")
+    sv.add_argument("--checkpoint-dir", required=True,
+                    help="a train checkpoint dir (dsst_model.json)")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8008)
+    sv.add_argument("--step", type=int, default=None,
+                    help="explicit checkpoint step (default: best, else latest)")
+    sv.add_argument("--micro-batch", type=int, default=8,
+                    help="scoring batch; the batcher coalesces waiting images across "
+                    "requests up to it")
+    sv.add_argument("--queue-depth", type=int, default=64,
+                    help="max admitted-but-unscored images; beyond it requests get 429 "
+                    "with a measured Retry-After")
+    sv.add_argument("--batch-window-ms", type=float, default=5.0,
+                    help="max wait for an under-filled batch to gain company: the "
+                    "latency/throughput dial of the cross-request batcher")
+    sv.add_argument("--deadline-ms", type=float, default=2000.0,
+                    help="per-request deadline: work not scored in time is dropped with "
+                    "503 instead of scored late (0 disables)")
+    sv.add_argument("--drain-timeout", type=float, default=10.0,
+                    help="graceful-shutdown bound: seconds to finish queued work after "
+                    "Ctrl-C before the server closes anyway")
+    sv.add_argument("--decode-workers", type=int, default=2,
+                    help="JPEG decode threads feeding the batcher (host-side work, off "
+                    "the scoring thread)")
+    sv.add_argument("--access-log", default=None, metavar="JSONL",
+                    help="structured request log: one JSON line per /predict (request_id "
+                    "matching the X-DSST-Trace response header, status, queue_ms, "
+                    "batch_fill)")
+    sv.add_argument("--device", default="cuda",
+                    help="torch device of the model (cuda, cuda:N, or cpu)")
+    sv.set_defaults(fn=_cmd_serve)
+
+
+def _checkpoint_task(checkpoint_dir, crop_override=None, device="cuda"):
+    """The CLI face of :func:`.checkpoints.resolve_checkpoint`: prints the
+    missing or unreadable meta diagnosis and returns None (the caller
+    exits 1); a crop/architecture conflict exits with the message."""
+    from .checkpoints import resolve_checkpoint
+
+    try:
+        return resolve_checkpoint(checkpoint_dir, crop_override, device=device)
+    except FileNotFoundError as e:
+        print(e)
+        return None
+    except (json.JSONDecodeError, KeyError) as e:
+        # A truncated or foreign dsst_model.json, or one missing a key.
+        print(f"unreadable model metadata in {checkpoint_dir}/dsst_model.json "
+              f"({type(e).__name__}: {e}) — was this checkpoint written by `train`?")
+        return None
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
+def _cmd_predict(args: argparse.Namespace) -> int:
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from ..data import batch_loader, write_delta
+    from ..data.transform import imagenet_transform_spec
+    from ..parallel import restore_state
+    from .checkpoints import make_scorer
+
+    if _no_card(args.device):
+        return 1
+    resolved = _checkpoint_task(args.checkpoint_dir, args.crop, args.device)
+    if resolved is None:
+        return 1
+    meta, crop, model, task = resolved
+    device = next(model.parameters()).device
+    spec = imagenet_transform_spec(crop=crop, backend=args.decode_backend)
+    step = restore_state(task, args.checkpoint_dir, step=args.step)
+    # The scorer serve uses: parity by construction.
+    predict = make_scorer(task)
+    labels, preds, probs = [], [], []
+    # One worker with shuffling off: rows stream in table order, so "row"
+    # is the table's row index.
+    with batch_loader(args.data, batch_size=args.batch_size, num_epochs=1,
+                      transform_spec=spec, shuffle_row_groups=False, drop_last=False,
+                      workers_count=1) as reader:
+        for batch in reader:
+            images = torch.from_numpy(batch["image"])
+            n = len(images)
+            if n < args.batch_size:  # the tail padded to the one shape, as serve pads
+                images = torch.cat(
+                    [images, images.new_zeros((args.batch_size - n, *images.shape[1:]))])
+            pred, prob = predict(images.to(device))
+            preds.append(pred[:n].cpu().numpy())
+            probs.append(prob[:n].cpu().numpy())
+            labels.append(np.asarray(batch["label"]))
+    if not preds:
+        print("no rows to score")
+        return 1
+    pred = np.concatenate(preds).astype(np.int64)
+    label = np.concatenate(labels).astype(np.int64)
+    total = len(pred)
+    columns = {
+        "row": pa.array(np.arange(total, dtype=np.int64)),
+        "label_index": pa.array(label),
+        "pred_index": pa.array(pred),
+        "pred_prob": pa.array(np.concatenate(probs).astype(np.float64)),
+    }
+    # Names from the vocabulary persisted with the checkpoint at train
+    # time, never the scored table's labels.json.
+    names = meta.get("label_names")
+    if names:
+        columns["pred_label"] = pa.array(
+            [names[i] if 0 <= i < len(names) else None for i in pred], type=pa.string())
+    write_delta(pa.table(columns), args.out)
+    print(json.dumps({
+        "rows": total,
+        "checkpoint_step": step,
+        "accuracy_vs_label_index": round(float((pred == label).sum()) / total, 4),
+        "out": str(args.out),
+        "device": str(device),
+    }), flush=True)
+    return 0
+
+
+def _cmd_export(args: argparse.Namespace) -> int:
+    from ..models.pretrained import export_torchvision
+    from ..parallel import restore_state
+
+    if not args.out.endswith(".npz"):
+        # export_torchvision refuses it too; before the restore, at once.
+        raise SystemExit(f"--out must end in .npz (got {args.out!r})")
+    if _no_card(args.device):
+        return 1
+    resolved = _checkpoint_task(args.checkpoint_dir, device=args.device)
+    if resolved is None:
+        return 1
+    _meta, _crop, model, task = resolved
+    step = restore_state(task, args.checkpoint_dir, step=args.step)
+    exported = export_torchvision(model, args.out)
+    print(json.dumps({"checkpoint_step": step, "tensors": len(exported), "out": args.out}),
+          flush=True)
+    return 0
+
+
+def _cmd_serve(args: argparse.Namespace) -> int:
+    from ..serving import SchedulerConfig
+    from ..workloads.serving import Predictor, serve_in_thread
+
+    if _no_card(args.device):
+        return 1
+    # The metadata first, with its own diagnosis; a KeyError from the
+    # restore below is not the meta file's fault. The resolved tuple goes
+    # to the Predictor, so startup resolves the checkpoint once.
+    resolved = _checkpoint_task(args.checkpoint_dir, device=args.device)
+    if resolved is None:
+        return 1
+    try:
+        predictor = Predictor(args.checkpoint_dir, step=args.step,
+                              micro_batch=args.micro_batch, resolved=resolved)
+    except FileNotFoundError as e:
+        print(e)
+        return 1
+    config = SchedulerConfig(
+        queue_depth=args.queue_depth,
+        batch_window_ms=args.batch_window_ms,
+        deadline_ms=args.deadline_ms,
+        drain_timeout_s=args.drain_timeout,
+        decode_workers=args.decode_workers,
+    )
+    # The accept loop runs in the handle's thread so Ctrl-C lands here,
+    # where close() drains while the server still answers.
+    handle = serve_in_thread(predictor, args.host, args.port, config=config,
+                             access_log=args.access_log)
+    try:
+        # The boot line inside the interrupt handling: a client that sends
+        # Ctrl-C as soon as it reads the line still gets a drained run.
+        print(json.dumps({
+            "serving": handle.address,
+            "port": handle.port,
+            "model": predictor.meta.get("model"),
+            "checkpoint_step": predictor.step,
+            "crop": predictor.crop,
+            "micro_batch": predictor.micro_batch,
+            "queue_depth": config.queue_depth,
+            "batch_window_ms": config.batch_window_ms,
+            "deadline_ms": config.deadline_ms,
+            "device": str(predictor.device),
+        }), flush=True)
+        while handle.thread.is_alive():
+            handle.thread.join(1.0)
+    except KeyboardInterrupt:
+        print(json.dumps({"draining": True, "pending_images": handle.scheduler.pending}),
+              flush=True)
+    finally:
+        handle.close(args.drain_timeout)
+    return 0
 
 
 def _register_lm(sub) -> None:

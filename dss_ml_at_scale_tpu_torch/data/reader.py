@@ -71,12 +71,15 @@ class ParquetShardReader:
         quarantine: "QuarantineList | str | None" = None,
         emit_provenance: bool = False,
         on_corrupt: str = "raise",
+        drop_last: bool = True,
     ):
         """``quarantine``: a poison-row blocklist (path or QuarantineList)
         consulted at every iteration start. ``emit_provenance``: tag each
         batch with the RowRanges that built it. ``on_corrupt``:
         ``"raise"`` (fail fast) or ``"quarantine"`` (isolate, count,
-        quarantine and skip a row whose transform raises)."""
+        quarantine and skip a row whose transform raises). ``drop_last``
+        False: a finite stream ends with its short batch (scoring every
+        row, as ``predict`` does)."""
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
         if on_corrupt not in ("raise", "quarantine"):
@@ -98,6 +101,7 @@ class ParquetShardReader:
         self.seed = seed
         self.emit_provenance = emit_provenance
         self.on_corrupt = on_corrupt
+        self.drop_last = drop_last
         self.quarantine = (QuarantineList(quarantine)
                            if isinstance(quarantine, (str, bytes)) or hasattr(quarantine, "__fspath__")
                            else quarantine)
@@ -272,10 +276,16 @@ class ParquetShardReader:
             buffered += _num_rows(group)
             while buffered >= self.batch_size:
                 batch, prov, buf, buffered = _take(buf, self.batch_size)
-                if self.emit_provenance:
-                    batch[PROVENANCE_KEY] = [r for path, rg, rows in prov
-                                             for r in compress_rows(path, rg, rows)]
-                yield batch
+                yield self._finish_batch(batch, prov)
+        if buffered and not self.drop_last:
+            batch, prov, _, _ = _take(buf, buffered)
+            yield self._finish_batch(batch, prov)
+
+    def _finish_batch(self, batch, prov) -> dict[str, np.ndarray]:
+        if self.emit_provenance:
+            batch[PROVENANCE_KEY] = [r for path, rg, rows in prov
+                                     for r in compress_rows(path, rg, rows)]
+        return batch
 
     def stop(self) -> None:
         self._stop.set()

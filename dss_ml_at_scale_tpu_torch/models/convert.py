@@ -15,7 +15,8 @@ numbers from one seed.
 
 :func:`resnet_state_from_flax` and :func:`seeded_resnet` do the same for the
 ResNet: flax's ``params``/``batch_stats`` onto torchvision's key names, and
-seeded LeCun-normal weights of the kinds flax draws.
+seeded LeCun-normal weights of the kinds flax draws; :func:`vit_state_from_flax`
+and :func:`seeded_vit` for the ViT.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from .resnet import ResNet
 from .transformer import TransformerLM
+from .vit import ViT
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -233,3 +235,66 @@ def seeded_resnet(seed: int = 0, *, device="cuda", **config) -> ResNet:
     model = ResNet(**config)
     model.load_state_dict(init_resnet_state(model, seed))
     return model.to(device)
+
+
+def vit_state_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``ViT`` params (with or without the outer ``"params"``) -> the
+    port's ``state_dict``, as f32 CPU tensors: the patch kernel HWIO ->
+    OIHW, Dense kernels transposed, LayerNorm ``scale`` -> ``weight``."""
+    flat = _flatten(params.get("params", params))
+    out: dict[str, torch.Tensor] = {}
+
+    def take(src: str, dst: str, transpose: bool = False) -> None:
+        a = flat.pop(src).astype(np.float32)
+        out[dst] = torch.from_numpy(np.ascontiguousarray(a.T if transpose else a))
+
+    out["patch_embed.weight"] = _hwio_to_oihw(flat.pop("patch_embed/kernel"))
+    take("patch_embed/bias", "patch_embed.bias")
+    take("cls_token", "cls_token")
+    take("pos_embed", "pos_embed")
+    depth = len({k.split("/")[0] for k in flat if k.startswith("block_")})
+    for i in range(depth):
+        for name in ("ln_attn", "ln_mlp"):
+            take(f"block_{i}/{name}/scale", f"blocks.{i}.{name}.weight")
+            take(f"block_{i}/{name}/bias", f"blocks.{i}.{name}.bias")
+        for name in ("q", "k", "v", "attn_out", "mlp_in", "mlp_out"):
+            take(f"block_{i}/{name}/kernel", f"blocks.{i}.{name}.weight", transpose=True)
+            take(f"block_{i}/{name}/bias", f"blocks.{i}.{name}.bias")
+    take("ln_final/scale", "ln_final.weight")
+    take("ln_final/bias", "ln_final.bias")
+    take("head/kernel", "head.weight", transpose=True)
+    take("head/bias", "head.bias")
+    if flat:
+        raise ValueError(f"flax params not carried over: {sorted(flat)}")
+    return out
+
+
+def init_vit_state(model: ViT, seed: int) -> dict[str, torch.Tensor]:
+    """Seeded random weights for ``model``, as an f32 CPU ``state_dict``,
+    of the kinds flax draws: Dense and patch kernels LeCun-normal (the
+    truncated normal of :func:`init_lm_state`, fan-in ``in`` for a Linear
+    and ``patch^2 * 3`` for the patch conv), biases zero, LayerNorm scales
+    one, ``cls_token`` zero, ``pos_embed`` normal(0.02)."""
+    gen = torch.Generator().manual_seed(int(seed))
+    state = {}
+    for name, t in model.state_dict().items():
+        t = torch.zeros(tuple(t.shape))
+        if name == "pos_embed":
+            t = torch.randn(tuple(t.shape), generator=gen) * 0.02
+        elif name.split(".")[-2:][0].startswith("ln_"):  # a LayerNorm
+            if name.endswith(".weight"):
+                t.fill_(1.0)
+        elif name.endswith(".weight"):
+            std = 1.0 / math.sqrt(math.prod(t.shape[1:])) / 0.87962566103423978
+            torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+        state[name] = t
+    return state
+
+
+def seeded_vit(seed: int = 0, *, device="cuda", preset=ViT, **config) -> ViT:
+    """``preset(**config)`` (``ViT`` or one of its presets, ``vit_s16``...)
+    on ``device`` with :func:`init_vit_state` weights."""
+    model = preset(device="meta", **config)
+    model = model.to_empty(device=device)
+    model.load_state_dict(init_vit_state(model, seed))
+    return model

@@ -25,11 +25,18 @@ that the tests and ``chip_smoke.py`` hold the index dispatch to.
 
 Across ranks (``group``), JAX's sharded program routes the global batch:
 capacity, places and the aux loss's ``fraction`` are taken over every
-rank's tokens in rank order. The port all-gathers each rank's per-expert
-counts (one small collective per layer) to place its tokens in the global
-queues, and forms the aux term as the global ``fraction`` times the local
-``mean_prob``: averaged over the ranks, as DDP averages gradients, that is
-the global loss and its gradient. With ``shard_experts`` (the group's size
+rank's tokens in the global batch's order. The port all-gathers each
+rank's per-expert counts (one small collective per layer) to place its
+tokens in the global queues, and forms the aux term as the global
+``fraction`` times the local ``mean_prob``: averaged over the ranks, as
+DDP averages gradients (or summed at ``1/ranks`` each, as the sequence
+layout sums them), that is the global loss and its gradient. A batch
+split by rows (data parallelism) is rank-major: rank ``k``'s tokens follow
+every token of the ranks before it. A batch split along the sequence
+(``sequence``, a ring model: rank ``k`` holds columns ``[k S/n, (k+1)
+S/n)`` of every row) is row-major: the token at row ``r`` follows every
+token of the rows before ``r`` on every rank, then row ``r``'s tokens on
+the ranks before ``k``; the ranks gather their per-row counts ``[b, E]``. With ``shard_experts`` (the group's size
 divides E) each rank computes only its own E / size experts: its slots go
 to their owners through one ``all_to_all``, and the outputs come back
 through another. The parameters stay whole on every rank, as the JAX
@@ -66,9 +73,13 @@ class Routing:
 
 
 def route(tokens: torch.Tensor, router_weight: torch.Tensor, num_experts: int,
-          capacity_factor: float, *, group=None, noise: torch.Tensor | None = None) -> Routing:
+          capacity_factor: float, *, group=None, noise: torch.Tensor | None = None,
+          rows: int | None = None) -> Routing:
     """Top-1 routing of ``tokens`` ``[t, d]`` (JAX ``moe.py:71-113``), over
-    the tokens of every rank of ``group`` when it has more than one."""
+    the tokens of every rank of ``group`` when it has more than one.
+    ``rows``: the tokens are ``rows`` rows of a sequence that ``group``
+    shards, placed in the global batch's row-major order (module
+    docstring); else the ranks' tokens are in rank order."""
     e = num_experts
     logits = F.linear(tokens.float(), router_weight.float())
     if noise is not None:
@@ -77,8 +88,23 @@ def route(tokens: torch.Tensor, router_weight: torch.Tensor, num_experts: int,
     expert = torch.argmax(probs, dim=-1)
     gate = probs.gather(1, expert[:, None])[:, 0]
     one_hot = F.one_hot(expert, e).float()
+    if rows is not None and rt.group_size(group) > 1:
+        position, counts, total = _sequence_places(expert, one_hot, rows, group)
+    else:
+        position, counts, total = _rank_places(expert, one_hot, group)
+    capacity = max(1, math.ceil(total * capacity_factor / e))
+    fraction = counts / total
+    aux = e * torch.sum(fraction * probs.mean(dim=0))
+    return Routing(expert=expert, gate=gate, position=position.long(),
+                   kept=position < capacity, capacity=capacity, aux_loss=aux)
+
+
+def _rank_places(expert, one_hot, group) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Each token's place in its expert's global queue (f32), the global
+    per-expert counts and token count, the ranks' tokens in rank order:
+    rank ``k``'s after every token of the ranks before it."""
+    t, e = one_hot.shape
     counts = one_hot.sum(dim=0)
-    t = tokens.shape[0]
     offset = torch.zeros_like(counts)
     total = t
     if rt.group_size(group) > 1:
@@ -89,17 +115,36 @@ def route(tokens: torch.Tensor, router_weight: torch.Tensor, num_experts: int,
         offset = table[:rt.group_rank(group), :e].sum(dim=0).float()
         counts = table[:, :e].sum(dim=0).float()
         total = int(table[:, e].sum().item())
-    capacity = max(1, math.ceil(total * capacity_factor / e))
     # JAX's (cumsum(one_hot) - 1) at each token's expert, exact in f32 below
     # 2^24 tokens. The running count is taken along the contiguous token axis
     # of the [E, t] transpose: a scan over the outer axis of [t, E] runs a
     # few columns at a time (~2.5 ms a block at 16,384 tokens on the card).
     running = torch.cumsum(one_hot.t().contiguous(), dim=1)
-    position = running.gather(0, expert[None, :])[0] - 1.0 + offset[expert]
-    fraction = counts / total
-    aux = e * torch.sum(fraction * probs.mean(dim=0))
-    return Routing(expert=expert, gate=gate, position=position.long(),
-                   kept=position < capacity, capacity=capacity, aux_loss=aux)
+    return running.gather(0, expert[None, :])[0] - 1.0 + offset[expert], counts, total
+
+
+def _sequence_places(expert, one_hot, rows: int,
+                     group) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """:func:`_rank_places` for tokens that are ``rows`` rows of a sequence
+    sharded over ``group``, in the global batch's row-major order: the
+    per-row counts of every rank, gathered, place the token at row ``r``
+    after the rows before ``r`` on every rank, then row ``r``'s tokens on
+    the ranks before this one."""
+    t, e = one_hot.shape
+    s = t // rows
+    per_row = one_hot.view(rows, s, e)
+    mine = per_row.sum(dim=1)  # [b, E]
+    parts = [torch.empty_like(mine) for _ in range(rt.group_size(group))]
+    dist.all_gather(parts, mine, group=group)
+    table = torch.stack(parts)  # [ranks, b, E]
+    row_totals = table.sum(dim=0)
+    before = (torch.cumsum(row_totals, dim=0) - row_totals
+              + table[:rt.group_rank(group)].sum(dim=0))  # [b, E]
+    # The running count within each row, along the contiguous token axis.
+    running = torch.cumsum(per_row.transpose(1, 2).contiguous(), dim=2)  # [b, E, s]
+    local = running.gather(1, expert.view(rows, 1, s)).reshape(t) - 1.0
+    row = torch.arange(t, device=expert.device) // s
+    return local + before[row, expert], row_totals.sum(dim=0), t * rt.group_size(group)
 
 
 def expert_ffn(x: torch.Tensor, w_up, b_up, w_down, b_down, dtype) -> torch.Tensor:
@@ -136,12 +181,14 @@ class MoEMLP(nn.Module):
         # The experts whose FFN the last pass ran on this rank: [first, last).
         self.computed_experts = (0, e)
 
-    def forward(self, x: torch.Tensor, *, group=None, shard_experts: bool = False,
-                deterministic: bool = True,
+    def forward(self, x: torch.Tensor, *, group=None, sequence: bool = False,
+                shard_experts: bool = False, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """``group``: route over every rank's tokens; ``shard_experts``: and
-        compute only this rank's experts. ``router_noise`` applies when
-        ``deterministic`` is False and draws from ``generator``."""
+        """``group``: route over every rank's tokens (``sequence``: ``x``
+        is this rank's shard of the sequence, else of the rows);
+        ``shard_experts``: and compute only this rank's experts.
+        ``router_noise`` applies when ``deterministic`` is False and draws
+        from ``generator``."""
         b, s, d = x.shape
         tokens = x.reshape(b * s, d)
         noise = None
@@ -151,7 +198,7 @@ class MoEMLP(nn.Module):
             noise = self.router_noise * torch.randn(
                 (b * s, self.num_experts), generator=generator, device=x.device)
         r = route(tokens, self.router.weight, self.num_experts, self.capacity_factor,
-                  group=group, noise=noise)
+                  group=group, noise=noise, rows=b if sequence else None)
         self.aux_loss = r.aux_loss
         return self._index_dispatch(tokens, r, group, shard_experts).reshape(b, s, d)
 

@@ -175,9 +175,9 @@ class TransformerLM(nn.Module):
     "reference", or "ring" (sequence-parallel over ``group``). ``ffn``:
     "dense", or "moe" with ``num_experts``, ``capacity_factor`` and
     ``router_noise`` (its routing over ``expert_group``, its experts split
-    over it with ``shard_experts``). "moe" with "ring" is refused: JAX
-    routes the global ``[b, S]`` batch in its token order and adds the aux
-    term, which a sequence shard routed on its own does not compute.
+    over it with ``shard_experts``). "moe" with "ring" routes over the ring
+    ``group``: each rank's sequence shard takes its places in the global
+    ``[b, S]`` batch's token order, as JAX routes it (:mod:`.moe`).
     """
 
     def __init__(self, vocab_size: int, dim: int = 512, num_heads: int = 8,
@@ -191,9 +191,9 @@ class TransformerLM(nn.Module):
             raise ValueError(f"unknown ffn {ffn!r}: expected 'dense' or 'moe'")
         if ffn == "moe" and num_experts < 1:
             raise ValueError("ffn='moe' requires num_experts >= 1")
-        if ffn == "moe" and attention == "ring":
-            raise ValueError("ffn='moe' with attention='ring' is not supported: a sequence "
-                             "shard would route apart from the global batch")
+        if ffn == "moe" and attention == "ring" and expert_group not in (None, group):
+            raise ValueError("a ring model's MoE routes over the ring group: pass no "
+                             "expert_group, or the ring group")
         _select_attention(attention, group)  # fail at construction, not first use
         self.group = group
         self.expert_group = expert_group
@@ -266,8 +266,8 @@ class TransformerLM(nn.Module):
         x = x + pos_emb.to(self.dtype)
         moe_kw = {}
         if self.ffn == "moe":
-            moe_kw = dict(group=None if decoding else self.expert_group,
-                          shard_experts=self.shard_experts and not decoding,
+            moe_kw = dict(group=None if decoding else self.group if ring else self.expert_group,
+                          sequence=ring, shard_experts=self.shard_experts and not decoding,
                           deterministic=deterministic, generator=generator)
         for i, block in enumerate(self.blocks):
             x = block(x, attention_fn, cache=cache[i] if decoding else None,

@@ -11,9 +11,9 @@ from .pipeline import (
 )
 from .ring import ring_attention, sequence_shard, sharded_next_token_loss
 from .schedules import warmup_cosine_decay_schedule
-from .trainer import ClassifierTask, FitResult, LMTask, Trainer, TrainerConfig
+from .trainer import ClassifierTask, FitResult, LMTask, Trainer, TrainerConfig, restore_state
 
 __all__ = ["ClassifierTask", "FitResult", "LMTask", "PipeGrid", "PipelinedTask", "Trainer",
-           "TrainerConfig", "pipe_grid", "pipeline_utilization", "ring_attention",
+           "TrainerConfig", "pipe_grid", "pipeline_utilization", "restore_state", "ring_attention",
            "sequence_shard", "sharded_next_token_loss", "spmd_pipeline", "stack_stage_params",
            "warmup_cosine_decay_schedule"]

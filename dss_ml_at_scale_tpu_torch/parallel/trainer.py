@@ -330,6 +330,11 @@ class LMTask:
             group = self.model.group
             share = sharded_next_token_loss(self.net(sequence_shard(tokens, group)), tokens,
                                             group)
+            if self.aux_loss_weight > 0.0:
+                # Each rank's aux term is the global one's share: the
+                # gradients and the reported loss are sums over the ranks.
+                share = share + (self.aux_loss_weight / rt.group_size(group)
+                                 * collect_aux_loss(self.model))
             grad_norm = _backward(self.model, self.optimizer, share, group)
             loss = share.detach().clone()
             dist.all_reduce(loss, group=group)
@@ -970,13 +975,17 @@ def _best_on_disk(root: Path, cfg: TrainerConfig) -> tuple[float | None, int | N
     return m, s
 
 
-def _restore_with_fallback(root: Path, task, record: bool = True) -> int:
-    """Load the newest usable step into ``task``, walking past corrupt
-    ones: each step is verified against its manifest first, and a corrupt
-    step, or one whose load raises anyway, is skipped with a
-    ``checkpoint_fallback_total`` count (``record``: on one rank only).
-    Returns the restored step."""
-    steps = sorted(integrity.list_steps(root), reverse=True)
+def _restore_with_fallback(root: Path, task, record: bool = True, *,
+                           steps: list[int] | None = None, model_only: bool = False) -> int:
+    """Load the first usable step of ``steps`` (default: newest first)
+    into ``task``, walking past corrupt ones: each step is verified
+    against its manifest first, and a corrupt step, or one whose load
+    raises anyway, is skipped with a ``checkpoint_fallback_total`` count
+    (``record``: on one rank only). ``model_only``: the weights alone (the
+    optimizer state is read with them and dropped). Returns the restored
+    step."""
+    if steps is None:
+        steps = sorted(integrity.list_steps(root), reverse=True)
     last_exc = None
     for step in steps:
         status, problems = integrity.verify_step(root / str(step))
@@ -990,6 +999,10 @@ def _restore_with_fallback(root: Path, task, record: bool = True) -> int:
             # and Adam keeps its step counts on the CPU, as a fresh Adam does.
             state = torch.load(root / str(step) / STATE_FILE, map_location="cpu",
                                weights_only=True)
+            if model_only:
+                task.model.load_state_dict(state["model"])
+                log.info("restored the weights of checkpoint step %d", state["step"])
+                return int(state["step"])
             if hasattr(task, "load_checkpoint_state"):
                 task.load_checkpoint_state(state["model"], state["optimizer"])
             else:
@@ -1017,3 +1030,42 @@ def _restore_with_fallback(root: Path, task, record: bool = True) -> int:
     raise FileNotFoundError(
         f"no intact checkpoint step under {root} (candidates: {steps})"
     ) from last_exc
+
+
+def restore_state(task, checkpoint_dir, *, step: int | None = None, prefer: str = "best",
+                  best_metric: str | None = None, best_mode: str | None = None) -> int:
+    """Restore a ``Trainer`` checkpoint's weights into ``task.model``
+    outside the ``Trainer`` (inference, export); returns the step
+    restored. The optimizer state is dropped.
+
+    ``prefer="best"`` takes the best step by the tracked metric (the
+    task's defaults apply), the latest when no step saved the metric;
+    ``"latest"`` the newest. Steps are verified against their manifests:
+    a corrupt preferred step falls back to the newest intact one, as the
+    ``Trainer``'s resume walks, while a pinned ``step=`` that fails
+    verification raises, since serving other weights than the ones asked
+    for by name would be worse than an error.
+    """
+    if prefer not in ("best", "latest"):
+        raise ValueError(f"prefer must be 'best' or 'latest', got {prefer!r}")
+    root = Path(checkpoint_dir)
+    all_steps = sorted(integrity.list_steps(root), reverse=True)
+    if step is not None:
+        if step not in all_steps:
+            raise FileNotFoundError(f"no checkpoint step {step} under {checkpoint_dir} "
+                                    f"(steps: {all_steps})")
+        status, problems = integrity.verify_step(root / str(step))
+        if status == "corrupt":
+            raise ValueError(f"pinned checkpoint step {step} under {checkpoint_dir} "
+                             f"fails integrity verification: {'; '.join(problems)}")
+        return _restore_with_fallback(root, task, record=False, steps=[step], model_only=True)
+    if not all_steps:
+        raise FileNotFoundError(f"no checkpoints under {checkpoint_dir}")
+    preferred = None
+    if prefer == "best":
+        cfg = TrainerConfig(best_metric=best_metric or task.default_best_metric,
+                            best_mode=best_mode or task.default_best_mode)
+        preferred = _best_on_disk(root, cfg)[1]
+    order = ([preferred] if preferred is not None else []) + [
+        s for s in all_steps if s != preferred]
+    return _restore_with_fallback(root, task, steps=order, model_only=True)

@@ -77,10 +77,13 @@ class SpanLog:
             event["args"] = args
         return event
 
-    def record(self, name: str, ts: float, dur: float, **args) -> dict:
+    def record(self, name: str, ts: float, dur: float, *,
+               trace: "tracecontext.TraceContext | None" = None, **args) -> dict:
         """Record one complete span (``ts`` epoch seconds, ``dur``
-        seconds) whose timing the caller measured."""
-        event = self._event(name, ts, dur, None, args)
+        seconds) whose timing the caller measured. ``trace`` stamps it
+        with an explicit trace context (a worker recording for a request
+        it holds the handoff of); by default the calling thread's."""
+        event = self._event(name, ts, dur, trace, args)
         with self._lock:
             self._events.append(event)
         return event

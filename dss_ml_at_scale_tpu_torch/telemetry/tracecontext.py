@@ -138,6 +138,12 @@ class Handoff:
     def __init__(self, ctx: TraceContext | None = None):
         self.ctx = ctx
 
+    @classmethod
+    def capture(cls) -> "Handoff":
+        """Snapshot the calling thread's current context (the image
+        scheduler carries a request's trace to its worker threads)."""
+        return cls(current())
+
     @contextlib.contextmanager
     def activate(self) -> Iterator[TraceContext | None]:
         if self.ctx is None:

@@ -1,10 +1,11 @@
 """Sliding-window quantile sketch: live p50/p99 over the last window.
 
 Port copy of ``dss_ml_at_scale_tpu/telemetry/windows.py``, cut to what the
-LM serving path reads: :class:`SlidingQuantile` (the registry's ``window``
-kind and the SLO engine's sources) with its wire snapshot for
-``GET /telemetry``. The windowed counter and the wire merge (fleet
-federation) are not ported yet.
+serving paths read: :class:`SlidingQuantile` (the registry's ``window``
+kind and the SLO engine's sources) and :class:`WindowedCounter` (the
+good/bad counts of the image tier's events objectives), with their wire
+snapshots for ``GET /telemetry``. The wire merge (fleet federation) is
+not ported yet.
 
 A rotating ring of ``sub_windows`` digests, each a fixed log-bucket count
 vector plus count/sum/min/max, merged on read. Memory is constant,
@@ -96,6 +97,41 @@ class _Digest:
         self.mn = math.inf
         self.mx = -math.inf
         self.worst_trace: str | None = None
+
+class WindowedCounter:
+    """A windowed sum: how much of something happened in the last
+    ``window_s`` seconds (requests, errors)."""
+
+    _guarded_by_lock = ("_ring",)
+
+    def __init__(self, window_s: float = DEFAULT_WINDOW_S,
+                 sub_windows: int = DEFAULT_SUB_WINDOWS,
+                 clock: Callable[[], float] | None = None):
+        if window_s <= 0:
+            raise ValueError(f"window_s must be > 0, got {window_s}")
+        if sub_windows < 2:
+            raise ValueError(f"sub_windows must be >= 2, got {sub_windows}")
+        self.window_s = float(window_s)
+        self._dt = self.window_s / int(sub_windows)
+        self._clock = clock if clock is not None else time.monotonic
+        self._lock = threading.Lock()
+        self._ring = _RingState(int(sub_windows), float, self._clock())
+
+    def add(self, n: float = 1.0) -> None:
+        now = self._clock()
+        with self._lock:
+            self._ring.advance(now, self._dt, float)
+            self._ring.slots[self._ring.index] += n
+
+    def total(self) -> float:
+        now = self._clock()
+        with self._lock:
+            self._ring.advance(now, self._dt, float)
+            return float(sum(self._ring.slots))
+
+    def to_wire(self) -> dict:
+        return {"v": WIRE_VERSION, "kind": "windowed_counter", "window_s": self.window_s,
+                "total": self.total()}
 
 
 class SlidingQuantile:

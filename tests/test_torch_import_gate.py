@@ -6,7 +6,8 @@ generation over HTTP on the CPU through the real model, writes a 16-row
 image table and trains the pallas-level ``tiny-bottleneck`` on it through
 the port's ``train`` entry (crop 32, on the CPU, supervised: a fault plan
 poisons one step, which is discarded and its rows quarantined, and the
-run is journaled in a run store), takes one LM train step
+run is journaled in a run store), serves one JPEG from that checkpoint
+through the image server, takes one ``vit-tiny`` train step, one LM train step
 through the ``lm`` entry with a checkpoint and one more after restoring it
 (``--resume``), generates a demand table and forecasts it (``datagen
 demand`` and ``forecast`` on the CPU), and then lists what got loaded. A second check runs one
@@ -62,6 +63,21 @@ with contextlib.redirect_stdout(out):
                      "--crop", "32", "--num-classes", "4", "--epochs", "1", "--device", "cpu",
                      "--health-policy", "skip", "--checkpoint-dir", work + "/tck"]) == 0
 train = json.loads(out.getvalue().strip().splitlines()[-1])
+from dss_ml_at_scale_tpu_torch.workloads.serving import Predictor, serve_in_thread
+import pyarrow.parquet as pq
+from dss_ml_at_scale_tpu_torch.data import DeltaTable
+jpeg = pq.read_table(DeltaTable(work + "/t").file_uris()[0]).column("content")[0].as_py()
+with serve_in_thread(Predictor(work + "/tck", micro_batch=4, device="cpu")) as handle:
+    conn = http.client.HTTPConnection("127.0.0.1", handle.port, timeout=60)
+    conn.request("POST", "/predict", jpeg, {"Content-Type": "image/jpeg"})
+    predicted = json.loads(conn.getresponse().read())
+    conn.close()
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli.main(["train", "--data", work + "/t", "--model", "vit-tiny", "--batch-size", "16",
+                     "--crop", "32", "--num-classes", "4", "--epochs", "1", "--device", "cpu",
+                     "--no-tracking"]) == 0
+vit = json.loads(out.getvalue().strip().splitlines()[-1])
 lm = []
 for epochs, extra in (("1", []), ("2", ["--resume"])):
     out = io.StringIO()
@@ -87,7 +103,7 @@ with contextlib.redirect_stdout(out):
                      "--device", "cpu", "--no-tracking"]) == 0
 forecast = out.getvalue().strip().splitlines()[-1]
 print(json.dumps({"done": lines[-1], "train": train, "lm": lm, "forecast": forecast,
-                  "modules": sorted(sys.modules)}))
+                  "predicted": predicted, "vit": vit, "modules": sorted(sys.modules)}))
 """
 
 
@@ -115,6 +131,9 @@ def test_port_serves_a_generation_without_jax():
     assert [r["steps"] for r in report["lm"]] == [1, 2, 1]  # the last: --ffn moe
     assert report["forecast"].startswith("forecast: 5 groups, 265 rows, mse ")
     assert report["lm"][1]["best_checkpoint"] is not None
+    (pred,) = report["predicted"]["predictions"]  # the image server scored one JPEG
+    assert 0 <= pred["pred_index"] < 4 and 0 < pred["pred_prob"] <= 1
+    assert report["vit"]["steps"] == 1 and report["vit"]["train_loss"] > 0
     loaded = [m for m in report["modules"] if _forbidden(m)]
     assert loaded == []
     assert "dss_ml_at_scale_tpu_torch.ops.flash_attention" in report["modules"]
@@ -123,7 +142,9 @@ def test_port_serves_a_generation_without_jax():
                  "resilience.preemption", "tracking.store", "ops.sarimax", "ops.kalman",
                  "ops.neldermead", "ops.bfgs", "ops.arma", "datagen.demand",
                  "parallel.group_apply", "workloads.forecasting", "models.moe",
-                 "parallel.ring", "parallel.pipeline", "models.pipelined_lm"):
+                 "parallel.ring", "parallel.pipeline", "models.pipelined_lm",
+                 "models.vit", "serving.scheduler", "serving.batcher",
+                 "config.checkpoints", "workloads.serving"):
         assert f"dss_ml_at_scale_tpu_torch.{name}" in report["modules"]
 
 

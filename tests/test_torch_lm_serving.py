@@ -567,7 +567,8 @@ def test_control_plane_routes(lm_server):
     assert "# TYPE lm_ttft_window_seconds summary" in text
     status, body = _get(handle.port, "/slo")
     names = {o["name"] for o in json.loads(body)["objectives"]}
-    assert status == 200 and names == {"ttft_p99", "inter_token_p99"}
+    assert status == 200 and names == {"serving_latency_p99", "serving_error_rate",
+                                       "ttft_p99", "inter_token_p99"}
     status, body = _get(handle.port, "/telemetry")
     doc = json.loads(body)
     assert status == 200 and "ttft_p99" in doc["slo_sources"]["sources"]

@@ -179,9 +179,6 @@ def test_n_tokens_zero_returns_prompt(pair):
     # a group to shard the sequence over.
     (dict(ffn="moe"), "num_experts >= 1"),
     (dict(attention="ring"), "needs group"),
-    # Not in JAX: a ring model's MoE would route each sequence shard apart
-    # from the global batch, so the port refuses the pair.
-    (dict(ffn="moe", num_experts=2, attention="ring", group=object()), "not supported"),
     (dict(attention="bogus"), "unknown attention"),
 ])
 def test_unported_options_raise(kw, match):
