@@ -18,8 +18,10 @@ Phases (any failure exits non-zero; there is no CPU path):
    card, in bf16, at the serving shapes (b=1, h=8, d=128, causal, seq 128,
    512, 1024), the LM training shape (causal b8 h8 s2048 d128) plus a
    non-causal, an ``sq < sk``, a d=64 and a d=32 case (the ``lm``
-   command's default head dim); atol 2e-2, and a mean error under one bf16
-   spacing of the mean output. One
+   command's default head dim), and heads the kernel has no tile for,
+   zero-padded to 32 (d8 and d16 at b1 h4 s24 and s128, and d8 at the
+   full_stack pipeline's lm shape, b8 h4 s24); atol 2e-2, and a mean error
+   under one bf16 spacing of the mean output. One
    f32 case holds the kernel's f32 variant, which serving does not take,
    to atol 2e-5. Median times (CUDA events) of the kernel, the plain version and
    ``scaled_dot_product_attention`` (the library yardstick, never called
@@ -130,12 +132,16 @@ Phases (any failure exits non-zero; there is no CPU path):
    ``loss.spike`` (one discarded step); the save and restore times of the
    LM's checkpoint.
 15. group-fit (no kernel: plain batched PyTorch on the card): ``datagen
-   demand`` and ``forecast`` at their defaults through the CLI (the
-   reference's 50 SKUs x 157 weeks, the full 75-order grid, max_iter 200,
-   bfgs_iter 100): 50 groups, 7,850 rows, every Demand_Fitted finite, 1
-   chunk, the tracked run FINISHED; wall time, skus/s, NM iterations, peak
-   memory and the card's idle share (``nvidia-smi`` utilization sampled
-   every 200 ms, read over the forecast's wall_s and over the command). The card against the CPU in float64 on 4 of those SKUs
+   demand`` and ``forecast`` at their defaults (the reference's 50 SKUs x
+   157 weeks, the full 75-order grid, max_iter 200, bfgs_iter 100), run as
+   ``pipelines/demand_forecasting.json`` through the port's ``pipeline``
+   (which also runs ``datagen bom``; this run takes the place of the
+   phase's own two CLI calls, to keep the script's time): 50 groups, 7,850
+   rows, every Demand_Fitted finite, 1 chunk, the tracked run FINISHED, the
+   bom and sku_mapper tables written; wall time, skus/s, NM iterations,
+   peak memory and the card's idle share (``nvidia-smi`` utilization
+   sampled every 200 ms, read over the forecast's wall_s and over the
+   task). The card against the CPU in float64 on 4 of those SKUs
    (max orders 1/1/1, max_iter 20, bfgs_iter 5): winning orders equal,
    params within 1e-6 relative. The golden fixture in float32: loglike
    and predict at the pinned points with the JAX test's tolerances, and
@@ -145,6 +151,29 @@ Phases (any failure exits non-zero; there is no CPU path):
    its shortfall is printed and held finite. At the 1,024-group chunk
    shape (230,400 lanes): one NM iteration's ms, one BFGS
    value-and-gradient's seconds and peak memory.
+15a. tpe (no kernel): ``forecast --search tpe --max-evals 2`` (the
+   reference's 10 cut for time) through the CLI on that table at the
+   default bounds: 7,850 finite rows, the run FINISHED with max_evals
+   logged; seconds per round, the projected cost of 10 rounds, the idle
+   share. An 8-group panel at max orders 1/1/1, ``max_evals`` 3, on the
+   card in float64 against the CPU in float64: identical per-group
+   histories (losses within 1e-6 relative), best orders, Demand_Fitted
+   within 1e-6 relative.
+15b. eda (no kernel): ``eda --polish --max-evals 2 --parallelism 2`` (the
+   CLI's 10 and 10 cut for time), with ``--plot`` where matplotlib
+   imports (whether it does is printed), on the table's first SKU: 7 rows,
+   every mse finite and positive, the best order inside the bounds, the
+   PNG, 2 journaled trials; the wall time and its split over the families.
+   Each Holt-Winters variant's recursion at the golden fixture's pinned
+   parameters and its forecast, card against CPU in float64, within 1e-9.
+15c. pipeline (the job DAG): ``full_stack.json`` and
+   ``imagenet_train.json`` unchanged through the port's ``pipeline
+   --task-device cuda``, each in its own workdir, to ``pipeline ok`` with
+   every output they name (forecast table, predictions, ``weights.npz``,
+   the lm line's ``sample_mean_true_prob``, the train line's
+   ``val_top2_acc``); K4 counted by full_stack's ``lm`` task at head_dim 8;
+   a spec with a failing task skips its dependent and returns 1;
+   ``real_photos_train.json`` as ``--dry-run`` only; each task's seconds.
 16. moe-lm: ``lm --ffn moe --num-experts 8 --aux-loss-weight 0.01`` at the
    LM-training width (capacity factor 1.25), 2 epochs of 4 steps, 2 val
    batches, checkpoints, ``--sample 16``: K4's launches exactly (4 per train
@@ -210,7 +239,8 @@ Phases (any failure exits non-zero; there is no CPU path):
    at most 5% of tokens routed apart; the qkv, w_up and router gradients within
    5e-2 of max-abs on tokens routed alike (the one-process model given the
    ranks' routing) and equal on both ranks.
-24. a ``kernels`` JSON line, the card line, and the device JSON line last.
+24. the script's total seconds, a ``kernels`` JSON line, the card line, and
+   the device JSON line last.
 """
 
 from __future__ import annotations
@@ -260,6 +290,7 @@ LM_TRAIN = ["--vocab", "8192", "--dim", "1024", "--heads", "8", "--layers", "4",
 LM_STEPS, LM_VAL, LM_SAMPLE = 6, 2, 16
 LM_GRADS = 5e-2  # per-block qkv weight gradients, flash vs reference, of max-abs
 SM_COUNT = 132  # set from the card in main()
+T_START = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -332,23 +363,30 @@ def kernel_phase(torch, F) -> list[dict]:
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        ("causal b1 h8 s128 d128", 1, 128, 128, 128, True, bf16),
-        ("causal b1 h8 s512 d128", 1, 512, 512, 128, True, bf16),
-        ("causal b1 h8 s1024 d128", 1, 1024, 1024, 128, True, bf16),
-        ("non-causal b1 h8 s512 d128", 1, 512, 512, 128, False, bf16),
-        ("causal b1 h8 sq256 sk1024 d128", 1, 256, 1024, 128, True, bf16),
-        ("causal b1 h8 s512 d64", 1, 512, 512, 64, True, bf16),
-        ("causal b1 h8 s1024 d32", 1, 1024, 1024, 32, True, bf16),
+        ("causal b1 h8 s128 d128", 1, 8, 128, 128, 128, True, bf16),
+        ("causal b1 h8 s512 d128", 1, 8, 512, 512, 128, True, bf16),
+        ("causal b1 h8 s1024 d128", 1, 8, 1024, 1024, 128, True, bf16),
+        ("non-causal b1 h8 s512 d128", 1, 8, 512, 512, 128, False, bf16),
+        ("causal b1 h8 sq256 sk1024 d128", 1, 8, 256, 1024, 128, True, bf16),
+        ("causal b1 h8 s512 d64", 1, 8, 512, 512, 64, True, bf16),
+        ("causal b1 h8 s1024 d32", 1, 8, 1024, 1024, 32, True, bf16),
         # The LM training shape.
-        ("causal b8 h8 s2048 d128", 8, 2048, 2048, 128, True, bf16),
+        ("causal b8 h8 s2048 d128", 8, 8, 2048, 2048, 128, True, bf16),
         # The f32 kernel: off the serving path, held to the f32 contract.
-        ("f32 causal b1 h8 s512 d128", 1, 512, 512, 128, True, f32),
+        ("f32 causal b1 h8 s512 d128", 1, 8, 512, 512, 128, True, f32),
+        # Heads the kernel has no tile for, zero-padded to 32: d8 is the
+        # full_stack pipeline's lm (--dim 32 --heads 4), at its shape last.
+        ("causal b1 h4 s24 d8", 1, 4, 24, 24, 8, True, bf16),
+        ("causal b1 h4 s128 d8", 1, 4, 128, 128, 8, True, bf16),
+        ("causal b1 h4 s24 d16", 1, 4, 24, 24, 16, True, bf16),
+        ("causal b1 h4 s128 d16", 1, 4, 128, 128, 16, True, bf16),
+        ("causal b8 h4 s24 d8", 8, 4, 24, 24, 8, True, bf16),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for name, b, sq, sk, d, causal, dtype in cases:
+    for name, b, h, sq, sk, d, causal, dtype in cases:
         def mk(s):
-            return torch.randn(b, 8, s, d, generator=gen, device="cuda",
+            return torch.randn(b, h, s, d, generator=gen, device="cuda",
                                dtype=dtype)
 
         q, k, v = mk(sq), mk(sk), mk(sk)
@@ -370,8 +408,8 @@ def kernel_phase(torch, F) -> list[dict]:
             mask = (torch.arange(sq, device="cuda")[:, None] + (sk - sq)
                     >= torch.arange(sk, device="cuda")[None, :])
         pairs = sq * (sk - sq + 1) + sq * (sq - 1) // 2 if causal else sq * sk
-        flops = 4 * b * 8 * d * pairs  # Q·Kᵀ and P·V over the visible pairs
-        nbytes = b * 8 * d * (2 * sq + 2 * sk) * q.element_size()  # q, k, v read; o written
+        flops = 4 * b * h * d * pairs  # Q·Kᵀ and P·V over the visible pairs
+        nbytes = b * h * d * (2 * sq + 2 * sk) * q.element_size()  # q, k, v read; o written
         t_ops = flops / PEAK_FLOPS[str(dtype).removeprefix("torch.")]
         t_bytes = nbytes / PEAK_BYTES
         row = {
@@ -381,7 +419,7 @@ def kernel_phase(torch, F) -> list[dict]:
             "atol": atol,
             "mean_rel_err": mean_rel,
         }
-        if dtype == bf16 and causal and sq == sk and b == 1:
+        if dtype == bf16 and causal and sq == sk and b == 1 and h == 8:
             # A serving bucket: the split plan's launch against one CTA per
             # query tile, both held to the same limits; the split output
             # must be the same from run to run.
@@ -393,7 +431,7 @@ def kernel_phase(torch, F) -> list[dict]:
             check(werr.max().item() <= atol, f"{name}: unsplit max abs err {werr.max().item()}")
             check(werr.mean().item() / ref.float().abs().mean().item() <= MEAN_REL,
                   f"{name}: unsplit mean abs err over the limit")
-            plan = fa.split_plan(b * 8, sq, sk, causal, SM_COUNT)
+            plan = fa.split_plan(b * h, sq, sk, causal, SM_COUNT)
             row["split_items"] = None if plan is None else len(plan[0])
             row["split_ms"] = device_ms(lambda: fa._launch(q, k, v, causal, split=True))
             row["nosplit_ms"] = device_ms(lambda: fa._launch(q, k, v, causal, split=False))
@@ -1734,13 +1772,72 @@ def _util_samples(text: str) -> list[tuple[float, float]]:
     return rows
 
 
-def group_fit_phase(torch, card: str) -> dict:
-    """``datagen demand`` and ``forecast`` at their defaults through the
-    CLI on the card; the card against the CPU in float64 and against the
-    golden fixture in float32; one Nelder-Mead iteration and one BFGS
-    value-and-gradient at the 1,024-group chunk shape."""
+def _port_env(**extra) -> dict:
+    """The environment of a subprocess of the port's CLI: the checkout on
+    the path."""
     import os
 
+    root = str(Path(__file__).resolve().parent)
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p), **extra)
+
+
+CLI = [sys.executable, "-m", "dss_ml_at_scale_tpu_torch.config.cli"]
+
+
+def _sampled(cmd: list[str], timeout: float, **kw):
+    """Run ``cmd`` with ``nvidia-smi`` sampling the card's utilization every
+    200 ms; returns ``(CompletedProcess, wall s, [(epoch s, util %)])``.
+    The utilization is the fraction of each sample period in which a
+    kernel was running."""
+    sampler = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,utilization.gpu", "--format=csv,noheader,nounits",
+         "-lms", "200"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, **kw)
+    finally:
+        wall = time.perf_counter() - t0
+        sampler.terminate()
+        samples, _ = sampler.communicate(timeout=60)
+    return proc, wall, _util_samples(samples)
+
+
+def _idle(util, lo: float, hi: float) -> tuple[float, int]:
+    """The card's idle share over ``[lo, hi]`` (epoch s), and the samples."""
+    inside = [u for t, u in util if lo <= t <= hi]
+    check(len(inside) > 0, "no nvidia-smi sample inside the window")
+    return round(1.0 - sum(inside) / len(inside) / 100.0, 3), len(inside)
+
+
+def _task_seconds(text: str) -> dict:
+    """``{task_key: seconds}`` from the pipeline runner's ``[key] ok (Xs)`` lines."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("[") and "] ok (" in line:
+            key = line[1:line.index("]")]
+            out[key] = float(line.rsplit("(", 1)[1].rstrip("s)"))
+    return out
+
+
+def run_spec(spec: Path, work: Path, timeout: float, *extra: str):
+    """``pipeline --spec`` through the port's CLI with ``--task-device cuda``,
+    every task's runs in ``work/runs``; returns ``(CompletedProcess, wall s,
+    utilization samples)``."""
+    return _sampled(CLI + ["pipeline", "--spec", str(spec), "--workdir", str(work),
+                           "--task-device", "cuda", *extra],
+                    timeout, cwd=work, env=_port_env(DSST_TRACKING_ROOT=str(work / "runs")))
+
+
+def group_fit_phase(torch, card: str) -> dict:
+    """``datagen demand`` and ``forecast`` at their defaults on the card, run
+    as ``pipelines/demand_forecasting.json`` through the port's ``pipeline``
+    (the spec's two commands at the same size, plus its ``datagen bom``;
+    this run takes the place of the phase's own two CLI calls, to keep the
+    script's time); the card against the CPU in float64 and against the
+    golden fixture in float32; one Nelder-Mead iteration and one BFGS
+    value-and-gradient at the 1,024-group chunk shape. Returns the spec's
+    run for the pipeline phase under ``"spec_run"``."""
     import numpy as np
 
     from dss_ml_at_scale_tpu_torch.ops import bfgs, sarimax as sx
@@ -1750,70 +1847,54 @@ def group_fit_phase(torch, card: str) -> dict:
 
     out: dict = {}
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_groupfit_"))
-    root = str(Path(__file__).resolve().parent)
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (root, os.environ.get("PYTHONPATH")) if p))
-    cli = [sys.executable, "-m", "dss_ml_at_scale_tpu_torch.config.cli"]
 
-    # 1. The main path at the reference's size, through the CLI.
-    t0 = time.perf_counter()
-    gen = subprocess.run(cli + ["datagen", "demand", "--out", str(work / "demand")], env=env,
-                         capture_output=True, text=True, timeout=600)
-    check(gen.returncode == 0, f"datagen demand failed: {gen.stderr[-2000:]}")
-    check(f"50 SKUs × 157 weeks = {GF_ROWS} rows" in gen.stdout,
-          f"datagen demand: {gen.stdout.strip()}")
-    out["datagen_s"] = round(time.perf_counter() - t0, 2)
-    runs = work / "runs"
-    # The card's busy share: nvidia-smi's utilization is the fraction of
-    # each sample period in which a kernel was running. Each sample carries
-    # nvidia-smi's local time, so the share is read over the forecast's own
-    # wall_s (Delta read, grid fit, Delta write) and, apart, over the whole
-    # command with its process start.
-    sampler = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=timestamp,utilization.gpu", "--format=csv,noheader,nounits",
-         "-lms", "200"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    t0 = time.perf_counter()
-    try:
-        fc = subprocess.run(cli + ["forecast", "--data", str(work / "demand"), "--out",
-                                   str(work / "forecast"), "--tracking-root", str(runs)],
-                            env=env, capture_output=True, text=True, timeout=900)
-    finally:
-        wall = time.perf_counter() - t0
-        sampler.terminate()
-        samples, _ = sampler.communicate(timeout=60)
-    check(fc.returncode == 0, f"forecast failed: {fc.stderr[-3000:]}")
-    last = fc.stdout.strip().splitlines()[-1]
-    check(last.startswith(f"forecast: {GF_GROUPS} groups, {GF_ROWS} rows, mse "),
-          f"forecast line: {last}")
-    table = _read_delta(work / "forecast")
+    # 1. The main path at the reference's size: the demand_forecasting spec.
+    spec = Path(__file__).resolve().parent / "pipelines" / "demand_forecasting.json"
+    proc, wall, util = run_spec(spec, work, 1800)
+    check(proc.returncode == 0 and proc.stdout.strip().endswith("pipeline ok"),
+          f"demand_forecasting pipeline failed:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    tasks = _task_seconds(proc.stdout)
+    check(f"50 SKUs × 157 weeks = {GF_ROWS} rows" in proc.stdout,
+          f"datagen demand: {proc.stdout[-2000:]}")
+    out["datagen_s"] = tasks["generate_demand"]
+    fc_lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("forecast: ")]
+    check(len(fc_lines) == 1 and fc_lines[0].startswith(
+        f"forecast: {GF_GROUPS} groups, {GF_ROWS} rows, mse "), f"forecast line: {fc_lines}")
+    table = _read_delta(work / "part_level_demand_with_forecasts")
     fitted = table.column("Demand_Fitted").to_numpy()
     check(table.num_rows == GF_ROWS, f"forecast table has {table.num_rows} rows")
     check(bool(np.isfinite(fitted).all()), "forecast: non-finite Demand_Fitted")
-    (run_dir,) = list((runs / "forecasting").iterdir())
+    bom, mapper = _read_delta(work / "bom"), _read_delta(work / "sku_mapper")
+    check(bom.num_rows > 0 and mapper.num_rows == GF_GROUPS,
+          f"bom {bom.num_rows} edges, sku_mapper {mapper.num_rows} rows")
+    (run_dir,) = list((work / "runs" / "forecasting").iterdir())
     meta = json.loads((run_dir / "meta.json").read_text())
     check(meta["status"] == "FINISHED", f"forecast run is {meta['status']}")
     records = {m["name"]: m for m in map(json.loads, (
         run_dir / "metrics.jsonl").read_text().splitlines())}
     metrics = {k: m["value"] for k, m in records.items()}
     check(metrics["grid_chunks"] == 1, f"forecast took {metrics['grid_chunks']} chunks")
-    util = _util_samples(samples)
+    # The card's busy share over the forecast's own wall_s (Delta read, grid
+    # fit, Delta write) and, apart, over the whole forecast task.
     fit_end = records["wall_s"]["ts"]
-    fit_util = [u for t, u in util if fit_end - metrics["wall_s"] <= t <= fit_end]
-    check(len(fit_util) > 0, "no nvidia-smi sample inside the forecast's wall_s")
+    idle, n_fit = _idle(util, fit_end - metrics["wall_s"], fit_end)
+    idle_cmd, n_cmd = _idle(util, fit_end - tasks["fine_grained_forecasting"], fit_end + 1.0)
     out.update(
-        forecast_wall_s=round(wall, 2), forecast_fit_s=round(metrics["wall_s"], 2),
+        forecast_wall_s=tasks["fine_grained_forecasting"],
+        forecast_fit_s=round(metrics["wall_s"], 2),
         skus_per_s=round(GF_GROUPS / metrics["wall_s"], 3),
         nm_iterations=int(metrics["nm_iterations"]),
         peak_mem_gib=round(metrics["peak_mem_bytes"] / 2 ** 30, 3),
         mse=round(metrics["mse"], 2), grid_chunks=int(metrics["grid_chunks"]),
-        idle_share=round(1.0 - sum(fit_util) / len(fit_util) / 100.0, 3),
-        util_samples=len(fit_util),
-        idle_share_command=round(1.0 - sum(u for _, u in util) / len(util) / 100.0, 3),
-        util_samples_command=len(util), run_status=meta["status"])
-    print(f"group-fit forecast ({card}): {last}", flush=True)
+        idle_share=idle, util_samples=n_fit, idle_share_command=idle_cmd,
+        util_samples_command=n_cmd, run_status=meta["status"], bom_edges=bom.num_rows,
+        demand=str(work / "part_level_demand"),
+        spec_run={"tasks": tasks, "wall_s": round(wall, 2), "bom_edges": bom.num_rows,
+                  "sku_mappings": mapper.num_rows, "forecast_rows": table.num_rows})
+    print(f"group-fit forecast ({card}): {fc_lines[0]}", flush=True)
 
     # 2. The card against the CPU, float64, at a small config.
-    demand = add_exo_variables(_read_delta(work / "demand"))
+    demand = add_exo_variables(_read_delta(work / "part_level_demand"))
     padded = pad_groups(demand, ["Product", "SKU"], ["Demand", *EXO_FIELDS], sort_by="Date")
     y = padded.values["Demand"]
     exog = np.stack([padded.values[f] for f in EXO_FIELDS], -1)
@@ -1910,6 +1991,380 @@ def group_fit_phase(torch, card: str) -> dict:
                                             3))
     del obj, f, g
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The forecasting track's search: TPE, eda, and the job DAG
+# ---------------------------------------------------------------------------
+
+TPE_EVALS = 2  # the reference's --max-evals 10, cut for the script's time
+TPE_F64 = dict(GF_F64)  # the card-vs-CPU panel's config (max orders 1/1/1)
+TPE_F64_GROUPS, TPE_F64_EVALS, TPE_F64_TOL = 8, 3, 1e-6
+# The CLI's --max-evals 10, --parallelism 10 and --max-iter 200, cut for the
+# script's time: each SARIMAX fit is bound by the host's dispatch.
+EDA_EVALS, EDA_PARALLELISM, EDA_MAX_ITER = 2, 2, 50
+EDA_HW_TOL = 1e-9
+HW_GOLDEN = Path(__file__).resolve().parent / "tests" / "fixtures" / "hw_golden.json"
+# Processes started in the background: killed, with their children, when
+# the script exits before it has waited for them (:func:`_track`).
+_CHILDREN: list = []
+
+
+def _kill_children() -> None:
+    import os
+    import signal
+
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)  # its own session: the tasks too
+            except (ProcessLookupError, PermissionError):
+                proc.kill()
+
+
+def _track(proc):
+    import atexit
+
+    if not _CHILDREN:
+        atexit.register(_kill_children)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def _start(cmd: list[str], log: Path, **kw) -> dict:
+    """Start ``cmd`` in its own session, its output in ``log`` (.out/.err)."""
+    out, err = open(log.with_suffix(".out"), "w"), open(log.with_suffix(".err"), "w")
+    proc = _track(subprocess.Popen(cmd, stdout=out, stderr=err, text=True,
+                                   start_new_session=True, **kw))
+    out.close()
+    err.close()
+    return {"proc": proc, "log": log, "t0": time.perf_counter(), "epoch0": time.time()}
+
+
+def _wait(run: dict, timeout: float, what: str):
+    """Wait for a :func:`_start`ed run; ``(CompletedProcess, wall s)``."""
+    try:
+        rc = run["proc"].wait(timeout=max(1.0, run["t0"] + timeout - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        fail(f"{what} did not finish within {timeout} s")
+    log = run["log"]
+    # From the start to the output's last write: the run may have ended
+    # before this wait began.
+    wall = log.with_suffix(".out").stat().st_mtime - run["epoch0"]
+    return subprocess.CompletedProcess(run["proc"].args, rc, log.with_suffix(".out").read_text(),
+                                       log.with_suffix(".err").read_text()), wall
+
+
+def _run_dir(runs: Path, experiment: str) -> tuple[Path, dict, dict, dict]:
+    """The one run of ``experiment``: its directory, meta, params and metric
+    records by name."""
+    (run_dir,) = list((runs / experiment).iterdir())
+    meta = json.loads((run_dir / "meta.json").read_text())
+    params = json.loads((run_dir / "params.json").read_text())
+    records: dict = {}
+    for m in map(json.loads, (run_dir / "metrics.jsonl").read_text().splitlines()):
+        records.setdefault(m["name"], []).append(m)
+    return run_dir, meta, params, records
+
+
+def tpe_phase(torch, card: str, demand: str) -> dict:
+    """``forecast --search tpe`` through the CLI on the group-fit phase's
+    reference-size table (50 SKUs x 157 weeks) at the default order bounds
+    and max_iter, alone on the card, with ``--max-evals 2`` where the
+    reference takes 10 (a round is one batched fit bound by the host's
+    dispatch, ~45 s; PERF.md states the cost of 10): 7,850 finite rows,
+    the run FINISHED with ``max_evals`` logged; seconds per round, the
+    projected cost of 10, the card's idle share."""
+    import numpy as np
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tpe_"))
+    runs = work / "runs"
+    t0 = time.time()
+    proc, wall, util = _sampled(CLI + ["forecast", "--data", demand, "--out", str(work / "f"),
+                                       "--search", "tpe", "--max-evals", str(TPE_EVALS),
+                                       "--tracking-root", str(runs)], 1500, env=_port_env())
+    check(proc.returncode == 0, f"forecast --search tpe failed: {proc.stderr[-3000:]}")
+    last = proc.stdout.strip().splitlines()[-1]
+    check(last.startswith(f"forecast: {GF_GROUPS} groups, {GF_ROWS} rows, mse "),
+          f"tpe forecast line: {last}")
+    table = _read_delta(work / "f")
+    check(table.num_rows == GF_ROWS, f"tpe forecast table has {table.num_rows} rows")
+    check(bool(np.isfinite(table.column("Demand_Fitted").to_numpy()).all()),
+          "tpe forecast: non-finite Demand_Fitted")
+    _, meta, params, records = _run_dir(runs, "forecasting")
+    check(meta["status"] == "FINISHED", f"tpe forecast run is {meta['status']}")
+    check(params.get("max_evals") == TPE_EVALS and params.get("search") == "tpe",
+          f"tpe run params: max_evals {params.get('max_evals')}, search {params.get('search')}")
+    rounds = [m["value"] for m in sorted(records["tpe_round_s"], key=lambda m: m["step"])]
+    check(len(rounds) == TPE_EVALS, f"{len(rounds)} TPE rounds logged")
+    fit_s, fit_end = records["wall_s"][-1]["value"], records["wall_s"][-1]["ts"]
+    idle, n = _idle(util, fit_end - fit_s, fit_end)
+    idle_cmd, n_cmd = _idle(util, t0, t0 + wall)
+    print(f"tpe forecast ({card}): {last}", flush=True)
+    return {"wall_s": round(wall, 2), "fit_s": round(fit_s, 2),
+            "round_s": [round(r, 2) for r in rounds],
+            # the refit is one more batched fit, then the predict and the IO
+            "refit_and_io_s": round(fit_s - sum(rounds), 2),
+            "projected_max_evals_10_s": round(fit_s + (10 - TPE_EVALS) * float(np.mean(rounds)),
+                                              1),
+            "idle_share": idle, "util_samples": n, "idle_share_command": idle_cmd,
+            "util_samples_command": n_cmd, "mse": records["mse"][-1]["value"],
+            "peak_mem_gib": round(records["peak_mem_bytes"][-1]["value"] / 2 ** 30, 3)
+            if "peak_mem_bytes" in records else None}
+
+
+def tpe_parity(torch, demand: str) -> dict:
+    """An 8-group panel of the table at max orders 1/1/1, ``max_evals`` 3,
+    through the API on the card in float64 against the CPU in float64:
+    identical per-group histories (losses within 1e-6 relative) and best
+    orders, Demand_Fitted within 1e-6 relative."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from dss_ml_at_scale_tpu_torch.ops.sarimax import SarimaxConfig
+    from dss_ml_at_scale_tpu_torch.workloads.forecasting import (
+        add_exo_variables, tune_and_forecast_panel,
+    )
+
+    full = add_exo_variables(_read_delta(demand))
+    skus = sorted(set(full.column("SKU").to_pylist()))[:TPE_F64_GROUPS]
+    small = full.filter(pc.is_in(full["SKU"], pa.array(skus)))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        stats: dict = {}
+        t0 = time.perf_counter()
+        table = tune_and_forecast_panel(small, cfg=SarimaxConfig(**TPE_F64), search="tpe",
+                                        max_evals=TPE_F64_EVALS, rstate=123, device=dev,
+                                        dtype=torch.float64, stats=stats)
+        res[dev] = (table, stats, time.perf_counter() - t0)
+    (gt, gs, g_s), (ct, cs, c_s) = res["cuda"], res["cpu"]
+    worst = 0.0
+    for g, (a, b) in enumerate(zip(gs["histories"], cs["histories"])):
+        check([p for p, _ in a] == [p for p, _ in b], f"f64 TPE group {g}: points differ")
+        la, lb = np.array([v for _, v in a]), np.array([v for _, v in b])
+        rel = float(np.max(np.abs(la - lb) / np.maximum(np.abs(lb), 1e-300)))
+        check(rel <= TPE_F64_TOL, f"f64 TPE group {g}: losses differ by {rel:.3g} relative")
+        worst = max(worst, rel)
+    check(gs["best_orders"] == cs["best_orders"],
+          f"f64 TPE best orders: {gs['best_orders']} vs {cs['best_orders']}")
+    fa_, fb = (t.column("Demand_Fitted").to_numpy().astype(np.float64) for t in (gt, ct))
+    frel = float(np.max(np.abs(fa_ - fb) / np.maximum(np.abs(fb), 1.0)))
+    check(frel <= TPE_F64_TOL, f"f64 TPE Demand_Fitted differs by {frel:.3g} relative")
+    return {"f64_groups": len(skus), "f64_loss_rel": worst, "f64_fitted_rel": frel,
+            "f64_best_orders": gs["best_orders"], "f64_card_s": round(g_s, 2),
+            "f64_cpu_s": round(c_s, 2)}
+
+
+def start_side_runs(demand: str) -> dict:
+    """Start, side by side in the background, the ``eda`` command and the
+    pipeline phase's specs (each a chain of processes whose time is mostly
+    the host's; the card idles > 0.85 under each): they share the card
+    and the host's cores while the script goes on with ``tpe_parity``.
+    Their times are measured beside one another."""
+    import importlib
+
+    side: dict = {"sampler": _track(subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,utilization.gpu", "--format=csv,noheader,nounits",
+         "-lms", "200"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True))}
+    try:
+        importlib.import_module("matplotlib")
+        side["plot"], why = True, ""
+    except ImportError as e:
+        side["plot"], why = False, str(e)
+    print(f"eda: import matplotlib {'works' if side['plot'] else 'fails: ' + why}", flush=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_eda_"))
+    argv = CLI + ["eda", "--data", demand, "--max-evals", str(EDA_EVALS), "--parallelism",
+                  str(EDA_PARALLELISM), "--max-iter", str(EDA_MAX_ITER), "--polish",
+                  "--tracking-root", str(work / "runs")]
+    if side["plot"]:
+        argv += ["--plot", str(work / "eda.png")]
+    else:
+        print("eda: --plot not run: matplotlib does not import on this host", flush=True)
+    side["eda"] = {**_start(argv, work / "eda", env=_port_env()), "work": work}
+    root = Path(__file__).resolve().parent / "pipelines"
+    specs = {"full_stack": root / "full_stack.json",
+             "imagenet_train": root / "imagenet_train.json"}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_failing_"))
+    specs["failing"] = work / "failing.json"
+    specs["failing"].write_text(json.dumps({"name": "failing", "timeout_seconds": 600, "tasks": [
+        {"task_key": "bad", "argv": ["datagen", "bom", "--demand", "{workdir}/missing",
+                                     "--out", "{workdir}/b", "--mapper-out", "{workdir}/m"]},
+        {"task_key": "down", "argv": ["forecast", "--data", "{workdir}/d", "--out",
+                                      "{workdir}/f"], "depends_on": ["bad"]}]}))
+    for name, spec in specs.items():
+        work = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{name}_"))
+        side[name] = {**_start(CLI + ["pipeline", "--spec", str(spec), "--workdir", str(work),
+                                      "--task-device", "cuda"], work / "pipeline", cwd=work,
+                               env=_port_env(DSST_TRACKING_ROOT=str(work / "runs"))),
+                      "work": work}
+    return side
+
+
+def eda_phase(torch, card: str, side: dict) -> dict:
+    """``eda --polish --max-evals 2 --parallelism 2 --max-iter 50`` (the
+    CLI's 10, 10 and 200, cut for the script's time: each SARIMAX fit is
+    bound by the host's dispatch), with ``--plot`` where matplotlib
+    imports, on the group-fit table's first SKU (157 weeks, horizon 40,
+    seasonal period 52), run beside the pipeline specs
+    (:func:`start_side_runs`): 7 rows (4 Holt-Winters variants, 2 SARIMAX,
+    1 tuned), every mse finite and positive, the best order inside the
+    bounds, the PNG when asked, the run FINISHED with its 2 trials
+    journaled; the wall time and its split over the families. Then each
+    variant's Holt-Winters recursion at the golden fixture's pinned
+    parameters and the forecast from its states, on the card against the
+    CPU in float64: within 1e-9 relative."""
+    import numpy as np
+
+    from dss_ml_at_scale_tpu_torch.ops import holt_winters as hw
+
+    run = side["eda"]
+    proc, wall = _wait(run, 1200, "eda")
+    check(proc.returncode == 0, f"eda failed: {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    work, png = run["work"], run["work"] / "eda.png"
+    lines = proc.stdout.strip().splitlines()
+    rows = [ln.split() for ln in lines if ln.strip().startswith(("hw_", "sarimax"))]
+    check(len(rows) == 7, f"eda printed {len(rows)} model rows:\n{proc.stdout[-2000:]}")
+    names = [r[0] for r in rows]
+    check({"hw_add", "hw_add_damped", "hw_mul", "hw_mul_damped", "sarimax_exog",
+           "sarimax_no_exog"} <= set(names) and any(n.startswith("sarimax_tuned(")
+                                                     for n in names), f"eda models {names}")
+    mses = [float(r[-1]) for r in rows]
+    check(all(math.isfinite(v) and v > 0 for v in mses), f"eda mse {mses}")
+    best = next(ln for ln in lines if ln.startswith("best SARIMAX order: ("))
+    p, d, q = (int(v) for v in best.split("(")[1].split(")")[0].split(","))
+    check(0 <= p <= 4 and 0 <= d <= 2 and 0 <= q <= 4, f"eda best order {(p, d, q)}")
+    if side["plot"]:
+        check(png.exists() and png.stat().st_size > 5_000, "eda --plot wrote no figure")
+    run_dir, meta, _, _ = _run_dir(work / "runs", "eda")
+    check(meta["status"] == "FINISHED", f"eda run is {meta['status']}")
+    trials = [e for e in map(json.loads, (run_dir / "journal.jsonl").read_text().splitlines())
+              if e.get("event") == "trial"]
+    check(len(trials) == EDA_EVALS, f"eda journaled {len(trials)} trials")
+    seconds = json.loads(lines[-1])
+    out = {"wall_s": round(wall, 2), "scores": dict(zip([n.split("(")[0] if n.startswith(
+        "sarimax_tuned") else n for n in names], mses)), "best_order": [p, d, q],
+        "seconds": {k: round(v, 2) for k, v in seconds.items()}, "plot": side["plot"],
+        "png_bytes": png.stat().st_size if side["plot"] else 0}
+    print(f"eda ({card}): " + " ".join(lines[:1] + [best]), flush=True)
+
+    # Holt-Winters on the card against the CPU, float64, at pinned parameters.
+    fix = json.loads(HW_GOLDEN.read_text())
+    worst = 0.0
+    for name, var in fix["variants"].items():
+        got = {}
+        for dev in ("cuda", "cpu"):
+            y = torch.tensor(fix["y"], dtype=torch.float64, device=dev)
+            pin = tuple(torch.tensor(var["pinned"][k], dtype=torch.float64, device=dev)
+                        for k in ("alpha", "beta", "gamma", "phi"))
+            sse, fitted, level, trend, season = hw._smooth(
+                y, pin, hw._heuristic_init(y, fix["m"], var["seasonal"]), fix["m"],
+                var["seasonal"], var["damped"])
+            res = hw.HoltWintersResult(*pin, torch.tensor(1.0, dtype=torch.float64, device=dev),
+                                       False, hw._SEASONAL_CODES[var["seasonal"]], level,
+                                       trend, season, fitted, sse)
+            got[dev] = (fitted.cpu().numpy(),
+                        hw.holt_winters_forecast(res, fix["h_max"]).cpu().numpy())
+        for a, b in zip(got["cuda"], got["cpu"]):
+            rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-12)))
+            check(rel <= EDA_HW_TOL, f"holt-winters {name}: card vs CPU {rel:.3g} relative")
+            worst = max(worst, rel)
+    out["hw_card_vs_cpu_rel"] = worst
+    return out
+
+
+def _json_lines(text: str) -> list[dict]:
+    rows = []
+    for line in text.splitlines():
+        if line.startswith("{"):
+            try:
+                rows.append(json.loads(line))
+            except ValueError:
+                continue
+    return rows
+
+
+def job_pipeline_phase(torch, card: str, demand_run: dict, side: dict) -> dict:
+    """The port's ``pipeline`` on the card (``--task-device cuda``), each
+    spec unchanged in its own workdir, started side by side with ``eda``
+    (:func:`start_side_runs`): ``full_stack.json`` (every output it names:
+    the forecast table, the predictions, ``weights.npz``, the ``lm`` line's
+    ``sample_mean_true_prob`` with K4's launches counted by the task at
+    head_dim 8, the train line's ``val_top2_acc``) and
+    ``imagenet_train.json`` to ``pipeline ok``; ``demand_forecasting.json``
+    ran alone in the group-fit phase (``demand_run``). A spec whose first
+    task fails skips its dependent and returns 1; ``real_photos_train.json``
+    runs as ``--dry-run`` only (its ``ingest`` and ``datagen photos`` are
+    not ported yet). Each task's seconds, and the card's idle share over
+    the side-by-side runs."""
+    import numpy as np
+
+    out: dict = {"demand_forecasting": demand_run}
+    proc, wall = _wait(side["full_stack"], 2400, "full_stack pipeline")
+    work = side["full_stack"]["work"]
+    check(proc.returncode == 0 and proc.stdout.strip().endswith("pipeline ok"),
+          f"full_stack pipeline failed:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    lines = _json_lines(proc.stdout)
+    lm = next((j for j in lines if "sample_mean_true_prob" in j), None)
+    train = next((j for j in lines if "val_top2_acc" in j), None)
+    check(lm is not None and 0.0 < lm["sample_mean_true_prob"] <= 1.0, f"full_stack lm: {lm}")
+    check(train is not None and 0.0 <= train["val_top2_acc"] <= 1.0,
+          f"full_stack train: {train}")
+    # 1 layer: one launch per train step (10), per val batch (5) and for
+    # the --sample prefill.
+    want = 1 * (10 + 5 + 1)
+    check(lm["flash_launches"] == want,
+          f"full_stack lm: K4 launched {lm['flash_launches']} times, want {want}")
+    fc = _read_delta(work / "forecasts")
+    check(fc.num_rows == 265 and bool(np.isfinite(fc.column("Demand_Fitted").to_numpy()).all()),
+          f"full_stack forecasts: {fc.num_rows} rows")
+    preds = _read_delta(work / "predictions")
+    check(preds.num_rows == 128, f"full_stack predictions: {preds.num_rows} rows")
+    check((work / "weights.npz").stat().st_size > 0, "full_stack: no weights.npz")
+    out["full_stack"] = {
+        "tasks": _task_seconds(proc.stdout), "wall_s": round(wall, 2),
+        "lm_flash_launches": lm["flash_launches"],
+        "sample_mean_true_prob": lm["sample_mean_true_prob"],
+        "val_top2_acc": train["val_top2_acc"], "predictions": preds.num_rows}
+
+    proc, wall = _wait(side["imagenet_train"], 1800, "imagenet_train pipeline")
+    check(proc.returncode == 0 and proc.stdout.strip().endswith("pipeline ok"),
+          f"imagenet_train pipeline failed:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    preds = _read_delta(side["imagenet_train"]["work"] / "predictions")
+    check(preds.num_rows == 256, f"imagenet_train predictions: {preds.num_rows} rows")
+    train = next(j for j in _json_lines(proc.stdout) if "val_acc" in j)
+    check(train["steps"] == 32 and math.isfinite(train["train_loss"]),
+          f"imagenet_train train: {train}")
+    out["imagenet_train"] = {"tasks": _task_seconds(proc.stdout), "wall_s": round(wall, 2),
+                             "val_acc": train["val_acc"], "predictions": preds.num_rows}
+
+    proc, wall = _wait(side["failing"], 600, "failing pipeline")
+    check(proc.returncode == 1 and "[bad] FAILED (exit" in proc.stdout
+          and "[down] SKIPPED (failed dependency bad)" in proc.stdout
+          and "pipeline failed: bad (skipped: down)" in proc.stdout,
+          f"failing spec: rc {proc.returncode}\n{proc.stdout[-2000:]}")
+    check(not (side["failing"]["work"] / "f").exists(), "failing spec: the skipped task ran")
+    out["failing"] = {"rc": proc.returncode, "wall_s": round(wall, 2)}
+    side["sampler"].terminate()
+    samples, _ = side["sampler"].communicate(timeout=60)
+    util = _util_samples(samples)
+    out["side_by_side_idle_share"] = _idle(util, 0, float("inf"))[0]
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_photos_"))
+    proc = subprocess.run(CLI + ["pipeline", "--spec", str(Path(__file__).resolve().parent
+                                                            / "pipelines"
+                                                            / "real_photos_train.json"),
+                                 "--workdir", str(work), "--dry-run"], capture_output=True,
+                          text=True, timeout=300, env=_port_env())
+    plan = [ln.split()[0] for ln in proc.stdout.strip().splitlines()]
+    check(proc.returncode == 0 and plan == ["gen_photos", "ingest", "train", "predict"],
+          f"real_photos dry run: {proc.stdout[-1000:]}")
+    out["real_photos_dry_run"] = plan
+    out["demand_forecasting"] = demand_run
+    for name in ("demand_forecasting", "full_stack", "imagenet_train"):
+        print(f"pipeline {name} task seconds ({card}): {json.dumps(out[name]['tasks'])}",
+              flush=True)
     return out
 
 
@@ -3168,8 +3623,28 @@ def main() -> int:
         print(f"resilience supervision cost, {name} step ms, off vs skip, in turns "
               f"({card}): off {c['off_ms']} skip {c['skip_ms']}", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     group_fit = group_fit_phase(torch, card)
     print(f"group-fit ({card}): " + json.dumps(group_fit), flush=True)
+    print(f"group-fit phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tpe = tpe_phase(torch, card, group_fit["demand"])
+    print(f"tpe phase (alone on the card): {time.perf_counter() - t0:.1f} s", flush=True)
+    # eda and the pipeline specs run side by side in the background while
+    # this process holds the TPE search on the card against the CPU.
+    t0 = time.perf_counter()
+    side = start_side_runs(group_fit["demand"])
+    tpe.update(tpe_parity(torch, group_fit["demand"]))
+    print(f"tpe ({card}): " + json.dumps(tpe), flush=True)
+    torch.cuda.empty_cache()
+    eda = eda_phase(torch, card, side)
+    print(f"eda ({card}): " + json.dumps(eda), flush=True)
+    t1 = time.perf_counter()
+    jobs = job_pipeline_phase(torch, card, group_fit.pop("spec_run"), side)
+    print(f"pipeline ({card}): " + json.dumps(jobs), flush=True)
+    print(f"tpe parity, eda and pipeline phases side by side: {time.perf_counter() - t0:.1f} s "
+          f"(after eda {time.perf_counter() - t1:.1f} s)", flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     moe_lm = moe_lm_phase(torch, card)
@@ -3195,11 +3670,13 @@ def main() -> int:
         "replaces": "dss_ml_at_scale_tpu/ops/flash_attention.py:70",
         "launches": (serving["launches"] + lm_train["launches"] + lm_dp["launches"]
                      + res_lm["launches"] + moe_lm["launches"]
-                     + sum(moe_dp["launches_per_rank"])),
+                     + sum(moe_dp["launches_per_rank"])
+                     + jobs["full_stack"]["lm_flash_launches"]),
         "launches_by_path": {"serving": serving["launches"], "lm_train": lm_train["launches"],
                              "lm_dp": lm_dp["launches"], "resilience": res_lm["launches"],
                              "moe_lm": moe_lm["launches"],
-                             "moe_dp_per_rank": moe_dp["launches_per_rank"]},
+                             "moe_dp_per_rank": moe_dp["launches_per_rank"],
+                             "pipeline": jobs["full_stack"]["lm_flash_launches"]},
         "training": {k: train_case[k] for k in ("shape", "max_abs_err", "mean_rel_err", "ms",
                                                 "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")},
@@ -3240,6 +3717,7 @@ def main() -> int:
             "shape": head["shape"],
             "cases": fused[key],
         })
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

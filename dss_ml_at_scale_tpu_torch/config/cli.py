@@ -40,17 +40,27 @@ Ports of the JAX package's commands (``config/commands.py``):
   the number of processes divides ``--num-experts``.
 - ``datagen demand`` and ``forecast``: the group-fit track. The weekly
   ARMA demand panel as a Delta table, then every SKU's SARIMAX tuned over
-  the full (p, d, q) grid, fitted and forecast on the card, with the JAX
-  command's flags and defaults plus ``--device``. ``--no-mesh`` is
-  accepted (one process drives one card); ``--search tpe``,
-  ``--max-evals`` and ``--rstate`` raise an error naming the ROADMAP item
-  that brings them.
+  the full (p, d, q) grid (or by the reference's per-SKU TPE, ``--search
+  tpe --max-evals --rstate``), fitted and forecast on the card, with the
+  JAX command's flags and defaults plus ``--device``. ``--no-mesh`` is
+  accepted (one process drives one card); ``--max-evals`` and
+  ``--rstate`` are accepted and ignored under grid, as in JAX.
+- ``eda``: single-SKU model selection (four Holt-Winters variants, SARIMAX
+  with and without exog, a TPE search of the order in ``--parallelism``
+  concurrent trials), with the JAX command's flags and defaults plus
+  ``--device``; ``--polish`` refines the ranked fits in float64 on the
+  host, ``--plot`` writes the comparison figure (needs matplotlib).
+- ``datagen bom``: the random bill-of-materials DAG of the demand table's
+  SKUs, as the bom and sku_mapper Delta tables.
+- ``pipeline``: a JSON task DAG of this CLI's commands, each task a
+  process of its own (:mod:`.pipeline`), with ``--task-device`` for the
+  JAX runner's ``--task-platform``.
 - ``checkpoints verify DIR``, ``quarantine list|clear`` and ``runs
   list|show|doctor [--resume]``: the operator's face of the checkpoint
   manifests, the poison-row blocklist and the run store. They touch no
   device.
 
-``train``, ``lm``, ``forecast`` and ``serve-lm`` journal every run in a run store
+``train``, ``lm``, ``forecast``, ``eda`` and ``serve-lm`` journal every run in a run store
 (:mod:`..tracking`), on by default under ``./dsst_runs`` (or
 ``DSST_TRACKING_ROOT``; ``--no-tracking`` opts out); a command that
 raises closes its run as FAILED. The global ``--fault-plan`` (or
@@ -167,12 +177,16 @@ def build_parser() -> argparse.ArgumentParser:
     sv.set_defaults(fn=_cmd_serve_lm)
     _register_datagen(sub)
     _register_forecast(sub)
+    _register_eda(sub)
     _register_train(sub)
     _register_inference(sub)
     _register_lm(sub)
     _register_checkpoints(sub)
     _register_quarantine(sub)
     _register_runs(sub)
+    from .pipeline import register_pipeline
+
+    register_pipeline(sub)
     return parser
 
 
@@ -217,6 +231,14 @@ def _register_datagen(sub) -> None:
                         "generator itself runs on the host")
     demand.set_defaults(fn=_cmd_datagen_demand)
 
+    bom = gsub.add_parser("bom", help="random 3-level BoM DAG per SKU -> Delta")
+    bom.add_argument("--demand", required=True, help="demand Delta table to take SKUs from")
+    bom.add_argument("--out", required=True, help="bom Delta table path")
+    bom.add_argument("--mapper-out", required=True, help="sku_mapper Delta path")
+    bom.add_argument("--depth", type=int, default=3)
+    bom.add_argument("--seed", type=int, default=123)
+    bom.set_defaults(fn=_cmd_datagen_bom)
+
 
 def _cmd_datagen_demand(args: argparse.Namespace) -> int:
     from ..datagen.demand import DemandConfig, generate_demand, write_demand_delta
@@ -233,10 +255,25 @@ def _cmd_datagen_demand(args: argparse.Namespace) -> int:
     return 0
 
 
-# The forecast flags of the JAX command that wait for the port's hpo/:
-# (flag, attribute, value that means "not asked for").
-_FORECAST_LATER = (("--search tpe", "search", "grid"), ("--max-evals", "max_evals", None),
-                   ("--rstate", "rstate", None))
+def _read_table(path):
+    """A Delta table's latest snapshot as one pyarrow Table."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from ..data.delta import DeltaTable
+
+    return pa.concat_tables(pq.read_table(u) for u in DeltaTable(path).file_uris())
+
+
+def _cmd_datagen_bom(args: argparse.Namespace) -> int:
+    from ..datagen.bom import generate_bom, write_bom_delta
+
+    skus = sorted(set(_read_table(args.demand).column("SKU").to_pylist()))
+    tables = generate_bom(skus, depth=args.depth, seed=args.seed)
+    write_bom_delta(tables, args.out, args.mapper_out)
+    print(f"bom: {tables.bom.num_rows} edges, {tables.sku_mapper.num_rows} sku mappings "
+          f"-> {args.out}, {args.mapper_out}")
+    return 0
 
 
 def _register_forecast(sub) -> None:
@@ -247,13 +284,15 @@ def _register_forecast(sub) -> None:
     fc.add_argument(
         "--search", choices=("grid", "tpe"), default="grid",
         help="grid: fit the full (p,d,q) order grid in chunks with the argmin "
-        "on the card (exact optimum); tpe is not ported yet")
+        "on the card (exact optimum); tpe: the reference's per-SKU TPE, one "
+        "batched fit of every SKU per round")
     fc.add_argument("--chunk-size", type=int, default=None,
                     help="groups per grid-fused chunk (default: min(G, 1024))")
-    fc.add_argument("--max-evals", type=int, default=None,
-                    help="TPE rounds (--search tpe only; not ported yet)")
+    fc.add_argument("--max-evals", type=int, default=10,
+                    help="TPE rounds (--search tpe only)")
     fc.add_argument("--horizon", type=int, default=40, help="holdout weeks")
-    fc.add_argument("--rstate", type=int, default=None, help="TPE seed (not ported yet)")
+    fc.add_argument("--rstate", type=int, default=123,
+                    help="TPE seed of every SKU's search (--search tpe only)")
     fc.add_argument("--no-mesh", action="store_true",
                     help="accepted for the JAX command's sake: one process drives one card")
     _add_tracking_args(fc, "forecasting")
@@ -267,36 +306,30 @@ def _register_forecast(sub) -> None:
 
 
 def run_forecast(args: argparse.Namespace) -> dict:
-    """What ``forecast`` does, returning its summary; raises ``ValueError``
-    for flags the port does not support yet."""
+    """What ``forecast`` does, returning its summary."""
     import time
 
     import numpy as np
-    import pyarrow as pa
-    import pyarrow.parquet as pq
     import torch
 
-    from ..data.delta import DeltaTable, write_delta
+    from ..data.delta import write_delta
     from ..ops.sarimax import SarimaxConfig
     from ..workloads.forecasting import EXO_FIELDS, add_exo_variables, tune_and_forecast_panel
 
-    for flag, attr, off in _FORECAST_LATER:
-        if getattr(args, attr) != off:
-            raise ValueError(f"forecast {flag} is not ported yet: TPE search comes with "
-                             "the port's hpo/ (ROADMAP Queue 1 item 12)")
     t0 = time.perf_counter()
     device = torch.device(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     tracker = _open_tracker(args, "forecast")
     try:
-        table = pa.concat_tables(pq.read_table(u) for u in DeltaTable(args.data).file_uris())
+        table = _read_table(args.data)
         cfg = SarimaxConfig(max_p=args.max_p, max_d=args.max_d, max_q=args.max_q,
                             k_exog=len(EXO_FIELDS), max_iter=args.max_iter)
         stats: dict = {}
-        out = tune_and_forecast_panel(add_exo_variables(table), forecast_horizon=args.horizon,
-                                      cfg=cfg, chunk_size=args.chunk_size, device=device,
-                                      stats=stats)
+        out = tune_and_forecast_panel(add_exo_variables(table), max_evals=args.max_evals,
+                                      forecast_horizon=args.horizon, rstate=args.rstate,
+                                      cfg=cfg, search=args.search,
+                                      chunk_size=args.chunk_size, device=device, stats=stats)
         write_delta(out, args.out, mode="overwrite")
     except BaseException:
         fail_active_tracker()
@@ -306,16 +339,23 @@ def run_forecast(args: argparse.Namespace) -> dict:
            - out.column("Demand_Fitted").to_numpy().astype(np.float64))
     summary = {
         "groups": stats["groups_fitted"], "rows": out.num_rows,
-        "mse": float((err ** 2).mean()), "wall_s": wall,
-        "grid_chunks": stats["grid_chunks"], "nm_iterations": stats["nm_iterations"],
+        "mse": float((err ** 2).mean()), "wall_s": wall, "search": args.search,
         "device": str(device),
     }
+    if args.search == "grid":
+        summary.update(grid_chunks=stats["grid_chunks"], nm_iterations=stats["nm_iterations"])
+    else:
+        summary.update(tpe_rounds=stats["tpe_rounds"], round_seconds=stats["round_seconds"])
     if device.type == "cuda":
         summary["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
     if tracker is not None:
-        tracker.log_params({"search": args.search, "horizon": args.horizon,
-                            "groups": summary["groups"]})
-        tracker.log_metrics({k: v for k, v in summary.items() if k != "device"}, step=0)
+        tracker.log_params({"search": args.search, "max_evals": args.max_evals,
+                            "horizon": args.horizon, "groups": summary["groups"]})
+        tracker.log_metrics({k: v for k, v in summary.items()
+                             if isinstance(v, (int, float)) and not isinstance(v, bool)},
+                            step=0)
+        for i, sec in enumerate(summary.get("round_seconds", ())):
+            tracker.log_metrics({"tpe_round_s": sec}, step=i)
     _finish_tracker(tracker)
     return summary
 
@@ -323,13 +363,71 @@ def run_forecast(args: argparse.Namespace) -> dict:
 def _cmd_forecast(args: argparse.Namespace) -> int:
     if _no_card(args.device):
         return 1
-    try:
-        s = run_forecast(args)
-    except ValueError as e:
-        print(json.dumps({"error": str(e)}), flush=True)
-        return 1
+    s = run_forecast(args)
     print(f"forecast: {s['groups']} groups, {s['rows']} rows, mse {s['mse']:.2f}, "
           f"{s['wall_s']:.1f}s -> {args.out}", flush=True)
+    return 0
+
+
+def _register_eda(sub) -> None:
+    eda = sub.add_parser(
+        "eda", help="single-SKU model comparison: Holt-Winters vs SARIMAX vs tuned")
+    eda.add_argument("--data", required=True, help="demand Delta table")
+    eda.add_argument("--product", default=None)
+    eda.add_argument("--sku", default=None, help="defaults to the first SKU")
+    eda.add_argument("--horizon", type=int, default=40)
+    eda.add_argument("--seasonal-periods", type=int, default=52)
+    eda.add_argument("--max-evals", type=int, default=10)
+    eda.add_argument("--parallelism", type=int, default=10)
+    eda.add_argument("--max-iter", type=int, default=200)
+    eda.add_argument(
+        "--polish", action="store_true",
+        help="refine the single-SKU SARIMAX fits with the host-side float64 polish "
+        "(closes the f32 unit-root corner)")
+    eda.add_argument(
+        "--plot", default=None, metavar="PATH",
+        help="write the reference-style comparison figure (actual series + top "
+        "models' holdout predictions) to this PNG (needs matplotlib)")
+    _add_tracking_args(eda, "eda")
+    eda.add_argument("--device", default="cuda",
+                     help="torch device of the fits (cuda, cuda:N, or cpu)")
+    eda.set_defaults(fn=_cmd_eda)
+
+
+def _cmd_eda(args: argparse.Namespace) -> int:
+    import time
+
+    import torch
+
+    from ..ops.sarimax import SarimaxConfig
+    from ..workloads.eda import run_eda
+    from ..workloads.forecasting import EXO_FIELDS
+
+    if _no_card(args.device):
+        return 1
+    t0 = time.perf_counter()
+    table = _read_table(args.data)
+    tracker = _open_tracker(args, "eda")
+    report = run_eda(
+        table, product=args.product, sku=args.sku, horizon=args.horizon,
+        seasonal_periods=args.seasonal_periods, max_evals=args.max_evals,
+        parallelism=args.parallelism,
+        cfg=SarimaxConfig(k_exog=len(EXO_FIELDS), max_iter=args.max_iter),
+        polish=args.polish, return_curves=args.plot is not None, tracker=tracker,
+        device=torch.device(args.device))
+    print(f"EDA for Product={report.product} SKU={report.sku} "
+          f"(holdout {args.horizon} weeks)")
+    print(report.to_string())
+    print(f"best SARIMAX order: {report.best_order} (mse {report.best_order_mse:.2f})")
+    if tracker is not None:
+        tracker.log_params({"product": report.product, "sku": report.sku,
+                            "max_evals": args.max_evals, "horizon": args.horizon})
+        tracker.log_metrics({"best_order_mse": report.best_order_mse}, step=args.max_evals)
+    _finish_tracker(tracker)
+    if args.plot:
+        report.plot(args.plot)
+        print(f"comparison figure -> {args.plot}")
+    print(json.dumps({"eda_seconds": time.perf_counter() - t0, **report.seconds}), flush=True)
     return 0
 
 
@@ -1145,6 +1243,7 @@ def _lm(args: argparse.Namespace) -> dict:
         TokenStreamConfig, entropy_floor, token_batches, transition_matrix,
     )
     from ..models import generate, seeded_lm
+    from ..ops import flash_attention
     from ..parallel import LMTask, Trainer, TrainerConfig
     from ..resilience import durability
     from ..runtime import local_topology, process_device
@@ -1226,6 +1325,9 @@ def _lm(args: argparse.Namespace) -> dict:
         summary["sample_tokens"] = out[0].tolist()
         summary["sample_mean_true_prob"] = round(float(np.mean(probs)), 4)
         summary["sample_chance_prob"] = round(1.0 / args.vocab, 4)
+    # This process's launches of the flash kernel (K4): 0 with reference
+    # attention or on the CPU.
+    summary["flash_launches"] = flash_attention.launches
     summary["history"] = result.history
     return summary
 

@@ -50,6 +50,10 @@
 // cutting it. Issuing S of tile j+1 before the softmax of tile j, to overlap
 // the two, made ptxas serialize the wgmmas (C7514/C7515) and ran slower.
 //
+// Narrower heads. The wrapper zero-pads a head_dim under 128 that is not
+// 32, 64 or 128 up to the next of them and passes the true 1/sqrt(d): zero
+// columns add nothing to Q·Kᵀ and give zero output columns, which it drops.
+//
 // Head dim 32. A 32-wide bf16 row is 64 bytes, less than the 128-byte
 // swizzle's row, so Q, K and V tiles of D = 32 use the 64-byte swizzle
 // (hopper.cuh, SW64) in the cp.async addresses and the wgmma descriptors;
@@ -469,14 +473,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // kernel takes a split plan (ops/flash_attention.py::split_plan): items
 // [n_items] int4 work items and combine [n_combine] int4 combine entries on
 // the device, part_o [bh, n_slots, 64, d] and part_lse [bh, n_slots, 64] f32
-// scratch; items null means no split. Launches on `stream` and returns
+// scratch; items null means no split. `scale` multiplies the scores: the
+// caller passes 1/sqrt(head_dim) of the unpadded head, since a head narrower
+// than d arrives zero-padded to d (last, so that a build before it, which
+// ignores it, keeps its ABI). Launches on `stream` and returns
 // cudaGetLastError() (0 when the launches were accepted).
 extern "C" int dsst_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                         int bh, int sq, int sk, int d, int causal, int is_bf16,
                                         const void* items, int n_items, const void* combine,
                                         int n_combine, void* part_o, void* part_lse, int n_slots,
-                                        void* stream) {
-  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(d));
+                                        void* stream, float scale) {
+  const float scale_log2 = kLog2e * scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (d == 32)

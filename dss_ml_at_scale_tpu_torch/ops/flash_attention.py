@@ -39,7 +39,7 @@ import torch
 
 _NEG_INF = -1e30  # finite "minus infinity": avoids inf-inf NaNs in masking
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-_KERNEL_HEAD_DIMS = (32, 64, 128)
+_KERNEL_HEAD_DIMS = (32, 64, 128)  # the kernel's tiles; narrower heads are zero-padded
 _MAX_GRID_Y = 65535  # the f32 kernel puts batch*heads on grid.y
 _Q_TILE, _K_TILE = 64, 64  # query rows of a bf16 kernel CTA; keys of a key tile
 _CTAS_PER_SM = 2  # bf16 kernel CTAs resident on one SM (shared memory bounds it)
@@ -86,9 +86,10 @@ def attention_reference(
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise ``ValueError`` for what the CUDA kernel does not take: mixed
-    devices or dtypes, a dtype other than bf16/f32, a head_dim other than
-    32/64/128, k and v of different shapes, non-contiguous or misaligned
-    storage, or more than 65535 batch*heads."""
+    devices or dtypes, a dtype other than bf16/f32, a head_dim above 128,
+    k and v of different shapes, non-contiguous or misaligned storage, or
+    more than 65535 batch*heads. A head_dim under 128 that is not 32, 64
+    or 128 is taken: :func:`_launch` pads it to the next of them."""
     if not (q.device == k.device == v.device):
         raise ValueError(
             f"q, k, v on different devices: {q.device}, {k.device}, {v.device}"
@@ -97,9 +98,10 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
         raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"flash kernel takes bfloat16 or float32, got {q.dtype}")
-    if q.shape[-1] not in _KERNEL_HEAD_DIMS:
+    if not 0 < q.shape[-1] <= _KERNEL_HEAD_DIMS[-1]:
         raise ValueError(
-            f"flash kernel takes head_dim 32, 64 or 128, got {q.shape[-1]}"
+            f"flash kernel takes head_dim 1..{_KERNEL_HEAD_DIMS[-1]}, got {q.shape[-1]} "
+            "(wider heads are not ported)"
         )
     if k.shape != v.shape or k.shape[:2] + k.shape[3:] != q.shape[:2] + q.shape[3:]:
         raise ValueError(
@@ -235,7 +237,7 @@ def _kernel():
         lib = load("flash_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.dsst_flash_attention_fwd
-        fn.argtypes = [p] * 4 + [i] * 6 + [p, i, p, i, p, p, i, p]
+        fn.argtypes = [p] * 4 + [i] * 6 + [p, i, p, i, p, p, i, p, ctypes.c_float]
         fn.restype = ctypes.c_int
         lib.dsst_flash_attention_smem_bytes.argtypes = [i]
         lib.dsst_flash_attention_smem_bytes.restype = i
@@ -264,10 +266,25 @@ def _device_plan(bh, sq, sk, causal, device):
     return plan
 
 
+def padded_head_dim(d: int) -> int:
+    """The kernel's head_dim for a head of ``d``: the least of 32, 64 and
+    128 that holds it."""
+    return next(w for w in _KERNEL_HEAD_DIMS if w >= d)
+
+
 def _launch(q, k, v, causal: bool, split: bool = True) -> torch.Tensor:
     """Launch the kernel; ``split=False`` ignores the split plan (the
-    measurement of what the plan buys uses it)."""
+    measurement of what the plan buys uses it).
+
+    A head_dim the kernel has no tile for is zero-padded to
+    :func:`padded_head_dim` and the output sliced back: zero columns leave
+    ``q @ k.T`` as it is and give zero output columns. The scale stays
+    ``1/sqrt(d)`` of the true ``d``, passed to the kernel."""
     check_kernel_inputs(q, k, v)
+    d_true = q.shape[-1]
+    d_pad = padded_head_dim(d_true)
+    if d_pad != d_true:
+        q, k, v = (torch.nn.functional.pad(t, (0, d_pad - d_true)) for t in (q, k, v))
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     lib = _kernel()
@@ -286,12 +303,12 @@ def _launch(q, k, v, causal: bool, split: bool = True) -> torch.Tensor:
         rc = lib.dsst_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b * h, sq, k.shape[2], d, int(causal),
-            int(q.dtype == torch.bfloat16), *args, stream,
+            int(q.dtype == torch.bfloat16), *args, stream, 1.0 / math.sqrt(d_true),
         )
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")
     flash_attention.launches += 1
-    return out
+    return out if d_pad == d_true else out[..., :d_true].contiguous()
 
 
 def _masked_scores(q, k, start: int, sk: int, sq: int, causal: bool) -> torch.Tensor:

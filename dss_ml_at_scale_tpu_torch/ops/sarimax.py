@@ -326,10 +326,11 @@ def _lanes(y, exog, order, n_valid):
                               device=y.device).long()
     batch = torch.broadcast_shapes(y.shape[:-1], exog.shape[:-2], order.shape[:-1],
                                    n_valid.shape)
-    N, k = y.shape[-1], exog.shape[-1]
-    return (batch, y.expand(batch + (N,)).reshape(-1, N),
-            exog.expand(batch + (N, k)).reshape(-1, N, k),
-            order.expand(batch + (3,)).reshape(-1, 3), n_valid.expand(batch).reshape(-1))
+    N, k, B = y.shape[-1], exog.shape[-1], batch.numel()
+    # Explicit B: a series without regressors (k = 0) has no element to infer it from.
+    return (batch, y.expand(batch + (N,)).reshape(B, N),
+            exog.expand(batch + (N, k)).reshape(B, N, k),
+            order.expand(batch + (3,)).reshape(B, 3), n_valid.expand(batch).reshape(B))
 
 
 def sarimax_fit(cfg: SarimaxConfig, y, exog, order, n_valid=None) -> SarimaxResult:

@@ -12,6 +12,9 @@ Tables (the port has no pandas). Two execution paths:
    ``(p, d, q)`` order grid in bounded chunks, each chunk one batch of
    (group x order x start) lanes on the card with the per-group argmin
    taken there (:func:`..ops.sarimax.sarimax_fit_grid`).
+
+:func:`batched_fmin` runs one TPE search per group, every round's
+proposals scored in one batch: the device path of ``--search tpe``.
 """
 
 from __future__ import annotations
@@ -291,3 +294,60 @@ def grid_fit_panel(
             outs.append(tuple(leaf[: hi - lo].cpu().numpy() for leaf in res))
         fitted_counter.inc(hi - lo)
     return GridPanelResult(*(np.concatenate(parts) for parts in zip(*outs)), chunks=len(outs))
+
+
+# -- nested HPO, batched ------------------------------------------------------
+
+
+def batched_fmin(
+    evaluate_batch: Callable[[list[dict]], np.ndarray],
+    space,
+    max_evals: int,
+    n_groups: int,
+    rstate: int | np.random.Generator | Sequence = 123,
+    algo=None,
+) -> tuple[list[dict], list[list[tuple[dict, float]]]]:
+    """Run ``n_groups`` independent TPE searches with batched evaluation.
+
+    The reference nests a sequential ``fmin(max_evals=10)`` inside every
+    SKU's UDF. Here each round proposes one point per group (host-side
+    TPE) and ``evaluate_batch`` scores ALL groups at once: one batched
+    SARIMAX fit per round. Each group keeps its own history and proposal
+    stream. ``rstate``: a scalar seeds every group with the same stream
+    (the reference seeds every SKU with 123), a ``Generator`` is spawned
+    into one child per group, a sequence is used as given.
+
+    Returns per-group best points and full histories. A group whose
+    evaluation returns a non-finite loss records nothing that round (a
+    failed trial, kept out of its history).
+    """
+    from ..hpo.tpe import TPE
+
+    algo = algo or TPE()
+    if isinstance(rstate, (int, np.integer)):
+        rngs = [np.random.default_rng(rstate) for _ in range(n_groups)]
+    elif isinstance(rstate, np.random.Generator):
+        # One shared generator would entangle the groups' proposal
+        # streams; spawn independent children instead.
+        rngs = rstate.spawn(n_groups)
+    else:
+        rngs = list(rstate)
+        if len(rngs) != n_groups:
+            raise ValueError(f"need {n_groups} rstates, got {len(rngs)}")
+
+    histories: list[list[tuple[dict, float]]] = [[] for _ in range(n_groups)]
+    for _ in range(max_evals):
+        points = [algo.suggest(space, histories[g], rngs[g]) for g in range(n_groups)]
+        losses = np.asarray(evaluate_batch(points), float)
+        if losses.shape != (n_groups,):
+            raise ValueError(f"evaluate_batch returned {losses.shape}, want ({n_groups},)")
+        for g in range(n_groups):
+            if np.isfinite(losses[g]):
+                histories[g].append((points[g], float(losses[g])))
+
+    best = []
+    for g in range(n_groups):
+        if not histories[g]:
+            raise ValueError(f"group {g}: no successful trials")
+        best.append(min(histories[g], key=lambda pl: pl[1])[0])
+    return best, histories

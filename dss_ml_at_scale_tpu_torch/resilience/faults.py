@@ -29,8 +29,9 @@ gradient is not an exception) poll :func:`fault_fires`, which consumes a
 hit and returns a bool; the call site applies its own corruption.
 
 :data:`KNOWN_SITES` lists the sites the port calls, and no other: the
-JAX package's ``rpc.send`` and ``trial.evaluate`` belong to its RPC and
-HPO layers, which the port does not have. ``tests/test_torch_faults.py``
+JAX package's ``rpc.send`` belongs to its RPC layer, which the port does
+not have yet; ``trial.evaluate`` is the HPO layer's objective site
+(:func:`..hpo.fmin.call_with_protocol`). ``tests/test_torch_faults.py``
 holds the registry and the call sites to each other.
 """
 
@@ -48,6 +49,8 @@ log = logging.getLogger(__name__)
 # The fault-injection surface: site name -> what arming it simulates.
 # The CLI renders the keys into the --fault-plan help text.
 KNOWN_SITES = {
+    "trial.evaluate": "an HPO objective raising mid-trial (permanent, "
+                      "never transport-retried)",
     "checkpoint.save": "a checkpoint write failing before commit",
     "checkpoint.restore": "a checkpoint restore raising (damage the "
                           "manifest cannot see)",

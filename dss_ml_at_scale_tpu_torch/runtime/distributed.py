@@ -27,6 +27,7 @@ from __future__ import annotations
 import datetime
 import logging
 import os
+import time
 
 import torch
 import torch.distributed as dist
@@ -89,9 +90,42 @@ def initialize_distributed(
     return True
 
 
+# How long shutdown waits at its barrier for the other ranks.
+_SHUTDOWN_TIMEOUT_S = 120.0
+
+
 def shutdown_distributed() -> None:
-    """Leave the process group, if this process joined one."""
-    if dist.is_initialized():
+    """Leave the process group, if this process joined one.
+
+    Every rank first meets the others at a barrier, so that no rank tears
+    down its gloo pairs while a peer still uses them. The wait is bounded
+    (``_SHUTDOWN_TIMEOUT_S``): a rank whose peer died or hangs raises
+    ``RuntimeError`` instead of hanging."""
+    if not dist.is_initialized():
+        return
+    timeout = _SHUTDOWN_TIMEOUT_S
+    if dist.get_backend() == "gloo":
+        # gloo's monitored barrier keeps its bound, and leaves nothing
+        # pending that the teardown would wait on.
+        try:
+            dist.monitored_barrier(timeout=datetime.timedelta(seconds=timeout),
+                                   wait_all_ranks=True)
+        finally:
+            dist.destroy_process_group()
+        return
+    # Polled: a pending barrier must not hang this rank.
+    work = dist.barrier(async_op=True)
+    deadline = time.monotonic() + timeout
+    while not work.is_completed() and time.monotonic() < deadline:
+        time.sleep(0.005)
+    if not work.is_completed():
+        # Destroying the group would wait on the pending barrier, so the
+        # group is left to the process's exit.
+        raise RuntimeError(f"shutdown_distributed: the other ranks did not reach the "
+                           f"barrier within {timeout:g} s")
+    try:
+        work.wait()
+    finally:
         dist.destroy_process_group()
 
 

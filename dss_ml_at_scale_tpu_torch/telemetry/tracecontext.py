@@ -144,6 +144,12 @@ class Handoff:
         scheduler carries a request's trace to its worker threads)."""
         return cls(current())
 
+    @classmethod
+    def root(cls, kind: str) -> "Handoff":
+        """A fresh trace not yet active anywhere, for work whose identity is
+        born where it is queued (an HPO trial at its proposal)."""
+        return cls(TraceContext(new_trace_id(), new_span_id(), kind))
+
     @contextlib.contextmanager
     def activate(self) -> Iterator[TraceContext | None]:
         if self.ctx is None:

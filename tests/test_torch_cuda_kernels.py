@@ -31,7 +31,8 @@ def cuda():
 # bf16: the JAX package's bf16 tolerance (tests/test_flash_attention.py:41);
 # f32: its f32 tolerance (:23). The serving buckets (b1 h8 d128 causal,
 # 128/512/1024) and sq < sk take the split path in bf16 on an H100; b8 h8
-# s2048 d128 is the LM training shape; head_dim 32 is the lm CLI's default.
+# s2048 d128 is the LM training shape; head_dim 32 is the lm CLI's default;
+# head_dim 8 (full_stack.json's lm), 16 and 48 run zero-padded to 32/32/64.
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
 @pytest.mark.parametrize("b,h,sq,sk,d,causal", [
     (2, 4, 128, 128, 128, True), (2, 4, 64, 192, 64, True), (2, 4, 96, 96, 128, False),
@@ -39,6 +40,8 @@ def cuda():
     (1, 8, 1024, 1024, 128, True), (1, 8, 256, 1024, 128, True),
     (2, 4, 128, 128, 32, True), (2, 4, 96, 96, 32, False), (2, 4, 64, 192, 32, True),
     (1, 8, 1024, 1024, 32, True), (8, 8, 2048, 2048, 128, True),
+    (1, 4, 24, 24, 8, True), (1, 4, 128, 128, 8, True), (8, 4, 24, 24, 8, True),
+    (1, 4, 24, 24, 16, True), (1, 4, 128, 128, 16, True), (2, 4, 96, 96, 48, False),
 ])
 def test_flash_kernel_matches_plain_version(cuda, dtype, atol, b, h, sq, sk, d, causal):
     def mk(s):
@@ -73,7 +76,7 @@ def test_flash_split_path_is_deterministic_and_matches_unsplit(cuda, sq, sk):
 # The Function's backward (the chunked recompute) against autograd through
 # the plain version, in bf16: 2e-2 of max-abs, the forward's bf16 tolerance.
 @pytest.mark.parametrize("b,h,s,d", [(2, 4, 128, 32), (2, 4, 512, 64), (1, 4, 1024, 128),
-                                     (8, 8, 2048, 128), (2, 4, 2048, 32)])
+                                     (8, 8, 2048, 128), (2, 4, 2048, 32), (8, 4, 24, 8)])
 def test_flash_gradients_match_autograd_through_reference(cuda, b, h, s, d):
     def leaves():
         torch.manual_seed(s + d)
@@ -138,7 +141,8 @@ def test_kernels_opt_in_to_more_than_48kb_of_shared_memory(cuda):
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.randn(1, 2, 64, 96, generator=cuda, device="cuda", dtype=torch.bfloat16)
+    # Heads up to 128 are padded to a tile; wider ones are refused.
+    q = torch.randn(1, 2, 64, 160, generator=cuda, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, q)
     h = torch.randn(1, 2, 64, 64, generator=cuda, device="cuda", dtype=torch.float16)

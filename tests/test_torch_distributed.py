@@ -465,3 +465,80 @@ def test_lm_command_with_a_coordinator_draws_a_trajectory_per_process(tmp_path):
     assert r0["steps"] == r1["steps"] == 2
     assert (r0["process_index"], r1["process_index"], r0["process_count"]) == (0, 1, 2)
     assert r0["val_loss"] == r1["val_loss"] and np.isfinite(r0["train_loss"])
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_shutdown_meets_the_other_ranks_at_a_barrier_before_destroying(monkeypatch, backend):
+    """The order of teardown: the barrier completes, then the group goes."""
+    from dss_ml_at_scale_tpu_torch.runtime import distributed as rt
+
+    calls = []
+
+    class Work:
+        def is_completed(self):
+            calls.append("poll")
+            return True
+
+        def wait(self):
+            calls.append("wait")
+            return True
+
+    monkeypatch.setattr(rt.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(rt.dist, "get_backend", lambda: backend)
+    monkeypatch.setattr(rt.dist, "barrier",
+                        lambda async_op=False: calls.append("barrier") or Work())
+    monkeypatch.setattr(rt.dist, "monitored_barrier",
+                        lambda timeout, wait_all_ranks: calls.append("barrier")
+                        or calls.append("wait"))
+    monkeypatch.setattr(rt.dist, "destroy_process_group", lambda: calls.append("destroy"))
+    rt.shutdown_distributed()
+    assert calls[0] == "barrier" and calls[-2:] == ["wait", "destroy"]
+
+
+_SHUTDOWN = r'''
+import os, sys, time
+from dss_ml_at_scale_tpu_torch import runtime
+
+work, rank, mode = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+runtime.initialize_distributed(f"file://{work}/rdzv", 2, rank, backend="gloo", device="cpu")
+if rank == 1:
+    if mode == "dead":
+        os._exit(0)  # gone without leaving the group
+    time.sleep(3.0 if mode == "late" else 60.0)
+runtime.distributed._SHUTDOWN_TIMEOUT_S = 6.0
+t0 = time.monotonic()
+try:
+    runtime.shutdown_distributed()
+    print("left", round(time.monotonic() - t0, 2))
+except RuntimeError as e:
+    print("raised", round(time.monotonic() - t0, 2), e)
+'''
+
+
+@pytest.mark.parametrize("mode", ["late", "dead", "hung"])
+def test_shutdown_waits_for_a_late_rank_and_raises_within_its_bound_for_a_lost_one(
+        tmp_path, mode):
+    import os
+    import subprocess
+    import sys
+
+    from torch_ranks import ROOT
+
+    script = tmp_path / "shutdown.py"
+    script.write_text(_SHUTDOWN)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(script), str(tmp_path), str(r), mode],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in (0, 1)]
+    try:
+        out0 = procs[0].communicate(timeout=90)[0].split()
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    assert procs[0].returncode in (0, -9), out0
+    if mode == "late":  # rank 1 arrives 3 s late: rank 0 waits for it
+        assert out0[0] == "left" and float(out0[1]) < 6.0
+    else:  # rank 1 died or never arrives: rank 0 raises within the bound
+        assert out0[0] == "raised" and float(out0[1]) < 10.0

@@ -166,6 +166,34 @@ def test_every_called_site_is_declared_and_every_declared_site_called():
     assert set(faults.KNOWN_SITES) <= set(jax_faults.KNOWN_SITES)
 
 
+@pytest.mark.parametrize("spec", ["trial.evaluate=1@2", "trial.evaluate=2"])
+def test_an_injected_trial_fault_fails_one_trial_and_not_the_sweep(spec):
+    """``trial.evaluate`` fails the trial it hits, permanently (no retry),
+    as in JAX (``hpo/fmin.py:118-124``); the sweep runs every eval, and
+    the JAX package's fmin under the same plan fails the same trials."""
+    from dss_ml_at_scale_tpu import hpo as jax_hpo
+    from dss_ml_at_scale_tpu_torch import hpo
+
+    calls = []
+
+    def obj(p):
+        calls.append(p["x"])
+        return p["x"] ** 2
+
+    faults.install_from_spec(spec)
+    got = hpo.fmin(obj, {"x": hpo.hp.uniform("x", -1, 1)}, max_evals=6, rstate=0,
+                   return_argmin=False)
+    jax_faults.install_from_spec(spec)
+    want = jax_hpo.fmin(lambda p: p["x"] ** 2, {"x": jax_hpo.hp.uniform("x", -1, 1)},
+                        max_evals=6, rstate=0, return_argmin=False)
+    status = [t["result"]["status"] for t in got.trials]
+    assert len(status) == 6 and status == [t["result"]["status"] for t in want.trials]
+    failed = [i for i, s in enumerate(status) if s == hpo.STATUS_FAIL]
+    assert failed == ([2] if "@" in spec else [0, 1])
+    assert len(calls) == 6 - len(failed)  # a failed trial never reached the objective
+    assert all("InjectedFault" in got.trials[i]["result"]["error"] for i in failed)
+
+
 @pytest.mark.parametrize("kind", ["manifest", "journal"])
 def test_torn_write_leaves_a_truncated_tmp_and_publishes_nothing(tmp_path, kind):
     target = tmp_path / "x.json"

@@ -163,13 +163,26 @@ def test_kernel_input_checks(bad):
     if bad == "dtype":
         q, k, v = (t.half() for t in (q, k, v))
     elif bad == "head_dim":
-        q, k, v = (torch.zeros(1, 2, 64, 96, dtype=torch.bfloat16) for _ in range(3))
+        q, k, v = (torch.zeros(1, 2, 64, 160, dtype=torch.bfloat16) for _ in range(3))
     elif bad == "contiguous":
         k = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16).transpose(2, 3)
     else:
         v = v.float()
     with pytest.raises(ValueError):
         check_kernel_inputs(q, k, v)
+
+
+@pytest.mark.parametrize("d", [8, 16, 48, 160])
+def test_kernel_checks_take_every_head_dim_up_to_128(d):
+    """Heads the kernel has no tile for are padded (8, 16 -> 32; 48 -> 64);
+    above 128 the check raises with a message."""
+    q, k, v = (torch.zeros(1, 2, 64, d, dtype=torch.bfloat16) for _ in range(3))
+    if d > 128:
+        with pytest.raises(ValueError, match="head_dim 1..128"):
+            check_kernel_inputs(q, k, v)
+        return
+    check_kernel_inputs(q, k, v)
+    assert fa_mod.padded_head_dim(d) == (32 if d <= 32 else 64)
 
 
 # The bf16 kernel's split plan: the three serving buckets (b1 h8), sq < sk,

@@ -14,9 +14,16 @@ commands).
   path (``group_apply`` of ``build_tune_and_score_model``) equals the
   device path; ``pad_groups`` and the group hash equal JAX's.
 - The CLI: ``datagen demand`` then ``forecast --device cpu`` at small
-  bounds write the API's table; ``--device cuda`` without a card and the
-  TPE flags are errors. ``scripts/golden_fit_sweep_torch.py`` needs a card
-  unless ``--device cpu`` is given.
+  bounds write the API's table; ``--device cuda`` without a card is an
+  error; ``--search tpe``, ``--max-evals`` and ``--rstate`` run (the last
+  two ignored under grid), logging ``max_evals``.
+  ``scripts/golden_fit_sweep_torch.py`` needs a card unless ``--device
+  cpu`` is given.
+- TPE (``search="tpe"``, max orders 1/1/1, 3 rounds, float64): the
+  per-group histories (points and losses) and best orders equal JAX's
+  ``_tpe_tune_predict``'s, Demand_Fitted within rtol 1e-4 / atol 1e-3;
+  the grid beats TPE on the holdout; ``forecast --search tpe`` through the
+  CLI writes the API's table.
 """
 
 import contextlib
@@ -319,9 +326,124 @@ def test_golden_sweep_script_on_the_cpu_fits_every_copy(monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--search", "tpe"], ["--max-evals", "10"],
                                    ["--rstate", "123"]], ids=["tpe", "max-evals", "rstate"])
-def test_tpe_flags_are_refused_naming_the_roadmap_item(tmp_path, flags):
-    rc, text = _run(["forecast", "--data", str(tmp_path), "--out", str(tmp_path / "o"),
-                     "--device", "cpu", "--no-tracking", *flags])
-    assert rc == 1
-    err = json.loads(text.strip().splitlines()[-1])["error"]
-    assert "not ported yet" in err and "ROADMAP Queue 1 item 12" in err
+def test_tpe_flags_are_refused_naming_the_roadmap_item(tmp_path, monkeypatch, flags):
+    """Once refused, the TPE flags now run: ``--search tpe`` searches, and
+    ``--max-evals``/``--rstate`` alone are accepted and ignored under grid
+    (as in JAX); each run logs ``max_evals`` with its params."""
+    monkeypatch.setenv("DSST_TRACKING_ROOT", str(tmp_path / "runs"))
+    rc, _ = _run(["datagen", "demand", "--out", str(tmp_path / "d"), "--skus-per-product", "1",
+                  "--years", "1", "--seed", "2", "--device", "cpu"])
+    assert rc == 0
+    small = ["--max-p", "1", "--max-d", "0", "--max-q", "0", "--max-iter", "3", "--horizon", "10"]
+    rc, text = _run(["forecast", "--data", str(tmp_path / "d"), "--out", str(tmp_path / "o"),
+                     "--device", "cpu", *small, *flags, "--max-evals", "2"]
+                    if flags[0] != "--max-evals" else
+                    ["forecast", "--data", str(tmp_path / "d"), "--out", str(tmp_path / "o"),
+                     "--device", "cpu", *small, *flags])
+    assert rc == 0, text
+    assert text.strip().splitlines()[-1].startswith("forecast: 5 groups, 265 rows, mse ")
+    (run,) = (tmp_path / "runs" / "forecasting").iterdir()
+    params = json.loads((run / "params.json").read_text())
+    assert params["search"] == ("tpe" if flags == ["--search", "tpe"] else "grid")
+    assert params["max_evals"] == (10 if flags[0] == "--max-evals" else 2)
+    assert json.loads((run / "meta.json").read_text())["status"] == "FINISHED"
+
+
+# -- TPE search vs JAX's ----------------------------------------------------------
+
+TPE_EVALS = 3
+
+
+@pytest.fixture(scope="module")
+def jax_tpe(jax_panel):
+    """JAX's ``_tpe_tune_predict`` on the panel in float64, its per-group
+    histories recorded from its ``batched_fmin``."""
+    _, _, (y, exog, n_train, n_valid) = jax_panel
+    seen = {}
+
+    def recording(*args, **kwargs):
+        best, hist = jax_ga.batched_fmin(*args, **kwargs)
+        seen.update(best=best, histories=hist)
+        return best, hist
+
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        mp.setattr(jax_fc, "batched_fmin", recording)
+        preds = jax_fc._tpe_tune_predict(jax_sx.SarimaxConfig(**CFG), y, exog, n_train, n_valid,
+                                         len(y), max_evals=TPE_EVALS, rstate=123, mesh=None,
+                                         axis_name="data")
+    return np.asarray(preds), seen
+
+
+@pytest.fixture(scope="module")
+def port_tpe(frame):
+    stats = {}
+    out = fc.tune_and_forecast_panel(fc.add_exo_variables(_arrow(frame)),
+                                     forecast_horizon=HORIZON, cfg=sx.SarimaxConfig(**CFG),
+                                     search="tpe", max_evals=TPE_EVALS, rstate=123, stats=stats,
+                                     **F64)
+    return out, stats
+
+
+def test_tpe_panel_matches_jax_histories_and_forecast(jax_panel, jax_tpe, port_tpe):
+    """float64 on the CPU: the same (p, d, q) per group per round, the same
+    losses to 1e-6, the same best orders; Demand_Fitted within the panel
+    bar (rtol 1e-4, atol 1e-3)."""
+    want_frame, _, (_, _, _, n_valid) = jax_panel
+    preds, seen = jax_tpe
+    got, stats = port_tpe
+    assert stats["tpe_rounds"] == TPE_EVALS and len(stats["round_seconds"]) == TPE_EVALS
+    assert len(stats["histories"]) == len(seen["histories"]) == 6
+    for g, (mine, theirs) in enumerate(zip(stats["histories"], seen["histories"])):
+        assert [pt for pt, _ in mine] == [pt for pt, _ in theirs], f"group {g}"
+        np.testing.assert_allclose([l for _, l in mine], [l for _, l in theirs], rtol=1e-6)
+    assert stats["best_orders"] == [(b["p"], b["d"], b["q"]) for b in seen["best"]]
+    want = np.concatenate([preds[i, : n_valid[i]] for i in range(6)])
+    fitted = got.column("Demand_Fitted").to_numpy()
+    assert np.isfinite(fitted).all()
+    np.testing.assert_allclose(fitted, want, rtol=1e-4, atol=1e-3)
+    for col in ("Product", "SKU", "Demand"):
+        assert got.column(col).to_pylist() == want_frame[col].tolist()
+
+
+def test_grid_beats_tpe_on_holdout():
+    """Twin of ``tests/test_group_apply.py``'s: per group, the grid's exact
+    argmin scores at least as well on the holdout as TPE's 3 samples."""
+    cfg = sx.SarimaxConfig(max_p=1, max_d=1, max_q=1, k_exog=3, max_iter=20, bfgs_iter=0)
+    table = fc.add_exo_variables(_arrow(_demand_frame(np.random.default_rng(0), n_sku=3,
+                                                      weeks=40)))
+    kw = dict(forecast_horizon=8, cfg=cfg, **F64)
+    grid = fc.tune_and_forecast_panel(table, **kw)
+    tpe = fc.tune_and_forecast_panel(table, max_evals=3, search="tpe", **kw)
+    assert grid.num_rows == tpe.num_rows == table.num_rows
+    sku = np.array(grid.column("SKU").to_pylist())
+    for s in np.unique(sku):
+        idx = np.flatnonzero(sku == s)[-8:]
+        mse = [float(np.mean((t.column("Demand").to_numpy()[idx].astype(np.float64)
+                              - t.column("Demand_Fitted").to_numpy()[idx]) ** 2))
+               for t in (grid, tpe)]
+        assert mse[0] <= mse[1] + 1e-2, (s, mse)
+    with pytest.raises(ValueError, match="search"):
+        fc.tune_and_forecast_panel(table, search="bogus", **kw)
+
+
+def test_tpe_forecast_through_the_cli_on_the_cpu(tmp_path, monkeypatch):
+    monkeypatch.setenv("DSST_TRACKING_ROOT", str(tmp_path / "runs"))
+    rc, _ = _run(["datagen", "demand", "--out", str(tmp_path / "d"), "--skus-per-product", "1",
+                  "--years", "1", "--seed", "2", "--device", "cpu"])
+    assert rc == 0
+    rc, text = _run(["forecast", "--data", str(tmp_path / "d"), "--out", str(tmp_path / "f"),
+                     "--search", "tpe", "--max-evals", "2", "--rstate", "7", "--max-p", "1",
+                     "--max-d", "1", "--max-q", "0", "--max-iter", "4", "--horizon", "10",
+                     "--device", "cpu"])
+    assert rc == 0, text
+    import pyarrow.parquet as pq
+
+    from dss_ml_at_scale_tpu_torch.datagen.demand import DemandConfig, generate_demand
+
+    written = pa.concat_tables(pq.read_table(u) for u in DeltaTable(tmp_path / "f").file_uris())
+    demand = generate_demand(DemandConfig(n_skus_per_product=1, ts_length_years=1, seed=2))
+    cfg = sx.SarimaxConfig(max_p=1, max_d=1, max_q=0, k_exog=3, max_iter=4)
+    api = fc.tune_and_forecast_panel(fc.add_exo_variables(demand), forecast_horizon=10,
+                                     cfg=cfg, search="tpe", max_evals=2, rstate=7, device="cpu")
+    assert written.equals(api) and written.num_rows == 265
+    assert np.isfinite(written.column("Demand_Fitted").to_numpy()).all()

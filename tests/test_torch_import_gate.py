@@ -10,7 +10,8 @@ run is journaled in a run store), serves one JPEG from that checkpoint
 through the image server, takes one ``vit-tiny`` train step, one LM train step
 through the ``lm`` entry with a checkpoint and one more after restoring it
 (``--resume``), generates a demand table and forecasts it (``datagen
-demand`` and ``forecast`` on the CPU), and then lists what got loaded. A second check runs one
+demand`` and ``forecast`` on the CPU, by the grid and by TPE), runs a tiny
+``eda`` and a ``pipeline --dry-run``, and then lists what got loaded. A second check runs one
 data-parallel ``train`` step in two processes (gloo on the CPU, meeting at
 a ``file://`` rendezvous), each of which lists what it loaded. The static
 scan reads every source file of the port (``runtime/`` and ``native/``
@@ -102,7 +103,26 @@ with contextlib.redirect_stdout(out):
                      "--max-d", "1", "--max-q", "0", "--max-iter", "3", "--horizon", "10",
                      "--device", "cpu", "--no-tracking"]) == 0
 forecast = out.getvalue().strip().splitlines()[-1]
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli.main(["forecast", "--data", work + "/d", "--out", work + "/ft", "--search", "tpe",
+                     "--max-evals", "2", "--max-p", "1", "--max-d", "0", "--max-q", "0",
+                     "--max-iter", "3", "--horizon", "10", "--device", "cpu",
+                     "--no-tracking"]) == 0
+tpe = out.getvalue().strip().splitlines()[-1]
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli.main(["eda", "--data", work + "/d", "--horizon", "13", "--seasonal-periods", "13",
+                     "--max-evals", "1", "--parallelism", "1", "--max-iter", "3",
+                     "--device", "cpu", "--no-tracking"]) == 0
+eda = out.getvalue().strip().splitlines()
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli.main(["pipeline", "--spec", "pipelines/full_stack.json", "--workdir", work,
+                     "--dry-run", "--task-device", "cpu"]) == 0
+plan = out.getvalue().strip().splitlines()
 print(json.dumps({"done": lines[-1], "train": train, "lm": lm, "forecast": forecast,
+                  "tpe": tpe, "eda": eda, "plan": plan,
                   "predicted": predicted, "vit": vit, "modules": sorted(sys.modules)}))
 """
 
@@ -130,6 +150,12 @@ def test_port_serves_a_generation_without_jax():
     assert report["train"]["train_loss"] > 0
     assert [r["steps"] for r in report["lm"]] == [1, 2, 1]  # the last: --ffn moe
     assert report["forecast"].startswith("forecast: 5 groups, 265 rows, mse ")
+    assert report["tpe"].startswith("forecast: 5 groups, 265 rows, mse ")
+    assert report["eda"][0].startswith("EDA for Product=")
+    assert sum(ln.strip().startswith(("hw_", "sarimax")) for ln in report["eda"]) == 7
+    assert [ln.split()[0] for ln in report["plan"]] == [
+        "gen_demand", "gen_images", "train_lm_and_sample", "forecast", "train_classifier",
+        "predict", "export_weights"]
     assert report["lm"][1]["best_checkpoint"] is not None
     (pred,) = report["predicted"]["predictions"]  # the image server scored one JPEG
     assert 0 <= pred["pred_index"] < 4 and 0 < pred["pred_prob"] <= 1
@@ -144,7 +170,9 @@ def test_port_serves_a_generation_without_jax():
                  "parallel.group_apply", "workloads.forecasting", "models.moe",
                  "parallel.ring", "parallel.pipeline", "models.pipelined_lm",
                  "models.vit", "serving.scheduler", "serving.batcher",
-                 "config.checkpoints", "workloads.serving"):
+                 "config.checkpoints", "workloads.serving", "hpo.tpe", "hpo.fmin",
+                 "hpo.space", "parallel.trials", "ops.holt_winters", "workloads.eda",
+                 "config.pipeline"):
         assert f"dss_ml_at_scale_tpu_torch.{name}" in report["modules"]
 
 
@@ -202,7 +230,10 @@ def test_static_scan_covers_runtime_and_native():
             "ops/kalman.py", "ops/arma.py", "ops/neldermead.py", "ops/bfgs.py",
             "ops/sarimax.py", "datagen/demand.py", "parallel/group_apply.py",
             "workloads/forecasting.py", "models/moe.py", "parallel/ring.py",
-            "parallel/pipeline.py", "models/pipelined_lm.py"} <= names
+            "parallel/pipeline.py", "models/pipelined_lm.py", "hpo/__init__.py",
+            "hpo/space.py", "hpo/hp.py", "hpo/tpe.py", "hpo/fmin.py", "parallel/trials.py",
+            "ops/holt_winters.py", "ops/polish.py", "workloads/eda.py", "datagen/bom.py",
+            "config/pipeline.py"} <= names
 
 
 def _sources():
