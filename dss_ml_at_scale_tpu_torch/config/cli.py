@@ -55,12 +55,24 @@ Ports of the JAX package's commands (``config/commands.py``):
 - ``pipeline``: a JSON task DAG of this CLI's commands, each task a
   process of its own (:mod:`.pipeline`), with ``--task-device`` for the
   JAX runner's ``--task-platform``.
+- ``datagen photos`` and ``ingest``: the front of Track A. Real-photograph
+  JPEG crops (the two sample photographs kept in the package) as an
+  ImageNet-style tree, and a tree turned into a Delta table with stable
+  ids, labels and ``labels.json``, with the JAX commands' flags. Host work.
+- ``datagen regression``, ``hpo`` and ``trial-worker``: the distributed HPO
+  track. A byte-sized regression as an ``.npz``; the Lasso TPE sweep in
+  its three regimes (closure, ``--data`` shared filesystem, ``--workers``
+  over the RPC control plane), with ``--resume-auto`` from the run
+  journal; a worker process that serves trials, printing its address.
+  ``hpo`` adds ``--device``: local trials are pinned to the card (every
+  card of the host for a bare ``cuda``), as JAX pins them to its local
+  devices; the objective itself is host numpy.
 - ``checkpoints verify DIR``, ``quarantine list|clear`` and ``runs
   list|show|doctor [--resume]``: the operator's face of the checkpoint
   manifests, the poison-row blocklist and the run store. They touch no
   device.
 
-``train``, ``lm``, ``forecast``, ``eda`` and ``serve-lm`` journal every run in a run store
+``train``, ``lm``, ``forecast``, ``eda``, ``hpo`` and ``serve-lm`` journal every run in a run store
 (:mod:`..tracking`), on by default under ``./dsst_runs`` (or
 ``DSST_TRACKING_ROOT``; ``--no-tracking`` opts out); a command that
 raises closes its run as FAILED. The global ``--fault-plan`` (or
@@ -184,6 +196,8 @@ def build_parser() -> argparse.ArgumentParser:
     _register_checkpoints(sub)
     _register_quarantine(sub)
     _register_runs(sub)
+    _register_ingest(sub)
+    _register_hpo(sub)
     from .pipeline import register_pipeline
 
     register_pipeline(sub)
@@ -238,6 +252,259 @@ def _register_datagen(sub) -> None:
     bom.add_argument("--depth", type=int, default=3)
     bom.add_argument("--seed", type=int, default=123)
     bom.set_defaults(fn=_cmd_datagen_bom)
+
+    reg = gsub.add_parser("regression", help="byte-targeted synthetic regression -> npz")
+    reg.add_argument("--bytes", type=float, required=True, dest="n_bytes")
+    reg.add_argument("--out", required=True, help="output .npz path")
+    reg.set_defaults(fn=_cmd_datagen_regression)
+
+    ph = gsub.add_parser(
+        "photos",
+        help="real-photograph JPEG crops (two CC-BY sample photos kept in the package) "
+        "as an ImageNet-style file tree for ingest")
+    ph.add_argument("--out", required=True, help="tree root (files go in Data/)")
+    ph.add_argument("--n", type=int, default=192)
+    ph.add_argument("--size", type=int, default=96)
+    ph.add_argument("--seed", type=int, default=0)
+    ph.set_defaults(fn=_cmd_datagen_photos)
+
+
+def _cmd_datagen_regression(args: argparse.Namespace) -> int:
+    from ..datagen.regression import gen_data
+    from ..hpo.shipping import save_shared
+
+    X_train, X_test, y_train, y_test = gen_data(int(args.n_bytes))
+    path = save_shared(args.out, X_train=X_train, X_test=X_test, y_train=y_train,
+                       y_test=y_test)
+    print(f"regression: {len(X_train)}+{len(X_test)} samples -> {path}")
+    return 0
+
+
+def _cmd_datagen_photos(args: argparse.Namespace) -> int:
+    from ..datagen.photos import CLASSES, write_photo_tree
+
+    n = write_photo_tree(args.out, args.n, size=args.size, seed=args.seed)
+    print(f"photos: {n} real-photo JPEG crops, {len(CLASSES)} classes, {args.size}px "
+          f"-> {args.out}")
+    return 0
+
+
+def _register_ingest(sub) -> None:
+    ing = sub.add_parser("ingest", help="image dataset directory -> Delta table with stable ids")
+    ing.add_argument("--data-root", required=True)
+    ing.add_argument("--out", required=True, help="Delta table path")
+    ing.add_argument("--pattern", default="*.JPEG")
+    ing.add_argument("--label-from", choices=["path", "annotation"], default="path")
+    ing.add_argument("--rows-per-fragment", type=int, default=1024)
+    ing.add_argument("--append", action="store_true")
+    ing.add_argument(
+        "--allow-unlabeled", action="store_true",
+        help="ingest rows with no determinable label as label_index=-1 instead of failing "
+        "(filter them before training)")
+    ing.set_defaults(fn=_cmd_ingest)
+
+
+def _cmd_ingest(args: argparse.Namespace) -> int:
+    from ..ingest import ingest_image_dataset
+
+    table = ingest_image_dataset(
+        args.data_root, args.out, file_pattern=args.pattern, label_from=args.label_from,
+        rows_per_fragment=args.rows_per_fragment,
+        mode="append" if args.append else "overwrite",
+        on_missing_label="keep" if args.allow_unlabeled else "error")
+    print(f"ingested {table.num_records()} rows -> {args.out}")
+    return 0
+
+
+def _register_hpo(sub) -> None:
+    hp_ = sub.add_parser("hpo", help="distributed TPE sweep over a Lasso objective "
+                         "(the data-size playbook)")
+    hp_.add_argument("--data", default=None,
+                     help=".npz from `datagen regression` (shared-FS shipping); omit to "
+                     "generate in-process (closure shipping)")
+    hp_.add_argument("--bytes", type=float, default=1e6, dest="n_bytes")
+    hp_.add_argument("--parallelism", type=int, default=2)
+    hp_.add_argument("--max-evals", type=int, default=4)
+    hp_.add_argument("--workers", default=None,
+                     help="comma-separated trial-worker host:port addresses; runs the sweep "
+                     "over the RPC control plane (requires --data on a path every worker "
+                     "can read)")
+    hp_.add_argument("--secret-file", default=None,
+                     help="file holding the shared RPC secret (or env DSST_RPC_SECRET); "
+                     "enables the HMAC handshake with the workers")
+    hp_.add_argument("--max-retries", type=int, default=2,
+                     help="(--workers mode) transport-failure requeues per trial before it "
+                     "fails; objective exceptions are never retried")
+    hp_.add_argument("--resume-auto", action="store_true",
+                     help="continue a killed sweep: mark this experiment's dead RUNNING runs "
+                     "INTERRUPTED, reload the completed trials from the interrupted runs' "
+                     "journals, and run only the remaining evals (requires tracking)")
+    hp_.add_argument("--device", default="cuda",
+                     help="the card the local trials are pinned to (cuda: every card of the "
+                     "host; cuda:N; or cpu)")
+    _add_tracking_args(hp_, "hpo")
+    hp_.set_defaults(fn=_cmd_hpo)
+
+    tw = sub.add_parser("trial-worker",
+                        help="serve HPO trial evaluations for a remote sweep (one per host)")
+    tw.add_argument("--bind", default="127.0.0.1:0",
+                    help="host:port to listen on (port 0 = OS-assigned, printed)")
+    tw.add_argument("--secret-file", default=None,
+                    help="file holding the shared RPC secret (or env DSST_RPC_SECRET); "
+                    "required for non-loopback binds unless --insecure")
+    tw.add_argument("--insecure", action="store_true",
+                    help="allow a non-loopback bind without a secret (trusted isolated network "
+                    "only; the RPC wire executes pickle on receipt)")
+    tw.set_defaults(fn=_cmd_trial_worker)
+
+
+def _rpc_secret(args: argparse.Namespace) -> bytes | None:
+    """The shared RPC secret from --secret-file, or env DSST_RPC_SECRET."""
+    path = getattr(args, "secret_file", None)
+    if path:
+        secret = Path(path).read_bytes().strip()
+        if not secret:
+            raise SystemExit(f"--secret-file {path} is empty")
+        return secret
+    env = os.environ.get("DSST_RPC_SECRET")
+    return env.encode() if env else None
+
+
+def _cmd_trial_worker(args: argparse.Namespace) -> int:
+    from ..parallel.trials import serve_trial_worker
+
+    # The address goes to stdout at once (flushed): serve_forever never
+    # returns, and a pipe would hold a buffered line.
+    serve_trial_worker(args.bind, block=True, secret=_rpc_secret(args),
+                       allow_insecure=args.insecure, announce=lambda m: print(m, flush=True))
+    return 0
+
+
+def _journaled_trials(root: str, experiment: str) -> list[dict]:
+    """The completed trials of ``experiment``'s interrupted runs, rebuilt
+    from their journals into the fmin store's format: the resume state of
+    ``hpo --resume-auto``.
+
+    Merged across every interrupted run, newest first per tid (a sweep
+    killed twice has its early trials in one run and later ones in
+    another). Only the contiguous tid prefix is kept: the async pool may
+    have journaled tid 3 while tid 2 died with the process, and the sweep
+    proposes anew from ``len(trials)``.
+    """
+    from ..tracking import read_journal, sweep_interrupted
+
+    if not Path(root).is_dir():
+        return []
+    candidates = sorted((c for c in sweep_interrupted(root, experiment)
+                         if c["effective_status"] == "INTERRUPTED"),
+                        key=lambda c: c.get("start_time") or 0.0, reverse=True)
+    by_tid: dict[int, dict] = {}
+    sources: list[str] = []
+    for c in candidates:
+        contributed = False
+        for e in read_journal(c["run_dir"]):
+            if e.get("event") != "trial" or int(e["tid"]) in by_tid:
+                continue
+            contributed = True
+            by_tid[int(e["tid"])] = {
+                "tid": int(e["tid"]), "point": dict(e.get("point") or {}),
+                "result": {"loss": e.get("loss"), "status": e.get("status")},
+                "book_time": e.get("time"), "duration": 0.0}
+        if contributed:
+            sources.append(f"{c['experiment']}/{c['run_id']}")
+    trials = []
+    for tid in range(len(by_tid)):
+        if tid not in by_tid:
+            break
+        trials.append(by_tid[tid])
+    if trials:
+        print(f"hpo --resume-auto: continuing from {len(trials)} journaled trial(s) of "
+              f"{', '.join(sources)}")
+    return trials
+
+
+def _trial_devices(device: str, parallelism: int):
+    """The devices local trials are pinned to: every card of the host for a
+    bare ``cuda`` (JAX's ``jax.local_devices()``), the one card named, or the
+    CPU once per concurrent trial."""
+    import torch
+
+    from ..parallel.trials import local_devices
+
+    d = torch.device(device)
+    if d.type == "cpu":
+        return [d] * max(1, parallelism)
+    return local_devices() if d.index is None else [d]
+
+
+def _cmd_hpo(args: argparse.Namespace) -> int:
+    from ..datagen.regression import gen_data, train_and_eval, tune_alpha
+    from ..hpo.shipping import load_shared
+
+    resumed: list[dict] = []
+    if args.resume_auto:
+        if args.no_tracking or not args.tracking_root:
+            print("--resume-auto needs tracking enabled (the run journal IS the resume state)")
+            return 2
+        resumed = _journaled_trials(args.tracking_root, args.experiment)
+
+    if args.workers:
+        # Remote: the objective ships by module reference, the data by a
+        # shared filesystem. Checked before a tracker opens, so a usage
+        # error leaves no RUNNING run behind.
+        if not args.data:
+            print("--workers requires --data (shared-FS npz every worker can read)")
+            return 2
+        tracker = _open_tracker(args, "hpo")
+        import numpy as np
+
+        from ..hpo import fmin, hp
+        from ..parallel.trials import HostTrials
+
+        space = {"alpha": hp.uniform("alpha", 0.0, 10.0),
+                 "data_path": hp.choice("data_path", [str(args.data)])}
+        trials = HostTrials(args.workers.split(","), parallelism=args.parallelism,
+                            secret=_rpc_secret(args), max_retries=args.max_retries)
+        trials.trials.extend(resumed)
+        best = fmin("dss_ml_at_scale_tpu_torch.hpo.objectives:lasso_shared", space,
+                    max_evals=args.max_evals, trials=trials, rstate=np.random.default_rng(0),
+                    tracker=tracker)
+        ok = sum(1 for t in trials.trials if t["result"]["status"] == "ok")
+        if tracker is not None:
+            tracker.log_params({"mode": "remote", "workers": args.workers})
+        _finish_tracker(tracker)
+        print(f"hpo (remote, {len(trials.workers)} workers): best alpha {best['alpha']:.4f} "
+              f"({ok}/{len(trials.trials)} trials ok)")
+        return 0
+
+    if _no_card(args.device):
+        return 1
+    devices = _trial_devices(args.device, args.parallelism)
+    tracker = _open_tracker(args, "hpo")
+    if args.data:
+        arrays = load_shared(args.data)
+        data = (arrays["X_train"], arrays["X_test"], arrays["y_train"], arrays["y_test"])
+        mode = "shared-fs"
+    else:
+        data = gen_data(int(args.n_bytes))
+        mode = "closure"
+
+    def objective(alpha):
+        return train_and_eval(data, alpha)
+
+    trials = None
+    if resumed:
+        from ..parallel.trials import DeviceTrials
+
+        trials = DeviceTrials(parallelism=args.parallelism, devices=devices)
+        trials.trials.extend(resumed)
+    best = tune_alpha(objective, parallelism=args.parallelism, max_evals=args.max_evals,
+                      tracker=tracker, trials=trials, devices=devices)
+    if tracker is not None:
+        tracker.log_params({"mode": mode, "best_alpha": best})
+    _finish_tracker(tracker)
+    print(f"hpo ({mode}): best alpha {best:.4f}")
+    return 0
 
 
 def _cmd_datagen_demand(args: argparse.Namespace) -> int:

@@ -59,6 +59,18 @@
 // (hopper.cuh, SW64) in the cp.async addresses and the wgmma descriptors;
 // S takes two k-steps and P·V is m64n32k16. D = 64 and 128 are unchanged.
 //
+// Wider heads (d > 128). The wrapper zero-pads d to a multiple of 128 and
+// the wide kernels take it in column slices of 128: grid.z picks a CTA's
+// slice of the output. A bf16 CTA contracts Q·Kᵀ over the whole head in
+// 64-wide chunks, each a Q chunk and a K chunk staged through a ring of
+// 16 KB slots, so shared memory stays 65 KB whatever d is; the V slice of a
+// key tile rides the same ring. Every slice computes the same scores in the
+// same order, so the slices agree bit for bit on the softmax statistics.
+// The split plan carries the slice: a piece of slice z writes partial slot
+// (bh * slices + z, slot). The cost of the design is the scores' recompute,
+// once per slice (d/128 times the Q·Kᵀ work); it is slow and right, kept
+// apart from the d <= 128 kernels, whose launches it leaves as they were.
+//
 // A float32 path (one warp per query row, FMA on the CUDA cores) keeps the
 // f32 contract of the JAX function. No path of the port takes it yet;
 // chip_smoke.py holds it to the f32 tolerance and times it.
@@ -344,21 +356,22 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   }
 }
 
-// The second pass of a split launch: one CTA per (bh, split query tile);
-// combine[y] = (qt, first slot, pieces, 0). Thread pairs take a row, each
-// half of its columns; the pieces are added in slot order.
+// The second pass of a split launch: one CTA per (bh, split query tile,
+// column slice); combine[y] = (qt, first slot, pieces, 0). Thread pairs take
+// a row, each half of the slice's D columns; the pieces are added in slot
+// order. o has rows of ld elements (ld = D, one slice, below d = 128).
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_combine_kernel(const float* __restrict__ part_o, const float* __restrict__ part_lse,
                      const int4* __restrict__ combine, __nv_bfloat16* __restrict__ o, int sq,
-                     int n_slots) {
+                     int n_slots, int ld) {
   constexpr int kHalf = D / 2;
   const int bh = blockIdx.x;
   const int4 c = combine[blockIdx.y];
-  const int r = threadIdx.x / 2, c0 = (threadIdx.x % 2) * kHalf;
+  const int r = threadIdx.x / 2, c0 = blockIdx.z * D + (threadIdx.x % 2) * kHalf;
   const int row = c.x * kBlockM + r;
   if (row >= sq) return;
-  const size_t base = static_cast<size_t>(bh) * n_slots + c.y;
+  const size_t base = (static_cast<size_t>(bh) * gridDim.z + blockIdx.z) * n_slots + c.y;
   float mx = kNegInf;
   for (int i = 0; i < c.z; ++i) mx = fmaxf(mx, part_lse[(base + i) * kBlockM + r]);
   float out[kHalf];
@@ -368,7 +381,8 @@ flash_combine_kernel(const float* __restrict__ part_o, const float* __restrict__
   for (int i = 0; i < c.z; ++i) {
     const float w = exp2f(part_lse[(base + i) * kBlockM + r] - mx);
     wsum += w;
-    const float4* src = reinterpret_cast<const float4*>(part_o + ((base + i) * kBlockM + r) * D + c0);
+    const float4* src = reinterpret_cast<const float4*>(
+        part_o + ((base + i) * kBlockM + r) * D + (threadIdx.x % 2) * kHalf);
 #pragma unroll
     for (int j = 0; j < kHalf / 4; ++j) {
       const float4 x = src[j];
@@ -379,7 +393,7 @@ flash_combine_kernel(const float* __restrict__ part_o, const float* __restrict__
     }
   }
   const float inv = 1.f / wsum;
-  uint4* dst = reinterpret_cast<uint4*>(o + (static_cast<size_t>(bh) * sq + row) * D + c0);
+  uint4* dst = reinterpret_cast<uint4*>(o + (static_cast<size_t>(bh) * sq + row) * ld + c0);
 #pragma unroll
   for (int j = 0; j < kHalf / 8; ++j) {
     uint4 u;
@@ -416,8 +430,266 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh, in
   if (e != cudaSuccess || ip == nullptr || n_combine == 0) return static_cast<int>(e);
   flash_combine_kernel<D><<<dim3(bh, n_combine), kThreads, 0, st>>>(
       static_cast<const float*>(part_o), static_cast<const float*>(part_lse),
-      static_cast<const int4*>(combine), op, sq, n_slots);
+      static_cast<const int4*>(combine), op, sq, n_slots, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+// -- wide heads: d a multiple of 128 above 128 -------------------------------
+
+constexpr int kSlice = 128;      // output columns of a wide CTA
+constexpr int kWideStages = 4;   // slots of the wide ring
+
+// Shared memory of the wide bf16 kernel: kWideStages slots of 16 KB, each a
+// Q chunk and a K chunk (64 x 64, SW128, 8 KB each) or a V slice (64 keys x
+// 128 columns, two SW128 blocks); then the slots' barriers.
+struct SmemWide {
+  static constexpr int kSlotBytes = 2 * kBlockN * 64 * 2;
+  static constexpr int kBars = kWideStages * kSlotBytes;
+  static constexpr int kBytes = 1024 + kBars + kWideStages * 8;
+};
+
+// Copy rows [row0, row0 + 64) x W columns of a slab whose rows are ld
+// elements apart into W / 64 SW128 blocks at dst, zero-filling rows at or
+// past n_rows.
+template <int W>
+__device__ __forceinline__ void copy_block(uint32_t dst, const __nv_bfloat16* src, int ld,
+                                           int row0, int n_rows) {
+  constexpr int kChunks = W / 8;
+#pragma unroll
+  for (int i = threadIdx.x; i < kBlockN * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool valid = row0 + r < n_rows;
+    const __nv_bfloat16* p = src + (valid ? static_cast<size_t>(row0 + r) * ld + c * 8 : 0);
+    cp_async16(dst + (c / 8) * 8192 + sw128(r, c % 8), p, valid);
+  }
+}
+
+// One work item of a wide head (as flash_fwd_bf16_kernel's) for the column
+// slice blockIdx.z. Ring load u of key tile j = u / (nc + 1) is its Q/K
+// chunk u % (nc + 1), or the tile's V slice when that is nc.
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_bf16_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                           int sq, int sk, int d, int causal, float scale_log2,
+                           const int4* __restrict__ items, float* __restrict__ part_o,
+                           float* __restrict__ part_lse, int n_slots) {
+  constexpr int kSlot = SmemWide::kSlotBytes;
+  constexpr int kTilesO = kSlice / 8;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  const uint32_t s0 = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SmemWide::kBars);
+
+  const int bh = blockIdx.x, cs = blockIdx.z;
+  int qt, kt_begin, kt_end, slot;
+  if (items != nullptr) {
+    const int4 it = items[blockIdx.y];
+    qt = it.x, kt_begin = it.y, kt_end = it.z, slot = it.w;
+  } else {
+    const int n_qt = (sq + kBlockM - 1) / kBlockM;
+    qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.y) : blockIdx.y;
+    kt_begin = 0, kt_end = visible_tiles(qt, sq, sk, causal), slot = -1;
+  }
+  const int q0 = qt * kBlockM;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const __nv_bfloat16* qb = q + static_cast<size_t>(bh) * sq * d;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(bh) * sk * d;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(bh) * sk * d + cs * kSlice;
+  const int offset = sk - sq;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const int n = kt_end - kt_begin;
+  const int nc = d / 64;      // 64-wide chunks of the contraction
+  const int per = nc + 1;     // ring loads per key tile
+  const int total = n * per;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWideStages; ++i) mbar_init(&full[i], kThreads);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto load = [&](int u) {
+    const int j = u / per, c = u % per, st = u % kWideStages;
+    const uint32_t dst = s0 + st * kSlot;
+    const int key0 = (kt_begin + j) * kBlockN;
+    if (c < nc) {
+      copy_block<64>(dst, qb + c * 64, d, q0, sq);
+      copy_block<64>(dst + kSlot / 2, kb + c * 64, d, key0, sk);
+    } else {
+      copy_block<kSlice>(dst, vb, d, key0, sk);
+    }
+    cp_async_arrive(&full[st]);
+  };
+  auto ready = [&](int u) {
+    mbar_wait(&full[u % kWideStages], (u / kWideStages) & 1);
+    fence_proxy_async();
+  };
+  // Every thread waits on the slot and leaves it before any refills it.
+  auto release = [&](int u) {
+    __syncthreads();
+    if (u + kWideStages < total) load(u + kWideStages);
+  };
+  for (int u = 0; u < kWideStages && u < total; ++u) load(u);
+
+  float acc[kSlice / 2];
+#pragma unroll
+  for (int i = 0; i < kSlice / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float s[32] = {};
+
+  int u = 0;
+  for (int j = 0; j < n; ++j) {
+    for (int c = 0; c < nc; ++c, ++u) {
+      ready(u);
+      const uint32_t base = s0 + (u % kWideStages) * kSlot;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        wgmma_m64n64k16_ss<0>(s, sw128_desc(base + ks * 32, 16, 1024),
+                              sw128_desc(base + kSlot / 2 + ks * 32, 16, 1024), c > 0 || ks > 0);
+      }
+      wgmma_commit();
+      fence_regs(s);
+      wgmma_wait<0>();
+      fence_regs(s);
+      release(u);
+    }
+    float alpha[2];
+    softmax_tile(s, m, l, alpha, (kt_begin + j) * kBlockN, rows, sk, causal, offset, scale_log2);
+    fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < kSlice / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    }
+    ready(u);
+    issue_pv<kSlice>(acc, pa, s0 + (u % kWideStages) * kSlot);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(u);
+    ++u;
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    inv[i] = 1.f / l[i];
+  }
+  if (slot < 0) {
+#pragma unroll
+    for (int dn = 0; dn < kTilesO; ++dn) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = rows[half];
+        if (row < sq) {
+          const int col = cs * kSlice + dn * 8 + t * 2;
+          *reinterpret_cast<uint32_t*>(o + (static_cast<size_t>(bh) * sq + row) * d + col) =
+              pack_bf16(acc[4 * dn + 2 * half] * inv[half], acc[4 * dn + 2 * half + 1] * inv[half]);
+        }
+      }
+    }
+  } else {
+    const size_t base = (static_cast<size_t>(bh) * gridDim.z + cs) * n_slots + slot;
+    float* po = part_o + base * kBlockM * kSlice;
+#pragma unroll
+    for (int dn = 0; dn < kTilesO; ++dn) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = warp * 16 + g + half * 8;
+        *reinterpret_cast<float2*>(po + r * kSlice + dn * 8 + t * 2) =
+            make_float2(acc[4 * dn + 2 * half] * inv[half], acc[4 * dn + 2 * half + 1] * inv[half]);
+      }
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        part_lse[base * kBlockM + warp * 16 + g + half * 8] = m[half] + log2f(l[half]);
+    }
+  }
+}
+
+int launch_bf16_wide(const void* q, const void* k, const void* v, void* o, int bh, int sq,
+                     int sk, int d, int causal, float scale_log2, const void* items,
+                     int n_items, const void* combine, int n_combine, void* part_o,
+                     void* part_lse, int n_slots, cudaStream_t st) {
+  constexpr int kBytes = SmemWide::kBytes;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_bf16_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  auto* op = static_cast<__nv_bfloat16*>(o);
+  const auto* ip = static_cast<const int4*>(items);
+  const int n_y = ip != nullptr ? n_items : (sq + kBlockM - 1) / kBlockM;
+  const int n_cs = d / kSlice;
+  flash_fwd_bf16_wide_kernel<<<dim3(bh, n_y, n_cs), kThreads, kBytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), op, sq, sk, d, causal, scale_log2, ip,
+      static_cast<float*>(part_o), static_cast<float*>(part_lse), n_slots);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || ip == nullptr || n_combine == 0) return static_cast<int>(e);
+  flash_combine_kernel<kSlice><<<dim3(bh, n_combine, n_cs), kThreads, 0, st>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_lse),
+      static_cast<const int4*>(combine), op, sq, n_slots, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// float32 wide heads: one warp per query row and column slice (grid.z);
+// the dot over the whole head in a loop of 32-wide steps, the same in
+// every slice.
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          int sq, int sk, int d, int causal, float scale_log2) {
+  constexpr int kPer = kSlice / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kWarps + warp;
+  const int bh = blockIdx.y;
+  const int col0 = blockIdx.z * kSlice;
+  if (row >= sq) return;
+  const float* qr = q + (static_cast<size_t>(bh) * sq + row) * d;
+  const float* kb = k + static_cast<size_t>(bh) * sk * d;
+  const float* vb = v + static_cast<size_t>(bh) * sk * d + col0;
+  float acc[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
+  const int k_end = causal ? min(sk, row + (sk - sq) + 1) : sk;
+  float m = kNegInf, l = 0.f;
+  for (int j = 0; j < k_end; ++j) {
+    const float* kr = kb + static_cast<size_t>(j) * d;
+    float dot = 0.f;
+    for (int i = lane; i < d; i += 32) dot = fmaf(qr[i], kr[i], dot);
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, w);
+    const float x = dot * scale_log2;
+    const float m_new = fmaxf(m, x);
+    const float alpha = exp2f(m - m_new);
+    const float p = exp2f(x - m_new);
+    l = l * alpha + p;
+    const float* vr = vb + static_cast<size_t>(j) * d;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) acc[i] = fmaf(p, vr[lane + 32 * i], acc[i] * alpha);
+    m = m_new;
+  }
+  float* orow = o + (static_cast<size_t>(bh) * sq + row) * d + col0;
+  const float inv = 1.f / l;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) orow[lane + 32 * i] = acc[i] * inv;
 }
 
 // float32 inputs: one warp per query row, the same online softmax on FMA.
@@ -469,11 +741,13 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace
 
 // q [bh, sq, d], k and v [bh, sk, d], o [bh, sq, d], all contiguous, on the
-// device, 16-byte aligned. is_bf16: 1 for bfloat16, 0 for float32. The bf16
-// kernel takes a split plan (ops/flash_attention.py::split_plan): items
-// [n_items] int4 work items and combine [n_combine] int4 combine entries on
-// the device, part_o [bh, n_slots, 64, d] and part_lse [bh, n_slots, 64] f32
-// scratch; items null means no split. `scale` multiplies the scores: the
+// device, 16-byte aligned; d is 32, 64, 128 or a multiple of 128. is_bf16: 1
+// for bfloat16, 0 for float32. The bf16 kernel takes a split plan
+// (ops/flash_attention.py::split_plan): items [n_items] int4 work items and
+// combine [n_combine] int4 combine entries on the device, part_o [bh * c,
+// n_slots, 64, d / c] and part_lse [bh * c, n_slots, 64] f32 scratch, with c
+// = d / 128 column slices above d = 128 and 1 else; items null means no
+// split. `scale` multiplies the scores: the
 // caller passes 1/sqrt(head_dim) of the unpadded head, since a head narrower
 // than d arrives zero-padded to d (last, so that a build before it, which
 // ignores it, keeps its ABI). Launches on `stream` and returns
@@ -485,6 +759,17 @@ extern "C" int dsst_flash_attention_fwd(const void* q, const void* k, const void
                                         void* stream, float scale) {
   const float scale_log2 = kLog2e * scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d > 128) {
+    if (d % kSlice) return static_cast<int>(cudaErrorInvalidValue);
+    if (is_bf16)
+      return launch_bf16_wide(q, k, v, o, bh, sq, sk, d, causal, scale_log2, items, n_items,
+                              combine, n_combine, part_o, part_lse, n_slots, st);
+    flash_fwd_f32_wide_kernel<<<dim3((sq + kWarps - 1) / kWarps, bh, d / kSlice), kThreads, 0,
+                                st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                      static_cast<const float*>(v), static_cast<float*>(o), sq,
+                                      sk, d, causal, scale_log2);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (is_bf16) {
     if (d == 32)
       return launch_bf16<32>(q, k, v, o, bh, sq, sk, causal, scale_log2, items, n_items, combine,
@@ -516,5 +801,6 @@ extern "C" int dsst_flash_attention_fwd(const void* q, const void* k, const void
 
 // Dynamic shared memory of one CTA of the bf16 kernel at head_dim d.
 extern "C" int dsst_flash_attention_smem_bytes(int d) {
+  if (d > 128) return d % kSlice ? -1 : SmemWide::kBytes;
   return d == 32 ? Smem<32>::kBytes : d == 64 ? Smem<64>::kBytes : d == 128 ? Smem<128>::kBytes : -1;
 }

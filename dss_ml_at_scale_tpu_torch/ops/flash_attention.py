@@ -40,7 +40,8 @@ import torch
 _NEG_INF = -1e30  # finite "minus infinity": avoids inf-inf NaNs in masking
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _KERNEL_HEAD_DIMS = (32, 64, 128)  # the kernel's tiles; narrower heads are zero-padded
-_MAX_GRID_Y = 65535  # the f32 kernel puts batch*heads on grid.y
+_SLICE = 128  # output columns of a wide-head CTA: wider heads pad to a multiple
+_MAX_GRID_Y = 65535  # the f32 kernel puts batch*heads on grid.y (and slices on grid.z)
 _Q_TILE, _K_TILE = 64, 64  # query rows of a bf16 kernel CTA; keys of a key tile
 _CTAS_PER_SM = 2  # bf16 kernel CTAs resident on one SM (shared memory bounds it)
 _MIN_PIECE = 2  # key tiles per split piece at least: shorter ones lose to the combine
@@ -86,10 +87,10 @@ def attention_reference(
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise ``ValueError`` for what the CUDA kernel does not take: mixed
-    devices or dtypes, a dtype other than bf16/f32, a head_dim above 128,
-    k and v of different shapes, non-contiguous or misaligned storage, or
-    more than 65535 batch*heads. A head_dim under 128 that is not 32, 64
-    or 128 is taken: :func:`_launch` pads it to the next of them."""
+    devices or dtypes, a dtype other than bf16/f32, an empty head, k and v
+    of different shapes, non-contiguous or misaligned storage, or more than
+    65535 batch*heads. Every head_dim from 1 up is taken, as the JAX
+    function takes it: :func:`_launch` pads it to :func:`padded_head_dim`."""
     if not (q.device == k.device == v.device):
         raise ValueError(
             f"q, k, v on different devices: {q.device}, {k.device}, {v.device}"
@@ -98,11 +99,10 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
         raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"flash kernel takes bfloat16 or float32, got {q.dtype}")
-    if not 0 < q.shape[-1] <= _KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(
-            f"flash kernel takes head_dim 1..{_KERNEL_HEAD_DIMS[-1]}, got {q.shape[-1]} "
-            "(wider heads are not ported)"
-        )
+    if q.shape[-1] < 1:
+        raise ValueError(f"flash kernel needs head_dim >= 1, got {q.shape[-1]}")
+    if padded_head_dim(q.shape[-1]) // _SLICE > _MAX_GRID_Y:
+        raise ValueError(f"head_dim {q.shape[-1]} needs more than {_MAX_GRID_Y} column slices")
     if k.shape != v.shape or k.shape[:2] + k.shape[3:] != q.shape[:2] + q.shape[3:]:
         raise ValueError(
             f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does not fit q "
@@ -268,8 +268,17 @@ def _device_plan(bh, sq, sk, causal, device):
 
 def padded_head_dim(d: int) -> int:
     """The kernel's head_dim for a head of ``d``: the least of 32, 64 and
-    128 that holds it."""
+    128 that holds it, or above 128 the least multiple of 128 (the wide
+    kernels' column slices)."""
+    if d > _KERNEL_HEAD_DIMS[-1]:
+        return -(-d // _SLICE) * _SLICE
     return next(w for w in _KERNEL_HEAD_DIMS if w >= d)
+
+
+def column_slices(d_pad: int) -> int:
+    """Column slices of 128 a CTA of the kernel takes at the padded head
+    ``d_pad``: 1 up to 128, ``d_pad / 128`` above (the wide kernels)."""
+    return 1 if d_pad <= _KERNEL_HEAD_DIMS[-1] else d_pad // _SLICE
 
 
 def _launch(q, k, v, causal: bool, split: bool = True) -> torch.Tensor:
@@ -279,23 +288,29 @@ def _launch(q, k, v, causal: bool, split: bool = True) -> torch.Tensor:
     A head_dim the kernel has no tile for is zero-padded to
     :func:`padded_head_dim` and the output sliced back: zero columns leave
     ``q @ k.T`` as it is and give zero output columns. The scale stays
-    ``1/sqrt(d)`` of the true ``d``, passed to the kernel."""
+    ``1/sqrt(d)`` of the true ``d``, passed to the kernel. Above 128 the
+    kernel takes the head in :func:`column_slices` of 128, each CTA one
+    slice of the output; the split plan counts the slices' CTAs as heads,
+    and its partials are kept per (head, slice)."""
     check_kernel_inputs(q, k, v)
     d_true = q.shape[-1]
     d_pad = padded_head_dim(d_true)
     if d_pad != d_true:
         q, k, v = (torch.nn.functional.pad(t, (0, d_pad - d_true)) for t in (q, k, v))
     b, h, sq, d = q.shape
+    slices = column_slices(d)
     out = torch.empty_like(q)
     lib = _kernel()
     plan = None
     if split and q.dtype == torch.bfloat16:
-        plan = _device_plan(b * h, sq, k.shape[2], causal, q.device)
+        plan = _device_plan(b * h * slices, sq, k.shape[2], causal, q.device)
     args = (None, 0, None, 0, None, None, 0)  # no split
     if plan is not None:
         items, combine, n_items, n_combine, n_slots = plan
-        part_o = torch.empty((b * h, n_slots, _Q_TILE, d), dtype=torch.float32, device=q.device)
-        part_lse = torch.empty((b * h, n_slots, _Q_TILE), dtype=torch.float32, device=q.device)
+        part_o = torch.empty((b * h * slices, n_slots, _Q_TILE, d // slices),
+                             dtype=torch.float32, device=q.device)
+        part_lse = torch.empty((b * h * slices, n_slots, _Q_TILE), dtype=torch.float32,
+                               device=q.device)
         args = (items.data_ptr(), n_items, combine.data_ptr(), n_combine,
                 part_o.data_ptr(), part_lse.data_ptr(), n_slots)
     with torch.cuda.device(q.device):

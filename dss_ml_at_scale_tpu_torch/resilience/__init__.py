@@ -13,9 +13,10 @@
 - :mod:`.health`: the supervised step (discard a bad update before it
   commits) and the skip → rollback → abort policy ladder.
 - :mod:`.preemption`: SIGTERM turned into a flag the training loop polls.
+- :mod:`.workers`: the HPO worker pool (drop, cool-down, heartbeat
+  re-admission).
 
-Not ported: the JAX package's worker pool (``workers.py``) and chaos soak
-(``chaos.py``).
+Not ported: the JAX package's chaos soak (``chaos.py``).
 """
 
 from .checkpoint import MANIFEST_NAME, verify_checkpoint_dir, verify_step, write_manifest  # noqa: F401
@@ -24,3 +25,4 @@ from .faults import KNOWN_SITES, FaultPlan, InjectedFault, active_plan, clear, f
 from .preemption import PreemptionGuard  # noqa: F401
 from .retry import RetryPolicy, call_with_retry, is_transient  # noqa: F401
 from .rollback import PROVENANCE_KEY, QuarantineList, RowRange  # noqa: F401
+from .workers import WorkerPool  # noqa: F401

@@ -2,9 +2,8 @@
 
 Port of ``dss_ml_at_scale_tpu/resilience/retry.py``: the same policy, the
 same delay draws (``RetryPolicy.delay`` under one ``random.Random`` gives
-the JAX package's delays), the same ``retry_total{site=}`` counter. The
-port has no RPC layer, so the classifier has no RPC error types to tell
-apart.
+the JAX package's delays), the same ``retry_total{site=}`` counter, the
+same classifier of the RPC layer's errors.
 
 The transport classifier is the important half: a retry loop that
 re-runs *semantic* failures (undecodable bytes, a schema mismatch) just
@@ -49,7 +48,15 @@ class RetryPolicy:
 def is_transient(exc: BaseException) -> bool:
     """True when a failure is transport-shaped and worth retrying:
     connection failures (an injected fault among them), timeouts,
-    truncated streams and other OS-level IO errors."""
+    truncated streams and other OS-level IO errors. Of the RPC layer's, a
+    stalled handshake is (a wedged peer); a rejected secret and a remote
+    handler's error are not (they do not fix themselves)."""
+    from ..runtime.rpc import RpcAuthError, RpcHandshakeTimeout, RpcRemoteError
+
+    if isinstance(exc, RpcHandshakeTimeout):
+        return True
+    if isinstance(exc, (RpcAuthError, RpcRemoteError)):
+        return False
     return isinstance(exc, (ConnectionError, TimeoutError, EOFError, OSError))
 
 

@@ -1,4 +1,5 @@
-"""Multi-process runtime of the port (``torch.distributed``)."""
+"""Multi-process runtime of the port: ``torch.distributed``, and the small
+host-level RPC of the control plane (:mod:`.rpc`)."""
 
 from .distributed import (
     all_reduce_sum,
@@ -14,9 +15,22 @@ from .distributed import (
     shutdown_distributed,
     stats_group,
 )
+from .rpc import (
+    RpcAuthError,
+    RpcConnectTimeout,
+    RpcHandshakeTimeout,
+    RpcRemoteError,
+    RpcServer,
+    rpc_call,
+)
 from .topology import Topology, local_topology
 
 __all__ = [
+    "RpcAuthError",
+    "RpcConnectTimeout",
+    "RpcHandshakeTimeout",
+    "RpcRemoteError",
+    "RpcServer",
     "Topology",
     "all_reduce_sum",
     "all_to_all",
@@ -29,6 +43,7 @@ __all__ = [
     "process_device",
     "process_index",
     "ring_shift",
+    "rpc_call",
     "shutdown_distributed",
     "stats_group",
 ]

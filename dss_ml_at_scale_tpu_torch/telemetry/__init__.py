@@ -10,6 +10,7 @@ instrumentation points never thread a registry object through APIs.
 from __future__ import annotations
 
 from . import slo, tracecontext, windows
+from .export import rpc_handlers
 from .registry import DEFAULT_BUCKETS, MetricFamily, MetricsRegistry, log_buckets
 from .spans import SpanLog
 from .tracecontext import Handoff, TraceContext
@@ -30,6 +31,7 @@ __all__ = [
     "histogram",
     "log_buckets",
     "render_prometheus",
+    "rpc_handlers",
     "slo",
     "snapshot",
     "span",

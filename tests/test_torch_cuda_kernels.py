@@ -32,7 +32,9 @@ def cuda():
 # f32: its f32 tolerance (:23). The serving buckets (b1 h8 d128 causal,
 # 128/512/1024) and sq < sk take the split path in bf16 on an H100; b8 h8
 # s2048 d128 is the LM training shape; head_dim 32 is the lm CLI's default;
-# head_dim 8 (full_stack.json's lm), 16 and 48 run zero-padded to 32/32/64.
+# head_dim 8 (full_stack.json's lm), 16 and 48 run zero-padded to 32/32/64;
+# 192, 256 and 512 take the wide kernels (192 zero-padded to 256); at b1 h1
+# s1024 d256 and b1 h1 s2048 d512 in bf16 with their key-split plan.
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
 @pytest.mark.parametrize("b,h,sq,sk,d,causal", [
     (2, 4, 128, 128, 128, True), (2, 4, 64, 192, 64, True), (2, 4, 96, 96, 128, False),
@@ -42,6 +44,9 @@ def cuda():
     (1, 8, 1024, 1024, 32, True), (8, 8, 2048, 2048, 128, True),
     (1, 4, 24, 24, 8, True), (1, 4, 128, 128, 8, True), (8, 4, 24, 24, 8, True),
     (1, 4, 24, 24, 16, True), (1, 4, 128, 128, 16, True), (2, 4, 96, 96, 48, False),
+    (2, 4, 128, 128, 192, True), (2, 4, 96, 96, 192, False), (1, 8, 1024, 1024, 256, True),
+    (2, 4, 64, 192, 256, True), (1, 4, 256, 256, 512, True), (2, 2, 96, 96, 512, False),
+    (1, 1, 1024, 1024, 256, True), (1, 1, 2048, 2048, 512, True),
 ])
 def test_flash_kernel_matches_plain_version(cuda, dtype, atol, b, h, sq, sk, d, causal):
     def mk(s):
@@ -141,8 +146,9 @@ def test_kernels_opt_in_to_more_than_48kb_of_shared_memory(cuda):
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
-    # Heads up to 128 are padded to a tile; wider ones are refused.
-    q = torch.randn(1, 2, 64, 160, generator=cuda, device="cuda", dtype=torch.bfloat16)
+    # Every head of 1 or more is taken (padded to a tile, or above 128 to
+    # column slices); an empty one is refused.
+    q = torch.randn(1, 2, 64, 0, generator=cuda, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, q)
     h = torch.randn(1, 2, 64, 64, generator=cuda, device="cuda", dtype=torch.float16)

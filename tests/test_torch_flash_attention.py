@@ -162,8 +162,8 @@ def test_kernel_input_checks(bad):
     check_kernel_inputs(q, k, v)  # the kernel's own shape passes
     if bad == "dtype":
         q, k, v = (t.half() for t in (q, k, v))
-    elif bad == "head_dim":
-        q, k, v = (torch.zeros(1, 2, 64, 160, dtype=torch.bfloat16) for _ in range(3))
+    elif bad == "head_dim":  # an empty head: JAX's 1/sqrt(0) raises too
+        q, k, v = (torch.zeros(1, 2, 64, 0, dtype=torch.bfloat16) for _ in range(3))
     elif bad == "contiguous":
         k = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16).transpose(2, 3)
     else:
@@ -175,14 +175,40 @@ def test_kernel_input_checks(bad):
 @pytest.mark.parametrize("d", [8, 16, 48, 160])
 def test_kernel_checks_take_every_head_dim_up_to_128(d):
     """Heads the kernel has no tile for are padded (8, 16 -> 32; 48 -> 64);
-    above 128 the check raises with a message."""
+    above 128 to a multiple of 128 (160 -> 256), taken in column slices.
+    No width is refused: the JAX function takes every one."""
     q, k, v = (torch.zeros(1, 2, 64, d, dtype=torch.bfloat16) for _ in range(3))
-    if d > 128:
-        with pytest.raises(ValueError, match="head_dim 1..128"):
-            check_kernel_inputs(q, k, v)
-        return
     check_kernel_inputs(q, k, v)
-    assert fa_mod.padded_head_dim(d) == (32 if d <= 32 else 64)
+    want = {8: 32, 16: 32, 48: 64, 160: 256}[d]
+    assert fa_mod.padded_head_dim(d) == want
+    assert fa_mod.column_slices(want) == (2 if d > 128 else 1)
+
+
+@pytest.mark.parametrize("d,d_pad,slices", [(129, 256, 2), (192, 256, 2), (256, 256, 2),
+                                            (384, 384, 3), (512, 512, 4), (1000, 1024, 8)])
+def test_wide_heads_pad_to_column_slices_of_128(d, d_pad, slices):
+    """Above 128 the wrapper's plan: pad to the next multiple of 128, one
+    CTA per slice of 128 output columns, the split plan counting the
+    slices' CTAs as heads. The check names no width limit."""
+    q, k, v = (torch.zeros(1, 2, 64, d, dtype=torch.bfloat16) for _ in range(3))
+    check_kernel_inputs(q, k, v)
+    assert fa_mod.padded_head_dim(d) == d_pad
+    assert fa_mod.column_slices(d_pad) == slices
+    # b1 h8 s2048 causal fills an H100 with or without the slices: no split;
+    # one head of s1024 splits, its pieces in a wave of the slices' CTAs.
+    assert fa_mod.split_plan(8 * slices, 2048, 2048, True, 132) is None
+    plan = fa_mod.split_plan(slices, 1024, 1024, True, 132)
+    assert plan is not None and slices * len(plan[0]) <= 2 * 132
+
+
+@pytest.mark.parametrize("d", [160, 256, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_heads_match_jax_kernel(rng, causal, d):
+    """The plain path at heads above 128 against JAX's kernel in interpret
+    mode, which takes any width, at the JAX test's f32 tolerance."""
+    q, k, v = _qkv(rng, b=1, h=2, sq=128, d=d)
+    got, want = _both(q, k, v, causal=causal, block_q=64, block_k=64)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
 # The bf16 kernel's split plan: the three serving buckets (b1 h8), sq < sk,

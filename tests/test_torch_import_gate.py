@@ -11,7 +11,10 @@ through the image server, takes one ``vit-tiny`` train step, one LM train step
 through the ``lm`` entry with a checkpoint and one more after restoring it
 (``--resume``), generates a demand table and forecasts it (``datagen
 demand`` and ``forecast`` on the CPU, by the grid and by TPE), runs a tiny
-``eda`` and a ``pipeline --dry-run``, and then lists what got loaded. A second check runs one
+``eda`` and a ``pipeline --dry-run``, writes a photo tree and ingests it,
+writes a regression ``.npz``, runs ``hpo`` on the CPU (closure and shared
+filesystem) and two trials through an in-process trial worker over RPC, and
+then lists what got loaded (scikit-learn must not be among it). A second check runs one
 data-parallel ``train`` step in two processes (gloo on the CPU, meeting at
 a ``file://`` rendezvous), each of which lists what it loaded. The static
 scan reads every source file of the port (``runtime/`` and ``native/``
@@ -121,8 +124,30 @@ with contextlib.redirect_stdout(out):
     assert cli.main(["pipeline", "--spec", "pipelines/full_stack.json", "--workdir", work,
                      "--dry-run", "--task-device", "cpu"]) == 0
 plan = out.getvalue().strip().splitlines()
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli.main(["datagen", "photos", "--out", work + "/raw", "--n", "8", "--size", "48"]) == 0
+    assert cli.main(["ingest", "--data-root", work + "/raw", "--out", work + "/pt"]) == 0
+    assert cli.main(["datagen", "regression", "--bytes", "50000", "--out", work + "/r.npz"]) == 0
+    assert cli.main(["hpo", "--bytes", "50000", "--max-evals", "2", "--device", "cpu",
+                     "--no-tracking"]) == 0
+    assert cli.main(["hpo", "--data", work + "/r.npz", "--max-evals", "2", "--device", "cpu",
+                     "--no-tracking"]) == 0
+track = out.getvalue().strip().splitlines()
+from dss_ml_at_scale_tpu_torch.hpo import fmin, hp
+from dss_ml_at_scale_tpu_torch.parallel.trials import HostTrials, serve_trial_worker
+server = serve_trial_worker(block=False)
+try:
+    trials = HostTrials([f"{server.address[0]}:{server.address[1]}"], rpc_timeout=60.0)
+    fmin("dss_ml_at_scale_tpu_torch.hpo.objectives:lasso_shared",
+         {"alpha": hp.uniform("alpha", 0.0, 10.0),
+          "data_path": hp.choice("data_path", [work + "/r.npz"])},
+         max_evals=2, trials=trials, rstate=0)
+finally:
+    server.shutdown()
+remote = [t["result"]["status"] for t in trials.trials]
 print(json.dumps({"done": lines[-1], "train": train, "lm": lm, "forecast": forecast,
-                  "tpe": tpe, "eda": eda, "plan": plan,
+                  "tpe": tpe, "eda": eda, "plan": plan, "track": track, "remote": remote,
                   "predicted": predicted, "vit": vit, "modules": sorted(sys.modules)}))
 """
 
@@ -160,7 +185,13 @@ def test_port_serves_a_generation_without_jax():
     (pred,) = report["predicted"]["predictions"]  # the image server scored one JPEG
     assert 0 <= pred["pred_index"] < 4 and 0 < pred["pred_prob"] <= 1
     assert report["vit"]["steps"] == 1 and report["vit"]["train_loss"] > 0
-    loaded = [m for m in report["modules"] if _forbidden(m)]
+    assert report["track"][0].startswith("photos: 8 real-photo JPEG crops")
+    assert report["track"][1].startswith("ingested 8 rows")
+    assert report["track"][2].startswith("regression: ")
+    assert [ln.split(":")[0] for ln in report["track"][3:]] == ["hpo (closure)",
+                                                                 "hpo (shared-fs)"]
+    assert report["remote"] == ["ok", "ok"]
+    loaded = [m for m in report["modules"] if _forbidden(m) or m.split(".")[0] == "sklearn"]
     assert loaded == []
     assert "dss_ml_at_scale_tpu_torch.ops.flash_attention" in report["modules"]
     assert "dss_ml_at_scale_tpu_torch.ops.fused_matmul" in report["modules"]
@@ -172,7 +203,9 @@ def test_port_serves_a_generation_without_jax():
                  "models.vit", "serving.scheduler", "serving.batcher",
                  "config.checkpoints", "workloads.serving", "hpo.tpe", "hpo.fmin",
                  "hpo.space", "parallel.trials", "ops.holt_winters", "workloads.eda",
-                 "config.pipeline"):
+                 "config.pipeline", "ingest.imagenet", "datagen.photos", "datagen.regression",
+                 "hpo.shipping", "hpo.objectives", "runtime.rpc", "resilience.workers",
+                 "telemetry.export"):
         assert f"dss_ml_at_scale_tpu_torch.{name}" in report["modules"]
 
 
@@ -244,7 +277,8 @@ def _sources():
                                          ROOT / "scripts" / "resnet_grad_sensitivity.py",
                                          ROOT / "scripts" / "lm_curve_torch.py",
                                          ROOT / "scripts" / "profile_torch_groupfit.py",
-                                         ROOT / "scripts" / "golden_fit_sweep_torch.py"]
+                                         ROOT / "scripts" / "golden_fit_sweep_torch.py",
+                                         ROOT / "scripts" / "real_photos_spread.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
