@@ -612,6 +612,7 @@ def train_phase(torch) -> dict:
     wall = time.perf_counter() - t0
     launches = {"K1": fm.bn_relu_matmul_fwd.launches, "K2": fm.bn_relu_matmul_bwd_da.launches,
                 "K3": fm.bn_relu_matmul_bwd_dw.launches}
+    peak = torch.cuda.max_memory_allocated()
     epoch = summary["history"][0]
     check(summary["steps"] == STEPS, f"train ran {summary['steps']} steps, want {STEPS}")
     for key in ("train_loss", "train_acc", "grad_norm", "val_loss", "val_acc"):
@@ -634,8 +635,115 @@ def train_phase(torch) -> dict:
         "data_wait_ms_steps_2_4": epoch["steady_data_wait_s"] * 1e3,
         "epoch_images_per_sec": epoch["images_per_sec"],
         "decode_backend": summary["decode_backend"],
-        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "peak_memory_gib": peak / 2 ** 30,
+        "trace": trace_checks(torch, epoch["steady_step_time_s"] * 1e3, peak),
     }
+
+
+def _cli_out(argv: list[str]) -> tuple[int, str]:
+    """One in-process call of the port's CLI: ``(exit code, stdout)``."""
+    import contextlib
+    import io
+
+    from dss_ml_at_scale_tpu_torch.config import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue()
+
+
+def trace_checks(torch, step_ms: float, peak: int) -> dict:
+    """The training phase's run read back through the operability commands:
+    ``trace attribution`` finds its 4 steps, each ``train_step`` in one
+    trace with that step's ``reader.next`` and ``feeder.place`` (the feeder
+    thread's), compute above 0; ``telemetry --run`` has
+    ``train_step_seconds`` with count 4; ``trace export`` writes flow
+    events; the device monitor's peak equals the allocator's. Prints the
+    per-step buckets beside the phase's measured step ms."""
+    import os
+
+    from dss_ml_at_scale_tpu_torch import telemetry
+    from dss_ml_at_scale_tpu_torch.telemetry import flightrec
+    from dss_ml_at_scale_tpu_torch.telemetry.device import DeviceMonitor
+
+    monitor = DeviceMonitor(devices=["cuda:0"])
+    monitor.sample()
+    gauge = telemetry.get_registry().gauge("device_hbm_bytes_peak", labels=("device",))
+    check(gauge.labels(device="cuda:0").value == peak,
+          f"device_hbm_bytes_peak {gauge.labels(device='cuda:0').value} != "
+          f"max_memory_allocated {peak}")
+    run_dir = max((Path(os.environ["DSST_TRACKING_ROOT"]) / "imagenet").iterdir(),
+                  key=lambda p: p.stat().st_mtime)
+    rc, out = _cli_out(["trace", "attribution", "--run", str(run_dir), "--json"])
+    report = json.loads(out)
+    check(rc == 0 and report["steps"] == STEPS, f"trace attribution: {out[-500:]}")
+    check(all(s["compute"] > 0 for s in report["per_step"]),
+          f"a step without compute: {report['per_step']}")
+    complete, opens = flightrec.reconstruct(flightrec.read_events(run_dir / "flightrec.jsonl"))
+    check(not opens, f"the finished run left open spans {[o['name'] for o in opens]}")
+    by_trace: dict = {}
+    for e in complete:
+        if e.get("kind") == "step":
+            by_trace.setdefault(e["trace"], {})[e["name"]] = e.get("thread")
+    stepped = [t for t in by_trace.values() if "train_step" in t]
+    check(len(stepped) == STEPS and all(
+        t.get("reader.next") == t.get("feeder.place") == "feeder-train" for t in stepped),
+        f"step traces {stepped}")
+    rc, out = _cli_out(["telemetry", "--run", str(run_dir), "--json"])
+    snap = {m["name"]: m for m in json.loads(out)["metrics"] if not m.get("labels")}
+    check(rc == 0 and snap["train_step_seconds"]["count"] == STEPS,
+          f"telemetry --run: train_step_seconds {snap.get('train_step_seconds')}")
+    perfetto = run_dir / "trace.json"
+    rc, out = _cli_out(["trace", "export", "--run", str(run_dir), "--out", str(perfetto)])
+    flows = sum(1 for e in json.loads(perfetto.read_text())["traceEvents"]
+                if e["ph"] in ("s", "f"))
+    check(rc == 0 and flows > 0, f"trace export: {out}, {flows} flow events")
+    buckets = {k: report[f"{k}_ms_mean"] for k in ("data_wait", "transfer", "compute", "host")}
+    print(f"train step attribution, ms per step (mean of {STEPS}): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in buckets.items())
+        + f"; the phase's measured step ms (steps 2-{STEPS}) {step_ms:.3f}", flush=True)
+    return {"per_step": report["per_step"], "means_ms": buckets, "flow_events": flows,
+            "train_step_seconds_count": snap["train_step_seconds"]["count"],
+            "train_compile_events": snap["train_compile_events_total"]["value"],
+            "device_hbm_bytes_peak": peak}
+
+
+def serving_ops_checks(port: int, what: str, fleet: bool = False) -> dict:
+    """``slo status --json``, ``slo check`` (exit 0, or 1 naming the firing
+    objective) and ``top --once`` against a running server, in process;
+    with ``fleet``, ``slo status --fleet <it> <a dead port>``: the dead
+    replica's column is down and the cycle ends within its budget."""
+    url = f"http://127.0.0.1:{port}"
+    rc, out = _cli_out(["slo", "status", "--url", url, "--json"])
+    doc = json.loads(out)
+    check(rc == 0 and doc["version"] == 1 and len(doc["objectives"]) == 6,
+          f"slo status against {what}: rc {rc}")
+    check_rc, out = _cli_out(["slo", "check", "--url", url, "--json"])
+    verdict = json.loads(out)
+    check((check_rc == 0 and verdict["ok"]) or (check_rc == 1 and verdict["failing"]),
+          f"slo check against {what}: rc {check_rc}, {verdict}")
+    rc, out = _cli_out(["top", "--url", url, "--once"])
+    check(rc == 0 and "dsst top" in out and "OBJECTIVE" in out, f"top --once against {what}")
+    result = {"slo_check_rc": check_rc, "failing": verdict["failing"],
+              "states": {o["name"]: o["state"] for o in doc["objectives"]},
+              "top_lines": len(out.splitlines())}
+    if fleet:
+        dead = free_port()
+        t0 = time.perf_counter()
+        rc, out = _cli_out(["slo", "status", "--fleet", f"127.0.0.1:{port}",
+                            f"127.0.0.1:{dead}", "--fleet-timeout", "2", "--json"])
+        elapsed = time.perf_counter() - t0
+        view = json.loads(out)
+        by = {r["endpoint"]: r for r in view["replicas"]}
+        check(rc == 0 and view["up"] == 1 and by[f"127.0.0.1:{port}"]["up"]
+              and not by[f"127.0.0.1:{dead}"]["up"] and elapsed < 2 + 1.0,
+              f"fleet with a dead replica: {view['replicas']} in {elapsed:.2f} s")
+        result["fleet"] = {"cycle_s": elapsed, "dead_outcome": by[f"127.0.0.1:{dead}"]["outcome"],
+                           "merged_series": view["merged_series"]}
+    print(f"slo/top against {what}: " + json.dumps(result), flush=True)
+    return result
+
 
 
 def parity_phase(torch) -> dict:
@@ -804,6 +912,7 @@ def slice_phase(torch) -> dict:
         for n, r, s in zip(PROMPT_LENS, results, solo):
             check(r["tokens"] == s["tokens"],
                   f"prompt {n}: concurrent tokens differ from solo")
+        ops = serving_ops_checks(handle.port, "serve-lm")
 
         snap = {m["name"]: m for m in telemetry.snapshot()["metrics"]
                 if m["type"] == "histogram" and not m["labels"]}
@@ -838,6 +947,7 @@ def slice_phase(torch) -> dict:
         "ttft_ms_max": max(ttfts) * 1e3,
         "prefill_ms_mean": mean_ms("lm_prefill_seconds"),
         "decode_step_ms_mean": mean_ms("lm_decode_step_seconds"),
+        "slo_top": ops,
     }
 
 
@@ -1691,12 +1801,21 @@ def resilience_lm_phase(torch, work: Path, card: str) -> dict:
     _wait_for(journaled_checkpoint, proc, 300, "lm SIGKILL run")
     proc.kill()
     proc.communicate(timeout=60)
+    (killed_dir,) = list((dead / "runs" / "lm").iterdir())
+    rc, out = _cli_out(["trace", "tail", "--run", str(killed_dir), "--json"])
+    tail = [json.loads(line) for line in out.splitlines()]
+    open_spans = sorted({r["name"] for r in tail if r.get("open")})
+    check(rc == 0 and {"fit"} <= set(open_spans),
+          f"trace tail of the killed lm: rc {rc}, open spans {open_spans}")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["runs", "doctor", "--json", "--tracking-root", str(dead / "runs")])
     (run,) = json.loads(buf.getvalue())["runs"]
     check(rc == 0 and run["effective_status"] == "INTERRUPTED" and run.get("marked")
           and run["resumable_step"] == spe, f"runs doctor on the killed run: {run}")
+    check(run["trace_file"] == str((killed_dir / "flightrec.jsonl").absolute()),
+          f"runs doctor names the tail {run['trace_file']}")
+    result["killed_tail"] = {"open_spans": open_spans, "tail_rows": len(tail)}
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli.main(["runs", "doctor", "--resume", "--tracking-root", str(dead / "runs")])
@@ -2216,8 +2335,9 @@ def tpe_parity(torch, demand: str) -> dict:
 
 def start_side_runs(demand: str) -> dict:
     """Start, side by side in the background, the ``eda`` command, the
-    pipeline phase's specs (``real_photos_train.json`` among them) and, on a
-    thread, the HPO chain (:func:`hpo_chain`): each a chain of processes
+    pipeline phase's specs (``real_photos_train.json`` among them) and, on
+    threads, the HPO chain (:func:`hpo_chain`) and the chaos soaks
+    (:func:`chaos_chain`): each a chain of processes
     whose time is mostly the host's (the card idles > 0.85 under each).
     They share the card and the host's cores while the script goes on with
     ``tpe_parity``. Their times are measured beside one another."""
@@ -2270,7 +2390,78 @@ def start_side_runs(demand: str) -> dict:
 
     side["hpo"]["thread"] = threading.Thread(target=_hpo, name="hpo-chain", daemon=True)
     side["hpo"]["thread"].start()
+    side["chaos"] = {"t0": time.perf_counter()}
+
+    def _chaos() -> None:
+        try:
+            side["chaos"]["result"] = chaos_chain(Path(tempfile.mkdtemp(prefix="chip_smoke_chaos_")))
+        except BaseException as e:  # a failed check exits; the phase reports it
+            side["chaos"]["error"] = f"{type(e).__name__}: {e}"
+
+    side["chaos"]["thread"] = threading.Thread(target=_chaos, name="chaos-chain", daemon=True)
+    side["chaos"]["thread"].start()
     return side
+
+
+# The chaos soaks on the card. train: the JAX package's tier-1 soak
+# (tests/test_crashonly.py: 5 SIGKILL cycles, seed 0, 2 epochs, kills at
+# 1-3 s, 48 rows of 32 px, the tiny model); serve: 2 kill/restart cycles on
+# its checkpoint; hpo: 3 cycles of a 6-trial sweep.
+CHAOS_SOAKS = (
+    ("train", ["--workload", "train", "--cycles", "5", "--seed", "0", "--epochs", "2",
+               "--kill-max", "3.0", "--rows", "48", "--image-size", "32"]),
+    ("serve", ["--workload", "serve", "--cycles", "2"]),
+    ("hpo", ["--workload", "hpo", "--cycles", "3", "--seed", "1", "--kill-max", "4.0",
+             "--max-evals", "6"]),
+)
+
+
+def chaos_chain(work: Path) -> dict:
+    """``chaos`` on the card, each soak a process of its own, one after
+    another (serve on the train soak's checkpoint): rc, every invariant,
+    wall time and kills delivered."""
+    work.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for name, argv in CHAOS_SOAKS:
+        if name == "serve":
+            argv = [*argv, "--checkpoint-dir", str(work / "train" / "ckpt")]
+        run = _start(CLI + ["chaos", "--workdir", str(work / name), *argv, "--device", "cuda",
+                            "--timeout", "300", "--json"], work / f"{name}_soak", env=_port_env())
+        proc, wall = _wait(run, 900, f"chaos --workload {name}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        out[name] = {"rc": proc.returncode, "ok": report["ok"], "wall_s": round(wall, 2),
+                     "kills_delivered": report.get("kills_delivered"),
+                     "invariants": {k: v["ok"] for k, v in report["invariants"].items()},
+                     "failing": {k: v for k, v in report["invariants"].items() if not v["ok"]}}
+        if name == "train":
+            out[name]["params"] = report["invariants"]["params_bitwise_equal"]
+            out[name]["modes"] = [c["mode"] for c in report["cycles"]]
+            out[name]["open_spans_per_run"] = \
+                report["invariants"]["flight_recorder_tail"]["open_spans_per_run"]
+    return out
+
+
+def chaos_phase(card: str, side: dict) -> dict:
+    """Wait for :func:`chaos_chain` (started beside the other side runs):
+    every soak exits 0 with every invariant OK, ``params_bitwise_equal``
+    (the digest of every tensor of the final checkpoint against an
+    uninterrupted same-seed run) included."""
+    side["chaos"]["thread"].join(
+        timeout=max(1.0, side["chaos"]["t0"] + 1500 - time.perf_counter()))
+    check(not side["chaos"]["thread"].is_alive(), "the chaos soaks did not finish within 1500 s")
+    if "error" in side["chaos"]:
+        fail(f"chaos soaks: {side['chaos']['error']}")
+    out = side["chaos"]["result"]
+    for name, soak in out.items():
+        check(soak["rc"] == 0 and soak["ok"], f"chaos --workload {name}: {soak}")
+    check(out["train"]["invariants"]["params_bitwise_equal"]
+          and out["train"]["params"]["chaos"] == out["train"]["params"]["ref"],
+          f"chaos train: final parameters differ from the uninterrupted run's "
+          f"{out['train']['params']}")
+    print(f"chaos ({card}): " + json.dumps(out), flush=True)
+    print("chaos soaks: " + ", ".join(f"{n} {s['wall_s']:.1f} s, {s['kills_delivered']} kills"
+                                      for n, s in out.items()), flush=True)
+    return out
 
 
 def eda_phase(torch, card: str, side: dict) -> dict:
@@ -3600,6 +3791,8 @@ def image_serve_phase(torch, tables, ckpt: str, card: str, device: str = "cuda")
                   and boot["queue_depth"] == 64 and boot["batch_window_ms"] == 5.0
                   and boot["deadline_ms"] == 2000.0, f"serve boot line {boot}")
             traffic, served, singles = _serve_traffic(boot["port"], jpegs, flood=micro == 8)
+            if micro == 8:
+                result["slo_top"] = serving_ops_checks(boot["port"], "serve", fleet=True)
             proc.send_signal(signal.SIGINT)
             out, err = proc.communicate(timeout=120)
         finally:
@@ -4014,7 +4207,8 @@ def main() -> int:
     print(f"pipeline ({card}): " + json.dumps(jobs), flush=True)
     hpo_phase(card, side)
     print(f"hpo chain: {side['hpo']['wall_s']:.1f} s beside the others", flush=True)
-    print(f"tpe parity, eda, pipeline and hpo phases side by side: "
+    chaos_phase(card, side)
+    print(f"tpe parity, eda, pipeline, hpo and chaos phases side by side: "
           f"{time.perf_counter() - t0:.1f} s (after eda {time.perf_counter() - t1:.1f} s)",
           flush=True)
     torch.cuda.empty_cache()

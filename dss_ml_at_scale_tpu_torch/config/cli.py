@@ -71,6 +71,10 @@ Ports of the JAX package's commands (``config/commands.py``):
   list|show|doctor [--resume]``: the operator's face of the checkpoint
   manifests, the poison-row blocklist and the run store. They touch no
   device.
+- ``chaos`` (the SIGKILL soak over ``train``, ``hpo`` and ``serve``, plus
+  ``--device`` for its children), ``telemetry``, ``trace
+  tail|export|attribution``, ``slo status|check|watch`` (``--fleet``) and
+  ``top``: the operability commands (:mod:`.observe`).
 
 ``train``, ``lm``, ``forecast``, ``eda``, ``hpo`` and ``serve-lm`` journal every run in a run store
 (:mod:`..tracking`), on by default under ``./dsst_runs`` (or
@@ -198,9 +202,11 @@ def build_parser() -> argparse.ArgumentParser:
     _register_runs(sub)
     _register_ingest(sub)
     _register_hpo(sub)
+    from . import observe
     from .pipeline import register_pipeline
 
     register_pipeline(sub)
+    observe.register_all(sub)
     return parser
 
 

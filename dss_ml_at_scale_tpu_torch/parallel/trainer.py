@@ -89,10 +89,34 @@ Crash safety, as in the JAX trainer:
 The port publishes a step only with its manifest (written in the staging
 directory before the rename), so the JAX trainer's manifest repair of a
 restored step has nothing to repair here.
+
+Tracing and metrics, as in the JAX trainer: ``fit`` opens a ``run`` trace
+and a ``fit`` root span whose begin event reaches the flight recorder
+before the first step, so any kill after the start leaves an open span
+naming the run. Each committed step runs a ``train_step`` span under its
+batch's own step trace (born on the feeder thread with ``reader.next`` and
+``feeder.place``); ``eval``, ``checkpoint`` and ``checkpoint.finalize``
+(the manifest, the rename, the journal commit) run under the trace of the
+step they follow, and ``train_epoch`` is recorded when an epoch ends. On a
+card the ``train_step`` span covers the host's dispatch of the step's
+kernels (the step ends in no synchronize, so it measures the card's time
+only once the launch queue is full) plus, under ``health``, the verdict's
+fetch. The metrics: ``train_step_seconds`` and the
+``train_step_window_seconds`` window (every committed step's
+``train_step`` span), ``train_data_wait_seconds`` (the feeder's waits,
+one in four), ``train_throughput_rows_per_sec`` (the last epoch's),
+``train_compile_events_total`` and the SLO engine's train-step objective.
+
+Replay is bitwise on a card: a CUDA device runs cuDNN in its
+deterministic mode without autotuning (the trainer sets both for the
+process; the kernels of :mod:`..ops` use no atomics), so two runs of the
+same seed, data order and flags commit the same parameters, the property
+the chaos soak's ``params_bitwise_equal`` holds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -120,6 +144,7 @@ from ..resilience import durability, health
 from ..resilience.faults import maybe_fail
 from ..resilience.preemption import PreemptionGuard
 from ..runtime import distributed as rt
+from ..telemetry import tracecontext
 from ..utils.profiling import StepTimer
 from .ring import sequence_shard, sharded_next_token_loss
 
@@ -416,6 +441,10 @@ class FitResult:
     auto_resumed: bool = False
 
 
+# The data-wait histogram takes one feeder wait in four (the exact total
+# rides feeder_stall_seconds_total), as the JAX trainer samples it.
+_HIST_SAMPLE_EVERY = 4
+
 STATE_FILE = "state.pt"
 METRICS_FILE = "metrics.json"
 
@@ -521,17 +550,41 @@ class Trainer:
             supervisor = health.HealthSupervisor(cfg.health)
             guarded = health.guard_train_step(task, cfg.health)
             hstate = health.HealthState.create(self.device)
+        _deterministic_kernels(self.device)
+        # The step's telemetry: handles resolved once, out of the loop.
+        step_hist = telemetry.histogram(
+            "train_step_seconds", "train_step span of each committed step")
+        step_window = telemetry.window(
+            "train_step_window_seconds", "windowed train_step span of each committed step")
+        wait_hist = telemetry.histogram(
+            "train_data_wait_seconds", "per-step time blocked on the input pipeline")
+        throughput_gauge = telemetry.gauge(
+            "train_throughput_rows_per_sec", "last epoch's global training throughput")
+        compiles = telemetry.CompileTracker(telemetry.counter(
+            "train_compile_events_total",
+            "kernel libraries built or loaded at first use by a train step"))
+        slo_note_step = telemetry.slo.get_engine().note_train_step
         feeder = Feeder(itertools.chain([raw_first], train_iter), self.device,
-                        depth=cfg.feeder_depth, name="train")
+                        depth=cfg.feeder_depth, name="train",
+                        wait_observer=telemetry.SampledObserver(
+                            wait_hist, _HIST_SAMPLE_EVERY).observe)
         history: list[dict] = []
         profile = _ProfileWindow(cfg, self.device)
         guard = PreemptionGuard()
         vote = _StopVote(self.device)
         preempted = False
+        # The run's root span: its begin event reaches the flight recorder
+        # before the first step, so any kill from here on leaves an open
+        # span naming the run. Closed first in the finally.
+        trace_scope = contextlib.ExitStack()
+        trace_scope.enter_context(tracecontext.trace(kind="run"))
+        trace_scope.enter_context(telemetry.span("fit", max_epochs=cfg.max_epochs))
+        step_handoff = tracecontext.Handoff(None)
         try:
             with guard:
                 # A resumed run finishes the epoch its restored step is in.
                 for epoch in range(step // steps_per_epoch, cfg.max_epochs):
+                    t0_wall = time.time()
                     t0 = time.perf_counter()
                     wait0 = feeder.wait_seconds
                     timer = StepTimer()
@@ -548,21 +601,35 @@ class Trainer:
                             exhausted = True
                             break
                         profile.before(step)
-                        if supervisor is None:
-                            metrics = task.train_step(batch)
-                            action = "commit"
-                        else:
-                            hstate, step_metrics = guarded(
-                                hstate, batch, supervisor.next_injection())
-                            if (step_metrics["health_verdict"] != health.VERDICT_OK
-                                    and rt.process_count() > 1):
-                                prov = _gather_provenance(prov)
-                            # Process 0 alone writes the quarantine.
-                            action = supervisor.observe(step + 1, step_metrics,
-                                                        prov if coordinator else None)
-                            if action == "commit":
-                                metrics = step_metrics
+                        # The step runs under its batch's own trace (born on
+                        # the feeder thread): the reader pull, the copy and
+                        # this dispatch share one trace id, and the begin
+                        # event leaves an open train_step span in the flight
+                        # recorder when a kill lands mid-step.
+                        step_handoff = feeder.last_handoff
+                        t_step = time.perf_counter()
+                        with step_handoff.activate(), telemetry.span("train_step", step=step):
+                            if supervisor is None:
+                                metrics = task.train_step(batch)
+                                action = "commit"
+                            else:
+                                hstate, step_metrics = guarded(
+                                    hstate, batch, supervisor.next_injection())
+                                if (step_metrics["health_verdict"] != health.VERDICT_OK
+                                        and rt.process_count() > 1):
+                                    prov = _gather_provenance(prov)
+                                # Process 0 alone writes the quarantine.
+                                action = supervisor.observe(step + 1, step_metrics,
+                                                            prov if coordinator else None)
+                                if action == "commit":
+                                    metrics = step_metrics
+                        dt_step = time.perf_counter() - t_step
+                        compiles.update()
                         if action == "commit":
+                            step_hist.observe(dt_step)
+                            step_window.observe(dt_step)
+                            slo_note_step(dt_step, step_handoff.ctx.trace_id
+                                          if step_handoff.ctx is not None else None)
                             epoch_steps += 1
                             step += 1
                             timer.tick()
@@ -592,13 +659,16 @@ class Trainer:
                             break
                     if stop:
                         preempted = True
-                        self._preempt(root, task, step, epoch)
+                        self._preempt(root, task, step, epoch, step_handoff)
                         break
                     if epoch_steps == 0:
                         log.warning("train data exhausted at step %d", step)
                         break
                     self._sync()
                     t_end = time.perf_counter()
+                    telemetry.get_span_log().record(
+                        "train_epoch", t0_wall, t_end - t0, epoch=epoch, steps=epoch_steps)
+                    throughput_gauge.set(epoch_steps * units / (t_end - t0))
                     summary = {
                         "epoch": epoch,
                         "steps": epoch_steps,
@@ -617,7 +687,8 @@ class Trainer:
                                 (feeder.wait_seconds - wait_first) / (epoch_steps - 1),
                         })
                     if use_best:
-                        summary.update(self._evaluate(task, val_data_factory))
+                        with step_handoff.activate(), telemetry.span("eval", epoch=epoch):
+                            summary.update(self._evaluate(task, val_data_factory))
                     history.append(summary)
                     log.info("epoch %d: %s", epoch, summary)
                     self._log({k: v for k, v in summary.items() if k != "epoch"}, step)
@@ -626,7 +697,7 @@ class Trainer:
                                                or sign * metric > sign * best_value):
                         best_value, best_step = metric, step
                     if root is not None:
-                        self._save(root, task, step, epoch, summary)
+                        self._save(root, task, step, epoch, summary, step_handoff)
                         if coordinator:
                             _retain(root, cfg, use_best)
                         rt.barrier()
@@ -634,6 +705,7 @@ class Trainer:
                         log.warning("train data exhausted at step %d", step)
                         break
         finally:
+            trace_scope.close()
             vote.close()
             profile.close()
             feeder.close()
@@ -718,7 +790,8 @@ class Trainer:
         supervisor.record_rollback(at_step, step, t0_wall, time.perf_counter() - t0)
         return step
 
-    def _preempt(self, root: Path | None, task, step: int, epoch: int) -> None:
+    def _preempt(self, root: Path | None, task, step: int, epoch: int,
+                 trace: tracecontext.Handoff) -> None:
         """The step in flight has finished: save a resumable checkpoint of
         ``step`` now, mid-epoch and synchronously (the eviction grace
         window is the one place not to return before the write commits).
@@ -729,18 +802,21 @@ class Trainer:
         self._sync()
         latest = max(integrity.list_steps(root), default=-1) if root is not None else -1
         if root is not None and step > latest:
-            self._save(root, task, step, epoch, {})
+            self._save(root, task, step, epoch, {}, trace)
             rt.barrier()
         log.warning("preempted at step %d (epoch %d); resumable checkpoint %s", step, epoch,
                     "saved" if root is not None else "NOT saved (no checkpoint_dir)")
 
-    def _save(self, root: Path, task, step: int, epoch: int, metrics: dict) -> None:
+    def _save(self, root: Path, task, step: int, epoch: int, metrics: dict,
+              trace: tracecontext.Handoff) -> None:
         """Every rank calls this; process 0 writes the step and journals
-        it."""
+        it, under the trace of the step it saves (``checkpoint``, and
+        ``checkpoint.finalize`` from the manifest to the journal commit)."""
         coordinator = rt.process_index() == 0
-        final = _save(root, task, step, epoch, metrics, write=coordinator)
-        if final is not None:
-            self._journal("checkpoint", step=step, checkpoint_dir=str(root.absolute()))
+        with trace.activate(), telemetry.span("checkpoint", step=step):
+            _save(root, task, step, epoch, metrics, write=coordinator,
+                  on_commit=lambda: self._journal("checkpoint", step=step,
+                                                  checkpoint_dir=str(root.absolute())))
 
     def _log(self, metrics: dict, step: int) -> None:
         if self.tracker is not None:
@@ -893,11 +969,23 @@ def _optimizer_state(task) -> dict | None:
     return opt.state_dict() if rt.process_index() == 0 else None
 
 
-def _save(root: Path, task, step: int, epoch: int, metrics: dict, *, write: bool = True):
+def _deterministic_kernels(device: torch.device) -> None:
+    """Bitwise replay on a card: cuDNN in its deterministic mode, with no
+    autotuning (which may pick another algorithm from one run to the
+    next). Both are process-wide settings; a CPU device needs neither."""
+    if device.type == "cuda":
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+
+
+def _save(root: Path, task, step: int, epoch: int, metrics: dict, *, write: bool = True,
+          on_commit: Callable[[], None] | None = None):
     """Write checkpoint ``root/<step>/`` durably: its files and manifest in
     a temporary directory ``<step>.tmp-<pid>``, fsynced, then renamed into
-    place. Every rank calls it; only the one with ``write`` writes.
-    Returns the step's directory where this rank wrote it."""
+    place, and ``on_commit()`` after the rename (the manifest, the rename
+    and the commit are the ``checkpoint.finalize`` span). Every rank calls
+    it; only the one with ``write`` writes. Returns the step's directory
+    where this rank wrote it."""
     maybe_fail("checkpoint.save")
     gather = getattr(task, "checkpoint_state", None)  # a pipeline's stacked stages
     if gather is not None:
@@ -925,13 +1013,16 @@ def _save(root: Path, task, step: int, epoch: int, metrics: dict, *, write: bool
     durability.durable_replace(tmp / (STATE_FILE + durability.TMP_SUFFIX), tmp / STATE_FILE,
                                kind="checkpoint")
     durability.durable_write_json(tmp / METRICS_FILE, metrics, kind="checkpoint")
-    integrity.write_manifest(tmp)
-    if final.exists():  # as orbax: another run's step, never overwritten
-        shutil.rmtree(tmp)
-        raise FileExistsError(f"checkpoint step {step} already exists under {root}; "
-                              "resume that run, or use another directory")
-    os.replace(tmp, final)
-    durability.fsync_dir(root, kind="checkpoint")
+    with telemetry.span("checkpoint.finalize", step=step):
+        integrity.write_manifest(tmp)
+        if final.exists():  # as orbax: another run's step, never overwritten
+            shutil.rmtree(tmp)
+            raise FileExistsError(f"checkpoint step {step} already exists under {root}; "
+                                  "resume that run, or use another directory")
+        os.replace(tmp, final)
+        durability.fsync_dir(root, kind="checkpoint")
+        if on_commit is not None:
+            on_commit()
     return final
 
 

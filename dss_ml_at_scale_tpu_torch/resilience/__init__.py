@@ -15,8 +15,9 @@
 - :mod:`.preemption`: SIGTERM turned into a flag the training loop polls.
 - :mod:`.workers`: the HPO worker pool (drop, cool-down, heartbeat
   re-admission).
-
-Not ported: the JAX package's chaos soak (``chaos.py``).
+- :mod:`.chaos`: the SIGKILL soak over ``train``, ``hpo`` and ``serve``
+  and its crash-only invariants (imported by the ``chaos`` command, not
+  here).
 """
 
 from .checkpoint import MANIFEST_NAME, verify_checkpoint_dir, verify_step, write_manifest  # noqa: F401

@@ -1,43 +1,73 @@
-"""Telemetry of the port: metrics registry, spans, trace ids, SLOs.
+"""Telemetry of the port: metrics registry, spans, flight recorder, device
+stats, SLOs, exports and the fleet merge.
 
-Port copy of what the LM serving path calls from
-``dss_ml_at_scale_tpu/telemetry`` (the JAX package's ``telemetry``
-imports JAX through its device monitor, so the port keeps its own copy).
-Module-level helpers hit the process-default registry and span log, so
-instrumentation points never thread a registry object through APIs.
+Port copy of ``dss_ml_at_scale_tpu/telemetry`` (the JAX package's
+``telemetry`` imports JAX through its device monitor, so the port keeps its
+own copy; :mod:`.device` reads ``torch.cuda`` instead). One process-local
+place where training (step time, throughput, data wait, compile events),
+HPO (per-trial spans and outcomes), the input pipeline (feeder depth, stall
+time) and serving (request latency, error counts) meter themselves,
+renderable as Prometheus text for a ``GET /metrics`` scrape, archivable as
+JSON into a run's :class:`~dss_ml_at_scale_tpu_torch.tracking.RunStore`,
+and exportable as a Chrome/Perfetto trace of the whole run.
+
+Module-level helpers (``counter``/``gauge``/``histogram``/``span``) hit the
+process-default registry and span log, so instrumentation points never
+thread a registry object through APIs; tests and embedders that need
+isolation construct their own :class:`MetricsRegistry`/:class:`SpanLog`.
 """
 
 from __future__ import annotations
 
-from . import slo, tracecontext, windows
-from .export import rpc_handlers
-from .registry import DEFAULT_BUCKETS, MetricFamily, MetricsRegistry, log_buckets
-from .spans import SpanLog
+from .device import CompileTracker, DeviceMonitor, device_memory_stats
+from .export import collect_remote_snapshots, rpc_handlers, write_exports
+from .registry import (
+    DEFAULT_BUCKETS,
+    MetricFamily,
+    MetricsRegistry,
+    SampledObserver,
+    log_buckets,
+)
+from .spans import SpanLog, export_perfetto, to_perfetto
+from . import federation, flightrec, slo, tracecontext, windows
 from .tracecontext import Handoff, TraceContext
-from .windows import SlidingQuantile
+from .windows import SlidingQuantile, WindowedCounter, quantile
 
 __all__ = [
+    "CompileTracker",
     "DEFAULT_BUCKETS",
+    "DeviceMonitor",
     "Handoff",
     "MetricFamily",
     "MetricsRegistry",
+    "SampledObserver",
     "SlidingQuantile",
     "SpanLog",
     "TraceContext",
+    "WindowedCounter",
+    "collect_remote_snapshots",
     "counter",
+    "device_memory_stats",
+    "export_perfetto",
+    "federation",
+    "flightrec",
     "gauge",
     "get_registry",
     "get_span_log",
     "histogram",
     "log_buckets",
+    "quantile",
     "render_prometheus",
+    "reset",
     "rpc_handlers",
     "slo",
     "snapshot",
     "span",
+    "to_perfetto",
     "tracecontext",
     "window",
     "windows",
+    "write_exports",
 ]
 
 _registry = MetricsRegistry()
@@ -69,12 +99,13 @@ def histogram(name: str, help: str = "", labels=(),
 
 def window(name: str, help: str = "", labels=(), window_s=None,
            quantiles=None) -> MetricFamily:
-    """A sliding-window quantile series on the default registry."""
+    """A sliding-window quantile series on the default registry (live
+    p50/p99/rate/max over the last ``window_s`` seconds)."""
     return _registry.window(name, help, labels, window_s, quantiles)
 
 
 def span(name: str, **args):
-    """``with telemetry.span("lm.step"): ...`` on the default span log."""
+    """``with telemetry.span("train_step"): ...`` on the default span log."""
     return _span_log.span(name, **args)
 
 
@@ -85,3 +116,13 @@ def snapshot() -> dict:
 def render_prometheus() -> str:
     return _registry.render_prometheus()
 
+
+def reset() -> None:
+    """Zero every default-registry series, clear the span log, and
+    reset the SLO engine's windows/alert states.
+
+    Test isolation and epoch-boundary resets; registrations survive.
+    """
+    _registry.reset()
+    _span_log.clear()
+    slo.reset()

@@ -1,10 +1,10 @@
 """Process-local metrics registry: Counter / Gauge / Histogram / Window.
 
-Port copy of ``dss_ml_at_scale_tpu/telemetry/registry.py``, cut to what the
-LM serving path uses: the four kinds, the Prometheus text renderer
-(``GET /metrics``), the JSON snapshot, and the raw wire snapshot
-(``GET /telemetry``). Merging a peer's wire snapshot (fleet federation) and
-the sampled observer are not ported yet.
+Port copy of ``dss_ml_at_scale_tpu/telemetry/registry.py`` (the JAX
+package's module imports nothing of JAX, but the port keeps its own copy),
+whole: the four kinds, the Prometheus and JSON renderers, the raw wire
+snapshot ``GET /telemetry`` serves, its merge (the fleet aggregator of
+:mod:`.federation`) and :class:`SampledObserver`.
 
 The reference's only metric sink is MLflow autologging; the framework
 needs an in-process registry the hot paths can hit at nanosecond cost
@@ -81,6 +81,9 @@ class _CounterValue:
         with self._lock:
             self.value += n
 
+    def _reset(self) -> None:
+        with self._lock:
+            self.value = 0.0
 
     def _sample(self) -> dict:
         # lock-free approximate read: render paths tolerate a torn float; never written here
@@ -90,6 +93,10 @@ class _CounterValue:
         # lock-free approximate read, same contract as _sample
         v = self.value
         return {"v": _windows.WIRE_VERSION, "kind": "counter", "value": v}
+
+    def _merge_wire(self, wire: dict) -> None:
+        _check_value_wire(wire, "counter")
+        self.inc(float(wire["value"]))
 
 
 class _GaugeValue:
@@ -111,7 +118,12 @@ class _GaugeValue:
         with self._lock:
             self.value += n
 
+    def dec(self, n: float = 1.0) -> None:
+        self.inc(-n)
 
+    def _reset(self) -> None:
+        with self._lock:
+            self.value = 0.0
 
     def _sample(self) -> dict:
         # lock-free approximate read: render paths tolerate a torn float; never written here
@@ -121,6 +133,13 @@ class _GaugeValue:
         # lock-free approximate read, same contract as _sample
         v = self.value
         return {"v": _windows.WIRE_VERSION, "kind": "gauge", "value": v}
+
+    def _merge_wire(self, wire: dict) -> None:
+        # Fleet semantics for gauges are ADDITIVE (queue depths, ready
+        # replicas, firing alerts all sum meaningfully across a fleet);
+        # per-replica values stay visible in the unmerged snapshots.
+        _check_value_wire(wire, "gauge")
+        self.inc(float(wire["value"]))
 
 
 class _HistogramValue:
@@ -145,6 +164,11 @@ class _HistogramValue:
             self.sum += v
             self.count += 1
 
+    def _reset(self) -> None:
+        with self._lock:
+            self.counts = [0] * (len(self.buckets) + 1)
+            self.sum = 0.0
+            self.count = 0
 
     def _sample(self) -> dict:
         with self._lock:
@@ -167,13 +191,34 @@ class _HistogramValue:
                     "counts": list(self.counts),
                     "sum": self.sum, "count": self.count}
 
+    def _merge_wire(self, wire: dict) -> None:
+        _check_value_wire(wire, "histogram")
+        if tuple(float(b) for b in wire.get("buckets", ())) != self.buckets:
+            raise ValueError(
+                "histogram wire bucket mismatch: this series has "
+                f"{len(self.buckets)} buckets, wire carries "
+                f"{len(wire.get('buckets', ()))}"
+            )
+        counts = wire.get("counts")
+        if not isinstance(counts, list) or \
+                len(counts) != len(self.buckets) + 1:
+            raise ValueError(
+                f"histogram wire counts mismatch: expected "
+                f"{len(self.buckets) + 1} entries"
+            )
+        with self._lock:
+            for i, c in enumerate(counts):
+                self.counts[i] += int(c)
+            self.sum += float(wire["sum"])
+            self.count += int(wire["count"])
+
 
 class _WindowValue:
     """One windowed series: a sliding-window quantile sketch.
 
     The fourth registry kind (``window``): constant-memory live
     quantiles/rate/mean/max over the last ``window_s`` seconds
-    (:class:`.windows.SlidingQuantile`).
+    (:class:`~dss_ml_at_scale_tpu_torch.telemetry.windows.SlidingQuantile`).
     Renders as a Prometheus *summary* on ``/metrics`` — with the
     non-standard but documented semantics that the quantiles and
     ``_sum``/``_count`` cover only the window, not the process
@@ -192,6 +237,8 @@ class _WindowValue:
     def quantile(self, q: float) -> float | None:
         return self._sketch.quantile(q)
 
+    def _reset(self) -> None:
+        self._sketch.reset()
 
     def _sample(self) -> dict:
         return self._sketch.snapshot(self._quantiles)
@@ -203,12 +250,61 @@ class _WindowValue:
         return {**self._sketch.to_wire(),
                 "quantiles": list(self._quantiles)}
 
+    def _merge_wire(self, wire: dict) -> None:
+        self._sketch.merge_wire(wire)
+
+
+def _check_value_wire(wire, kind: str) -> None:
+    """Version + kind gate for the scalar/histogram wire payloads (the
+    window kind delegates to the sketch's own check)."""
+    if not isinstance(wire, dict):
+        raise ValueError(f"wire payload must be a dict, got {type(wire)}")
+    if wire.get("v") != _windows.WIRE_VERSION:
+        raise ValueError(
+            f"wire version mismatch: expected {_windows.WIRE_VERSION}, "
+            f"got {wire.get('v')!r}"
+        )
+    if wire.get("kind") != kind:
+        raise ValueError(
+            f"wire kind mismatch: expected {kind!r}, "
+            f"got {wire.get('kind')!r}"
+        )
+
 
 _CHILD_TYPES = {
     "counter": _CounterValue,
     "gauge": _GaugeValue,
     "histogram": _HistogramValue,
 }
+
+
+class SampledObserver:
+    """Record every Nth observation into a histogram family/child.
+
+    The per-step instrumentation budget is paid once per *training step*;
+    a full histogram observe (lock + bisect) on every step is cheap but
+    not free, and the distribution estimate doesn't need every sample.
+    This wrapper forwards 1-in-``every`` values — bucket shapes and
+    means survive sampling; exact totals should ride a counter instead
+    (the feeder keeps ``*_seconds_total`` counters exact for this
+    reason). The skip counter is unlocked: a rare race drops or doubles
+    one sample, which is noise at the rates this is built for.
+    """
+
+    __slots__ = ("_observe", "_every", "_n")
+
+    def __init__(self, family, every: int = 8):
+        if every < 1:
+            raise ValueError(f"every must be >= 1, got {every}")
+        self._observe = family.observe
+        self._every = int(every)
+        self._n = 0
+
+    def observe(self, v: float) -> None:
+        self._n += 1
+        if self._n >= self._every:
+            self._n = 0
+            self._observe(v)
 
 
 class MetricFamily:
@@ -258,7 +354,7 @@ class MetricFamily:
             self._children[()] = solo
             # Bind the child's mutators directly: the unlabeled hot path
             # pays zero indirection.
-            for m in ("inc", "set", "observe", "quantile"):
+            for m in ("inc", "dec", "set", "observe", "quantile"):
                 if hasattr(solo, m):
                     setattr(self, m, getattr(solo, m))
 
@@ -299,6 +395,10 @@ class MetricFamily:
     def observe(self, v: float) -> None:
         self._require_unlabeled("observe")
 
+    def _reset(self) -> None:
+        with self._lock:
+            for child in self._children.values():
+                child._reset()
 
     def _series(self) -> list[tuple[dict, dict]]:
         """[(labels_dict, sample_dict), ...] sorted by label values."""
@@ -398,6 +498,10 @@ class MetricsRegistry:
         with self._lock:
             return [self._families[k] for k in sorted(self._families)]
 
+    def reset(self) -> None:
+        """Zero every series; registrations (and label children) remain."""
+        for fam in self.families():
+            fam._reset()
 
     # -- federation wire form ---------------------------------------------
 
@@ -406,8 +510,7 @@ class MetricsRegistry:
         serves. Unlike :meth:`snapshot` (render-oriented: cumulative
         histogram pairs, resolved quantiles) this carries the RAW
         internals (per-bucket counts, window digest counts) so a peer
-        registry can fold them in (the merge waits for the port's
-        federation slice).
+        registry can fold them in with :meth:`merge_wire_snapshot`.
         """
         metrics = []
         for fam in self.families():
@@ -425,6 +528,45 @@ class MetricsRegistry:
             "metrics": metrics,
         }
 
+    def merge_wire_snapshot(self, snap: dict) -> int:
+        """Fold a peer's :meth:`wire_snapshot` into this registry.
+
+        Families are get-or-create with the wire's geometry, so a
+        mismatch against an existing local family fails loudly through
+        :meth:`_get` (kind / labels / buckets / window geometry), just
+        like two local call sites disagreeing. Returns the number of
+        series merged.
+        """
+        if not isinstance(snap, dict):
+            raise ValueError(f"snapshot must be a dict, got {type(snap)}")
+        if snap.get("version") != _windows.WIRE_VERSION:
+            raise ValueError(
+                f"snapshot version mismatch: expected "
+                f"{_windows.WIRE_VERSION}, got {snap.get('version')!r}"
+            )
+        merged = 0
+        for entry in snap.get("metrics", ()):
+            name = entry["name"]
+            kind = entry["type"]
+            labels = dict(entry.get("labels") or {})
+            wire = entry["wire"]
+            buckets = None
+            window_s = None
+            quantiles = None
+            if kind == "histogram":
+                buckets = tuple(float(b) for b in wire["buckets"])
+            elif kind == "window":
+                window_s = float(wire["window_s"])
+                qs = wire.get("quantiles")
+                quantiles = tuple(float(q) for q in qs) if qs else None
+            fam = self._get(
+                kind, name, entry.get("help", ""), tuple(labels),
+                buckets, window_s=window_s, quantiles=quantiles,
+            )
+            fam.labels(**labels)._merge_wire(wire)
+            merged += 1
+        return merged
+
     # -- renderers --------------------------------------------------------
 
     def snapshot(self) -> dict:
@@ -440,6 +582,8 @@ class MetricsRegistry:
                 })
         return {"ts": time.time(), "metrics": metrics}
 
+    def render_json(self) -> str:
+        return json.dumps(self.snapshot())
 
     def render_prometheus(self) -> str:
         """Prometheus text exposition (format version 0.0.4)."""

@@ -2,11 +2,10 @@
 
 Port of ``dss_ml_at_scale_tpu/tracking/store.py``, on the same on-disk
 layout, so each package's :func:`classify_run`, :func:`list_runs` and
-``runs doctor`` read the other's run directories. What the port leaves
-out: the flight recorder and the SLO alert journal, which the JAX
-package's telemetry writes beside a run (the port's telemetry has
-neither); a JAX run's ``trace`` and ``slo_journal`` journal events are
-still read, and its alerts still reported.
+``runs doctor`` read the other's run directories. Every run enables the
+flight recorder (``flightrec.jsonl``) and the SLO alert journal
+(``alerts.jsonl``) in its directory and registers both in its journal
+(the ``trace`` and ``slo_journal`` events), as the JAX package's does.
 
 The reference threads MLflow through every track: experiment pinning, a
 host/token env relay so Spark workers can log, ``MLFlowLogger`` for
@@ -151,6 +150,22 @@ class RunStore:
         if _run_cmdline is not None:
             start_event["cmdline"] = list(_run_cmdline)
         self.journal_event(**start_event)
+        # Always-on flight recorder: this run's span begin/end events go to
+        # a crash-durable tail in the run directory, so the last events of
+        # a SIGKILLed run, the spans open at the kill included, can be
+        # rebuilt (``trace tail``). Registered in the journal so
+        # classify_run and the doctor can point at the file.
+        from ..telemetry import flightrec
+
+        self._trace_path = flightrec.enable(self.path / "flightrec.jsonl")
+        self.journal_event("trace", path=str(self._trace_path))
+        # SLO alert transitions journal into the run directory through the
+        # same crash-durable appender: if this run dies with an alert
+        # firing, the doctor can say so from disk alone.
+        from ..telemetry import slo as slo_mod
+
+        self._alerts_path = slo_mod.get_engine().attach_journal(self.path / "alerts.jsonl")
+        self.journal_event("slo_journal", path=str(self._alerts_path))
 
     # -- logging ----------------------------------------------------------
 
@@ -264,6 +279,14 @@ class RunStore:
         meta.update(status=status, end_time=_now())
         self._write_json("meta.json", meta)
         self._metrics.close()
+        # Stop recording into a finished run, but only if the recorder and
+        # the alert journal still target this run's files (a newer run may
+        # have re-targeted them already; then both calls are no-ops).
+        from ..telemetry import flightrec
+        from ..telemetry import slo as slo_mod
+
+        flightrec.disable(self._trace_path)
+        slo_mod.get_engine().detach_journal(self._alerts_path)
 
     # -- context manager (finish() may never run on a hard crash; `with`
     # scopes the metrics handle to the block and stamps the outcome) ------
@@ -350,16 +373,6 @@ def _read_jsonl(path: Path, key: str) -> list[dict]:
     return out
 
 
-def _firing_at_death(path) -> list[str]:
-    """SLO objectives whose last journaled transition in an
-    ``alerts.jsonl`` (written by the JAX package's telemetry) left them
-    firing."""
-    last: dict[str, str] = {}
-    for t in _read_jsonl(Path(path), "slo"):
-        last[t["slo"]] = t.get("state", "")
-    return sorted(n for n, s in last.items() if s == "firing")
-
-
 def classify_run(run_dir: str | os.PathLike) -> dict:
     """Journal-based status of one run directory, judged from disk.
 
@@ -424,7 +437,9 @@ def classify_run(run_dir: str | os.PathLike) -> dict:
         # Alerts whose LAST journaled transition left them firing: for
         # a dead run this is "what was burning when it died"; for a
         # live one, what is burning now.
-        out["firing_alerts"] = _firing_at_death(out["alerts_file"])
+        from ..telemetry import slo as slo_mod
+
+        out["firing_alerts"] = slo_mod.firing_at_death(out["alerts_file"])
     if out["status"] in TERMINAL_STATUSES:
         out["effective_status"] = out["status"]
         return out

@@ -10,8 +10,10 @@ last buffered lines). Keeping one implementation means a policy fix
 (flush discipline, atexit bookkeeping) reaches every stream.
 
 This is operational evidence, NOT durable state: a crash loses at most
-the in-flight line. (Port copy of ``dss_ml_at_scale_tpu/utils/jsonl.py``;
-the crash-durable appender of the JAX package is not ported yet.)
+the in-flight line. Crash-durable appends (the run journal, the flight
+recorder, the SLO alert journal, the fleet journal) go through
+``resilience.durability.append_jsonl`` instead. (Port copy of
+``dss_ml_at_scale_tpu/utils/jsonl.py``.)
 """
 
 from __future__ import annotations

@@ -13,8 +13,9 @@ through the ``lm`` entry with a checkpoint and one more after restoring it
 demand`` and ``forecast`` on the CPU, by the grid and by TPE), runs a tiny
 ``eda`` and a ``pipeline --dry-run``, writes a photo tree and ingests it,
 writes a regression ``.npz``, runs ``hpo`` on the CPU (closure and shared
-filesystem) and two trials through an in-process trial worker over RPC, and
-then lists what got loaded (scikit-learn must not be among it). A second check runs one
+filesystem) and two trials through an in-process trial worker over RPC,
+runs one CPU ``chaos`` cycle, ``trace tail`` on its killed run and ``slo
+status --report`` on a saved SLO document, and then lists what got loaded (scikit-learn must not be among it). A second check runs one
 data-parallel ``train`` step in two processes (gloo on the CPU, meeting at
 a ``file://`` rendezvous), each of which lists what it loaded. The static
 scan reads every source file of the port (``runtime/`` and ``native/``
@@ -146,9 +147,28 @@ try:
 finally:
     server.shutdown()
 remote = [t["result"]["status"] for t in trials.trials]
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli.main(["chaos", "--workdir", work + "/chaos", "--cycles", "1", "--epochs", "1",
+                     "--kill-max", "2.0", "--timeout", "120", "--device", "cpu",
+                     "--json"]) in (0, 1)
+chaos = json.loads(out.getvalue().strip().splitlines()[-1])
+import glob, os
+from dss_ml_at_scale_tpu_torch import telemetry
+with open(work + "/slo.json", "w") as f:
+    json.dump(telemetry.slo.get_engine().render_status(), f)
+ops = []
+for argv in (["trace", "tail", "--json", "--run",
+              min(glob.glob(work + "/chaos/runs/chaos/*"), key=os.path.getmtime)],
+             ["slo", "status", "--report", work + "/slo.json", "--json"]):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(argv) == 0
+    ops.append(out.getvalue())
 print(json.dumps({"done": lines[-1], "train": train, "lm": lm, "forecast": forecast,
                   "tpe": tpe, "eda": eda, "plan": plan, "track": track, "remote": remote,
-                  "predicted": predicted, "vit": vit, "modules": sorted(sys.modules)}))
+                  "predicted": predicted, "vit": vit, "chaos": chaos, "ops": ops,
+                  "modules": sorted(sys.modules)}))
 """
 
 
@@ -191,6 +211,15 @@ def test_port_serves_a_generation_without_jax():
     assert [ln.split(":")[0] for ln in report["track"][3:]] == ["hpo (closure)",
                                                                  "hpo (shared-fs)"]
     assert report["remote"] == ["ok", "ok"]
+    # A CPU chaos cycle (the fs kill inside the save window), the killed
+    # run's tail, and an SLO document judged from a file.
+    assert report["chaos"]["workload"] == "train" and report["chaos"]["device"] == "cpu"
+    assert report["chaos"]["invariants"]["params_bitwise_equal"]["ok"]
+    assert report["chaos"]["invariants"]["save_window_kill"]["ok"]
+    tail = [json.loads(ln) for ln in report["ops"][0].splitlines()]
+    assert any(r.get("open") and r["name"] in ("fit", "checkpoint", "checkpoint.finalize")
+               for r in tail)
+    assert json.loads(report["ops"][1])["version"] == 1
     loaded = [m for m in report["modules"] if _forbidden(m) or m.split(".")[0] == "sklearn"]
     assert loaded == []
     assert "dss_ml_at_scale_tpu_torch.ops.flash_attention" in report["modules"]
@@ -205,7 +234,9 @@ def test_port_serves_a_generation_without_jax():
                  "hpo.space", "parallel.trials", "ops.holt_winters", "workloads.eda",
                  "config.pipeline", "ingest.imagenet", "datagen.photos", "datagen.regression",
                  "hpo.shipping", "hpo.objectives", "runtime.rpc", "resilience.workers",
-                 "telemetry.export"):
+                 "telemetry.export", "resilience.chaos", "telemetry.flightrec",
+                 "telemetry.federation", "telemetry.device", "telemetry.catalog",
+                 "config.observe"):
         assert f"dss_ml_at_scale_tpu_torch.{name}" in report["modules"]
 
 
@@ -266,7 +297,9 @@ def test_static_scan_covers_runtime_and_native():
             "parallel/pipeline.py", "models/pipelined_lm.py", "hpo/__init__.py",
             "hpo/space.py", "hpo/hp.py", "hpo/tpe.py", "hpo/fmin.py", "parallel/trials.py",
             "ops/holt_winters.py", "ops/polish.py", "workloads/eda.py", "datagen/bom.py",
-            "config/pipeline.py"} <= names
+            "config/pipeline.py", "config/observe.py", "resilience/chaos.py",
+            "telemetry/flightrec.py", "telemetry/federation.py", "telemetry/device.py",
+            "telemetry/catalog.py", "telemetry/export.py"} <= names
 
 
 def _sources():

@@ -567,7 +567,10 @@ def test_control_plane_routes(lm_server):
     assert "# TYPE lm_ttft_window_seconds summary" in text
     status, body = _get(handle.port, "/slo")
     names = {o["name"] for o in json.loads(body)["objectives"]}
+    # The engine's six objectives, as JAX's /slo lists them (the feeder and
+    # train-step ones stay informational in a server).
     assert status == 200 and names == {"serving_latency_p99", "serving_error_rate",
+                                       "feeder_stall_fraction", "train_step_p95",
                                        "ttft_p99", "inter_token_p99"}
     status, body = _get(handle.port, "/telemetry")
     doc = json.loads(body)

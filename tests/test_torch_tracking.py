@@ -61,7 +61,9 @@ def test_run_store_round_trip(tmp_path):
     assert run["artifacts"] == ["model.txt", "notes.md"] and run["metric_points"] == 3
     assert json.loads((store.path / "telemetry.json").read_text()) == {"metrics": []}
     events = [e["event"] for e in tracking.read_journal(store.path)]
-    assert events == ["start", "checkpoint", "finish"]
+    # Every run registers its flight recorder and alert journal (the
+    # JAX store's trace and slo_journal events).
+    assert events == ["start", "trace", "slo_journal", "checkpoint", "finish"]
     with pytest.raises(ImportError):
         store.to_mlflow()
 
@@ -178,7 +180,8 @@ def test_train_and_lm_log_finished_runs(tmp_path, images):
     params = json.loads((path / "params.json").read_text())
     assert params["model"] == "tiny-bottleneck" and "fn" not in params
     events = [e["event"] for e in tracking.read_journal(path)]
-    assert events == ["start", "config", "checkpoint", "finish"]
+    assert events == ["start", "trace", "slo_journal", "config", "checkpoint", "finish"]
+    assert (path / "flightrec.jsonl").is_file()
     assert tracking.read_journal(path)[0]["cmdline"][0] == "train"
     _main(["lm", "--device", "cpu", "--vocab", "32", "--dim", "32", "--heads", "2",
            "--layers", "1", "--seq", "16", "--batch-size", "2", "--steps-per-epoch", "2",
