@@ -202,6 +202,18 @@ Phases (any failure exits non-zero; there is no CPU path):
    (tids 2 and 3 journaled, the killed run INTERRUPTED). Best alphas in
    [0, 10], seconds per trial, the card's idle share over the closure
    sweep.
+15e. chaos (beside 15b-15d, on a thread): the ``chaos`` soaks of train,
+   serve and hpo on the card, every invariant held (``CHAOS_SOAKS``).
+15f. analysis (beside 15b-15e, on a thread): the three analysis tiers of
+   the port through its CLI, one process each: ``lint --json`` rc 0;
+   ``sanitize --device cuda --json`` rc 0 (the feeder workload placing on
+   the card through pinned memory and its side stream, every workload
+   clean); ``audit --device cuda --json`` rc 0, every hotpath entrypoint
+   clean under ``torch.cuda.set_sync_debug_mode("error")`` (the
+   health-guarded step under ``"warn"``, its one verdict read counted),
+   every program pinned on the card, K1, K2 and K3 each launched by
+   ``ops.fused_matmul.grad`` and K4 by ``ops.flash_attention.grad`` (in
+   bf16). Each tier's seconds.
 16. moe-lm: ``lm --ffn moe --num-experts 8 --aux-loss-weight 0.01`` at the
    LM-training width (capacity factor 1.25), 2 epochs of 4 steps, 2 val
    batches, checkpoints, ``--sample 16``: K4's launches exactly (4 per train
@@ -2400,6 +2412,18 @@ def start_side_runs(demand: str) -> dict:
 
     side["chaos"]["thread"] = threading.Thread(target=_chaos, name="chaos-chain", daemon=True)
     side["chaos"]["thread"].start()
+    side["analysis"] = {"t0": time.perf_counter()}
+
+    def _analysis() -> None:
+        try:
+            side["analysis"]["result"] = analysis_chain(
+                Path(tempfile.mkdtemp(prefix="chip_smoke_analysis_")))
+        except BaseException as e:  # a failed check exits; the phase reports it
+            side["analysis"]["error"] = f"{type(e).__name__}: {e}"
+
+    side["analysis"]["thread"] = threading.Thread(target=_analysis, name="analysis-chain",
+                                                  daemon=True)
+    side["analysis"]["thread"].start()
     return side
 
 
@@ -2462,6 +2486,86 @@ def chaos_phase(card: str, side: dict) -> dict:
     print("chaos soaks: " + ", ".join(f"{n} {s['wall_s']:.1f} s, {s['kills_delivered']} kills"
                                       for n, s in out.items()), flush=True)
     return out
+
+
+# The analysis tiers on the card, in this order, each a process of its own.
+ANALYSIS_TIERS = (
+    ("lint", ["lint", "--json"]),
+    ("sanitize", ["sanitize", "--device", "cuda", "--json"]),
+    ("audit", ["audit", "--device", "cuda", "--json"]),
+)
+
+
+def analysis_chain(work: Path) -> dict:
+    """``lint``, ``sanitize`` and ``audit`` of the port through its CLI,
+    one after another: each tier's rc, seconds and JSON report."""
+    work.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for name, argv in ANALYSIS_TIERS:
+        run = _start(CLI + argv, work / name, env=_port_env())
+        proc, wall = _wait(run, 600, name)
+        try:
+            report = json.loads(proc.stdout)
+        except json.JSONDecodeError:
+            report = {"stdout": proc.stdout[-2000:]}
+        out[name] = {"rc": proc.returncode, "seconds": round(wall, 2), "report": report,
+                     "stderr": proc.stderr[-2000:] if proc.returncode else ""}
+    return out
+
+
+def analysis_phase(card: str, side: dict) -> dict:
+    """Wait for :func:`analysis_chain` (started beside the other side
+    runs): every tier rc 0 with no active finding and no stale baseline
+    entry; the sanitizer ran every workload; the audit ran every hotpath
+    entrypoint clean under sync-debug ``error`` (the health-guarded step
+    under ``warn``, with exactly its one verdict read counted), every
+    program pinned on the card, and its kernel entrypoints launched K1, K2
+    and K3 (``ops.fused_matmul.grad``) and K4 (``ops.flash_attention.grad``)
+    in the recorded call."""
+    side["analysis"]["thread"].join(
+        timeout=max(1.0, side["analysis"]["t0"] + 1500 - time.perf_counter()))
+    check(not side["analysis"]["thread"].is_alive(),
+          "the analysis tiers did not finish within 1500 s")
+    if "error" in side["analysis"]:
+        fail(f"analysis tiers: {side['analysis']['error']}")
+    out = side["analysis"]["result"]
+    for name, tier in out.items():
+        report = tier["report"]
+        check(tier["rc"] == 0 and report.get("ok") is True,
+              f"{name} rc {tier['rc']}: {json.dumps(report)[-3000:]} {tier['stderr']}")
+    sanitize = out["sanitize"]["report"]
+    check(sorted(sanitize["workloads"]) == ["feeder", "journal", "serving", "trace", "workers"],
+          f"sanitize ran {sanitize['workloads']}")
+    audit = out["audit"]["report"]
+    check(audit["device"] == "cuda" and len(audit["entrypoints"]) == 13,
+          f"audit ran {audit['entrypoints']} on {audit['device']}")
+    programs = audit["programs"]
+    cold = {"sarimax.batched_fit"}  # declared cold in the registry, with its reason
+    warned = {"train_step.classifier.health"}  # its one verdict read, counted under "warn"
+    modes = {n: (p["sync_debug"], p["sync_error"], p["syncs"]) for n, p in programs.items()}
+    check(all(modes[n] == ("warn", None, 1) if n in warned else modes[n] == ("error", None, None)
+              for n in programs if n not in cold),
+          f"audit: sync-debug (mode, error, count) per entrypoint {modes}")
+    unpinned = {n: p["pin"] for n, p in programs.items() if p["pin"] != "pinned"}
+    check(not unpinned, f"audit: programs not pinned on the card {unpinned}; re-pin with "
+          "scripts/analysis_tiers_probe.py")
+    fm = programs["ops.fused_matmul.grad"]
+    k4 = programs["ops.flash_attention.grad"]
+    check(all(fm["launches"][k] >= 1 for k in ("K1", "K2", "K3")) and k4["launches"]["K4"] >= 1,
+          f"audit: kernel entrypoints launched {fm['launches']} and {k4['launches']} "
+          "in the recorded call")
+    summary = {name: {"rc": t["rc"], "seconds": t["seconds"],
+                      "counts": t["report"].get("counts")} for name, t in out.items()}
+    summary["sanitize"]["stats"] = sanitize["stats"]
+    # The audit process's launches: warm-up and recorded call.
+    summary["audit"]["launches"] = {"ops.fused_matmul.grad": fm["launches_total"],
+                                    "ops.flash_attention.grad": k4["launches_total"]}
+    summary["audit"]["sync_debug"] = modes
+    summary["audit"]["pins"] = {n: p["pin"] for n, p in programs.items()}
+    print(f"analysis ({card}): " + json.dumps(summary), flush=True)
+    print("analysis tiers: " + ", ".join(f"{n} {t['seconds']:.1f} s" for n, t in out.items()),
+          flush=True)
+    return summary
 
 
 def eda_phase(torch, card: str, side: dict) -> dict:
@@ -4208,7 +4312,9 @@ def main() -> int:
     hpo_phase(card, side)
     print(f"hpo chain: {side['hpo']['wall_s']:.1f} s beside the others", flush=True)
     chaos_phase(card, side)
-    print(f"tpe parity, eda, pipeline, hpo and chaos phases side by side: "
+    analysis = analysis_phase(card, side)
+    audit_launches = analysis["audit"]["launches"]
+    print(f"tpe parity, eda, pipeline, hpo, chaos and analysis phases side by side: "
           f"{time.perf_counter() - t0:.1f} s (after eda {time.perf_counter() - t1:.1f} s)",
           flush=True)
     torch.cuda.empty_cache()
@@ -4237,12 +4343,14 @@ def main() -> int:
         "launches": (serving["launches"] + lm_train["launches"] + lm_dp["launches"]
                      + res_lm["launches"] + moe_lm["launches"]
                      + sum(moe_dp["launches_per_rank"])
-                     + jobs["full_stack"]["lm_flash_launches"]),
+                     + jobs["full_stack"]["lm_flash_launches"]
+                     + audit_launches["ops.flash_attention.grad"]["K4"]),
         "launches_by_path": {"serving": serving["launches"], "lm_train": lm_train["launches"],
                              "lm_dp": lm_dp["launches"], "resilience": res_lm["launches"],
                              "moe_lm": moe_lm["launches"],
                              "moe_dp_per_rank": moe_dp["launches_per_rank"],
-                             "pipeline": jobs["full_stack"]["lm_flash_launches"]},
+                             "pipeline": jobs["full_stack"]["lm_flash_launches"],
+                             "audit": audit_launches["ops.flash_attention.grad"]["K4"]},
         "training": {k: train_case[k] for k in ("shape", "max_abs_err", "mean_rel_err", "ms",
                                                 "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")},
@@ -4266,12 +4374,14 @@ def main() -> int:
             "replaces": "dss_ml_at_scale_tpu/ops/fused_matmul.py" + line,
             "launches": (training["launches"][key] + flags["launches"][key]
                          + sum(r[key] for r in dp["launches_per_rank"])
-                         + res_train["launches"][key] + photos["launches"][key]),
+                         + res_train["launches"][key] + photos["launches"][key]
+                         + audit_launches["ops.fused_matmul.grad"][key]),
             "launches_by_path": {"train": training["launches"][key],
                                  "train_flags": flags["launches"][key],
                                  "photos_train": photos["launches"][key],
                                  "dp_per_rank": [r[key] for r in dp["launches_per_rank"]],
                                  "resilience": res_train["launches"][key],
+                                 "audit": audit_launches["ops.fused_matmul.grad"][key],
                                  "serve": [image_serve[f"micro_batch_{m}"]["launches"][key]
                                            for m in (8, 32)]},
             "max_abs_err": max(c["max_abs_err"] for c in fused[key]),

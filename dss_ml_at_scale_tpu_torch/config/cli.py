@@ -75,6 +75,12 @@ Ports of the JAX package's commands (``config/commands.py``):
   ``--device`` for its children), ``telemetry``, ``trace
   tail|export|attribution``, ``slo status|check|watch`` (``--fleet``) and
   ``top``: the operability commands (:mod:`.observe`).
+- ``lint``, ``sanitize`` and ``audit``: the three analysis tiers over the
+  port's own sources, threads and programs (:mod:`.analysis`), with the
+  JAX commands' flags, exit codes and JSON schema; ``sanitize`` and
+  ``audit`` add ``--device``. ``DSST_SANITIZE=1`` arms the thread
+  sanitizer in observation mode for any other command (findings to stderr
+  at exit, the exit code untouched), children included.
 
 ``train``, ``lm``, ``forecast``, ``eda``, ``hpo`` and ``serve-lm`` journal every run in a run store
 (:mod:`..tracking`), on by default under ``./dsst_runs`` (or
@@ -202,11 +208,12 @@ def build_parser() -> argparse.ArgumentParser:
     _register_runs(sub)
     _register_ingest(sub)
     _register_hpo(sub)
-    from . import observe
+    from . import analysis, observe
     from .pipeline import register_pipeline
 
     register_pipeline(sub)
     observe.register_all(sub)
+    analysis.register_all(sub)
     return parser
 
 
@@ -1935,6 +1942,15 @@ def main(argv: list[str] | None = None) -> int:
 
         os.environ["DSST_FAULT_PLAN"] = fault_spec
         install_from_spec(fault_spec)
+    if os.environ.get("DSST_SANITIZE") and args.command != "sanitize":
+        # The runtime thread sanitizer rides any command in observation
+        # mode (findings to stderr at exit, exit code untouched), armed
+        # before the command builds its locks and threads; subprocesses
+        # (a chaos soak's children) inherit the variable and arm too.
+        # `sanitize` manages its own scope.
+        from ..analysis.sanitize import arm_observation_mode
+
+        arm_observation_mode()
     try:
         return args.fn(args)
     except BaseException:

@@ -15,7 +15,11 @@ start; ``emit_provenance`` tags each batch with the rows that built it
 (under :data:`~..resilience.rollback.PROVENANCE_KEY`); and
 ``on_corrupt="quarantine"`` isolates a row whose decode raises (site
 ``sample.corrupt`` injects one), counts it on ``corrupt_samples_total``,
-quarantines it and goes on. Not ported: the reader's queue-depth gauges.
+quarantines it and goes on. The decode pipeline's health is on two
+series, as in JAX: ``reader_queue_depth`` (decoded row groups waiting at the
+consumer's last read: whether the workers keep ahead) and
+``reader_stall_seconds_total`` (the consumer's cumulative wait on the
+queue: what it costs when they don't).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import itertools
 import logging
 import queue
 import threading
+import time
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -52,6 +57,7 @@ class _WorkerError:
         self.error = error
 
 
+# dsst: ignore[lock-discipline] no lock-guarded state: worker results cross threads only via the bounded results Queue and stop Event; _threads/_results are consumer-thread-only (a second concurrent iteration raises), per-thread file handles live in a threading.local
 class ParquetShardReader:
     """Background-threaded, sharded, optionally infinite batch reader."""
 
@@ -227,11 +233,31 @@ class ParquetShardReader:
         finally:
             _put(_SENTINEL)
 
+    def _telemetry_handles(self):
+        """The decode pipeline's gauge and counter, bound once per reader."""
+        handles = getattr(self, "_telemetry", None)
+        if handles is None:
+            from .. import telemetry
+
+            handles = self._telemetry = (
+                telemetry.gauge(
+                    "reader_queue_depth",
+                    "decoded row groups waiting in the results queue at "
+                    "last consumer read",
+                ),
+                telemetry.counter(
+                    "reader_stall_seconds_total",
+                    "cumulative consumer wait on the decode queue",
+                ),
+            )
+        return handles
+
     def _row_groups(self):
         """Stream ``((cols, orig_rows), unit)`` in arrival order."""
         self._results = results = queue.Queue(maxsize=self.results_queue_size)
         work = self._unit_stream()
         lock = threading.Lock()
+        queue_gauge, stall_total = self._telemetry_handles()
         self._threads = [
             threading.Thread(target=self._worker, args=(work, lock, results), daemon=True,
                              name=f"reader-worker-{i}")
@@ -242,7 +268,10 @@ class ParquetShardReader:
         live = len(self._threads)
         try:
             while live:
+                wait_t0 = time.perf_counter()
                 item = results.get()
+                stall_total.inc(time.perf_counter() - wait_t0)
+                queue_gauge.set(results.qsize())
                 if item is _SENTINEL:
                     live -= 1
                     continue
@@ -252,6 +281,7 @@ class ParquetShardReader:
         finally:
             try:
                 self.stop()
+            # dsst: ignore[bare-except] generator finalizer at interpreter shutdown: nothing raised here is actionable
             except BaseException:  # generator finalizer at interpreter shutdown
                 pass
 

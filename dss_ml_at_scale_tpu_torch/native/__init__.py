@@ -105,8 +105,12 @@ def library_path(library: Path | None = None) -> Path:
 
 
 def _build(out: Path, link: list[str]) -> None:
-    """Compile to a temporary file and rename it into place (atomic for
-    another process loading the same library)."""
+    """Compile to a temporary file and publish it durably (fsync, rename,
+    fsync the directory): atomic for another process loading the same
+    library, and a host dying right after the build cannot leave a torn
+    ``.so`` that every later load would crash on."""
+    from ..resilience.durability import durable_replace
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
     cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
@@ -118,7 +122,7 @@ def _build(out: Path, link: list[str]) -> None:
             # Some toolchains lack -march=native; retry plain.
             cmd.remove("-march=native")
             subprocess.run(cmd, check=True, capture_output=True, text=True)
-        os.replace(tmp, out)
+        durable_replace(tmp, out, kind="native")
     finally:
         tmp.unlink(missing_ok=True)
 

@@ -81,7 +81,11 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> None:
             f"nvcc failed on csrc/{name}.cu (exit {rc}):\n"
             + log.read_text(encoding="utf-8", errors="replace")
         )
-    os.replace(tmp, out)  # atomic: a reader never sees a half-written library
+    # Atomic and durable: a reader never sees a half-written library, and a
+    # power cut after the build cannot leave a torn one under the name.
+    from ..resilience.durability import durable_replace
+
+    durable_replace(tmp, out, kind="kernel")
 
 
 def build_all() -> dict[str, Path]:

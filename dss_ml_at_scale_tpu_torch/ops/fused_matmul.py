@@ -401,5 +401,5 @@ def bn_relu_matmul(
     res2 = residual.reshape(m, k) if residual is not None else None
     out = _BnReluMatmul.apply(
         y2, gamma.float(), beta.float(), mean.float(), var.float(), kernel, res2,
-        float(eps), bool(batch_stats), global_count if global_count is not None else m, group)
+        float(eps), bool(batch_stats), int(global_count if global_count is not None else m), group)
     return out.reshape(*lead, n)

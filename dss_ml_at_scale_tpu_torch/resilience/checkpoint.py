@@ -126,7 +126,7 @@ def quarantine_step(step_dir: str | Path) -> Path | None:
         n += 1
         target = step_dir.with_name(f"{step_dir.name}.corrupt-{n}")
     try:
-        step_dir.rename(target)
+        step_dir.rename(target)  # dsst: ignore[durable-write] idempotent move-aside: a crash that loses it re-detects the corrupt step and re-quarantines on next resume
     except OSError as e:
         log.warning("could not quarantine %s: %s", step_dir, e)
         return None

@@ -322,6 +322,7 @@ class HealthSupervisor:
         self.rollbacks += 1
         self.bad_streak = 0
         self._rollback_counter.inc()
+        # dsst: ignore[span-discipline] the rollback already happened when this is called — the timing was measured by the Trainer, so a with-span here would lie about when the work ran
         telemetry.get_span_log().record(
             "health_rollback", t0_wall, duration, from_step=from_step, to_step=to_step,
         )

@@ -33,6 +33,9 @@ class WorkerPool:
     ``_threads`` are shared by trial threads, heartbeat probes and the
     sweep's waiter: every access outside ``__init__`` holds ``_cond``."""
 
+    _guarded_by_lock = ("_idle", "_live", "_probing", "_closed", "_threads")
+    _lock_name = "_cond"
+
     def __init__(self, workers: Iterable, *, probe: Callable | None = None,
                  heartbeat_interval: float = 0.5, dead_grace: float = 1.0):
         workers = list(workers)

@@ -136,6 +136,7 @@ def _answer_challenge(sock: socket.socket, secret: bytes) -> None:
         raise RpcAuthError("peer rejected our HMAC digest (wrong secret)")
 
 
+# dsst: ignore[lock-discipline] no lock-guarded state: handler threads are socketserver-owned and share nothing mutable on this class; _serving is written once before the serve thread starts and read only by shutdown()
 class RpcServer:
     """A threaded TCP server that dispatches to named handlers.
 

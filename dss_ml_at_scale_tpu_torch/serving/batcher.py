@@ -32,6 +32,7 @@ def _NULL_TRACE(job):
     return contextlib.nullcontext()
 
 
+# dsst: ignore[lock-discipline] no lock-guarded state: policy-free plumbing — work crosses threads only via the injected queues and stop Event; per-item state lives on WorkItem/Request (which declare their contracts)
 class DecodePool:
     """N daemon threads: decode-queue → (decode) → batch-queue.
 
@@ -80,6 +81,7 @@ class DecodePool:
         for t in self._threads:
             t.join(timeout)
 
+    # dsst: hotpath — decode must overlap device scoring, never sync with it
     def _run(self) -> None:
         while not self._stop.is_set():
             try:
@@ -102,6 +104,7 @@ class DecodePool:
                 self._out_q.put(item)
 
 
+# dsst: ignore[lock-discipline] no lock-guarded state: single batcher thread owns all its locals; items arrive via the queue and leave via run_batch
 class Batcher:
     """ONE thread: batch-queue → (coalesce) → ``run_batch``.
 
@@ -135,6 +138,7 @@ class Batcher:
     def join(self, timeout: float = 2.0) -> None:
         self._thread.join(timeout)
 
+    # dsst: hotpath — batch assembly sits between admission and the scorer
     def _gather(self, first) -> list:
         """``first`` plus whatever arrives before full-or-window."""
         batch = [first]
@@ -149,6 +153,7 @@ class Batcher:
                 break
         return batch
 
+    # dsst: hotpath — ONE batcher thread feeds the scorer
     def _run(self) -> None:
         while not self._stop.is_set():
             try:

@@ -334,6 +334,7 @@ class ServingScheduler:
         for item in items:
             self._retire(item)
 
+    # dsst: hotpath — the serving score path: every admitted image crosses here
     def _run_batch(self, items: list) -> None:
         now = time.monotonic()
         for item in items:
@@ -374,6 +375,7 @@ class ServingScheduler:
             req.batch_fill = len(items)
             handoff = req.trace
             if handoff is not None and handoff.ctx is not None:
+                # dsst: ignore[span-discipline] one shared scoring window fans out into N per-request records; a with-span per request would nest N overlapping scopes on this thread
                 span_log.record(
                     "serve.score", t0_wall, score_dur,
                     trace=handoff.ctx,

@@ -1,17 +1,20 @@
-"""The metric- and span-name catalogs: every series and every span name
-the port may emit.
+"""The metric-, span-, SLO- and bench-name catalogs: every series, span,
+objective and bench metric the port may emit.
 
 Port copy of ``dss_ml_at_scale_tpu/telemetry/catalog.py``, cut to the names
-the port emits (the JAX package's bench and audit entries are left out).
-The registry is get-or-create by design (call sites never coordinate), so a
-typo'd name silently forks a series and a renamed metric silently orphans
-its reader. This catalog is the one place names are *declared*;
-``tests/test_torch_catalog.py`` holds the port's call sites to it in both
-directions (every literal name at a ``counter()``/``gauge()``/
-``histogram()``/``window()``/``span()`` call site is declared here with its
-kind, and every entry here still has a call site), the port's stand-in for
-the JAX package's ``telemetry-registry`` and ``span-discipline`` lint
-rules.
+the port emits. The registry is get-or-create by design (call sites never
+coordinate), so a typo'd name silently forks a series and a renamed metric
+silently orphans its reader. This catalog is the one place names are
+*declared*; the lint rules ``telemetry-registry``, ``span-discipline``,
+``slo-registry`` and ``bench-registry`` (``python -m
+dss_ml_at_scale_tpu_torch.config.cli lint``) hold the port's call sites to
+it in both directions (every literal name at a ``counter()``/``gauge()``/
+``histogram()``/``window()``/``span()``/``Objective()``/``Scenario()`` call
+site is declared here with its kind, and every entry here still has a call
+site). ``tests/test_torch_catalog.py`` keeps its own reconciliation too.
+
+:data:`KNOWN_BENCH_METRICS` is empty: the port has no benchmark harness
+yet, so there is no ``Scenario(...)`` to reconcile.
 
 :data:`SPAN_ATTRIBUTION` is what ``trace attribution`` buckets a step's
 spans by; a span not listed buckets as "host".
@@ -21,6 +24,9 @@ from __future__ import annotations
 
 # name -> kind ("counter" | "gauge" | "histogram" | "window")
 KNOWN_METRICS: dict[str, str] = {
+    # -- static / IR analysis ----------------------------------------------
+    "audit_entrypoints_total": "counter",
+    "audit_findings_total": "counter",
     # -- checkpointing / resilience ---------------------------------------
     "auto_resume_total": "counter",
     "checkpoint_fallback_total": "counter",
@@ -54,6 +60,8 @@ KNOWN_METRICS: dict[str, str] = {
     "feeder_stall_seconds_total": "counter",
     "ingest_bytes_total": "counter",
     "ingest_rows_total": "counter",
+    "reader_queue_depth": "gauge",
+    "reader_stall_seconds_total": "counter",
     # -- training / HPO ----------------------------------------------------
     "hpo_trials_total": "counter",
     "skus_fitted_total": "counter",
@@ -182,3 +190,8 @@ SPAN_ATTRIBUTION: dict[str, str] = {
     "lm.prefill": "compute",
     "lm.step": "compute",
 }
+
+# Bench scenario -> the exact metric keys its schema emits. Empty until the
+# port's benchmark harness declares its scenarios; the ``bench-registry``
+# lint rule then reconciles them against this in both directions.
+KNOWN_BENCH_METRICS: dict[str, tuple[str, ...]] = {}

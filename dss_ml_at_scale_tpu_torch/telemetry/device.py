@@ -119,7 +119,8 @@ class DeviceMonitor:
         while not self._stop.wait(self.interval_s):
             try:
                 self.sample()
-            except Exception:  # the sampler thread must outlive a failed device query
+            # dsst: ignore[bare-except] sampler thread: a flaky device query must not kill it
+            except Exception:
                 pass
 
     def start(self) -> "DeviceMonitor":

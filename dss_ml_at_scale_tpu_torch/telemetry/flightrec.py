@@ -196,7 +196,7 @@ class FlightRecorder:
         the previous generation), recording continues on a fresh file.
         Called with _io_lock held."""
         try:
-            # log recycling, not a publish: both generations are append-only forensics
+            # dsst: ignore[durable-write] log recycling, not a publish: both generations are append-only forensics
             os.replace(self._path, self._path.with_name(self._path.name + ".1"))
         except OSError:
             return

@@ -86,11 +86,11 @@ class _CounterValue:
             self.value = 0.0
 
     def _sample(self) -> dict:
-        # lock-free approximate read: render paths tolerate a torn float; never written here
+        # dsst: ignore[lock-discipline,guarded-by] lock-free approximate read: render paths tolerate a torn float; never written here
         return {"value": self.value}
 
     def _wire(self) -> dict:
-        # lock-free approximate read, same contract as _sample
+        # dsst: ignore[lock-discipline,guarded-by] lock-free approximate read, same contract as _sample
         v = self.value
         return {"v": _windows.WIRE_VERSION, "kind": "counter", "value": v}
 
@@ -126,11 +126,11 @@ class _GaugeValue:
             self.value = 0.0
 
     def _sample(self) -> dict:
-        # lock-free approximate read: render paths tolerate a torn float; never written here
+        # dsst: ignore[lock-discipline,guarded-by] lock-free approximate read: render paths tolerate a torn float; never written here
         return {"value": self.value}
 
     def _wire(self) -> dict:
-        # lock-free approximate read, same contract as _sample
+        # dsst: ignore[lock-discipline,guarded-by] lock-free approximate read, same contract as _sample
         v = self.value
         return {"v": _windows.WIRE_VERSION, "kind": "gauge", "value": v}
 

@@ -15,7 +15,8 @@ demand`` and ``forecast`` on the CPU, by the grid and by TPE), runs a tiny
 writes a regression ``.npz``, runs ``hpo`` on the CPU (closure and shared
 filesystem) and two trials through an in-process trial worker over RPC,
 runs one CPU ``chaos`` cycle, ``trace tail`` on its killed run and ``slo
-status --report`` on a saved SLO document, and then lists what got loaded (scikit-learn must not be among it). A second check runs one
+status --report`` on a saved SLO document, runs ``lint --json`` and ``audit
+--device cpu --entrypoints train_step.lm --json``, and then lists what got loaded (scikit-learn must not be among it). A second check runs one
 data-parallel ``train`` step in two processes (gloo on the CPU, meeting at
 a ``file://`` rendezvous), each of which lists what it loaded. The static
 scan reads every source file of the port (``runtime/`` and ``native/``
@@ -165,7 +166,14 @@ for argv in (["trace", "tail", "--json", "--run",
     with contextlib.redirect_stdout(out):
         assert cli.main(argv) == 0
     ops.append(out.getvalue())
-print(json.dumps({"done": lines[-1], "train": train, "lm": lm, "forecast": forecast,
+analysis = []
+for argv in (["lint", "--json"],
+             ["audit", "--device", "cpu", "--entrypoints", "train_step.lm", "--json"]):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    analysis.append({"rc": rc, "report": json.loads(out.getvalue())})
+print(json.dumps({"done": lines[-1], "analysis": analysis, "train": train, "lm": lm, "forecast": forecast,
                   "tpe": tpe, "eda": eda, "plan": plan, "track": track, "remote": remote,
                   "predicted": predicted, "vit": vit, "chaos": chaos, "ops": ops,
                   "modules": sorted(sys.modules)}))
@@ -220,6 +228,12 @@ def test_port_serves_a_generation_without_jax():
     assert any(r.get("open") and r["name"] in ("fit", "checkpoint", "checkpoint.finalize")
                for r in tail)
     assert json.loads(report["ops"][1])["version"] == 1
+    # The analysis tiers run without JAX: lint over the port, and the audit
+    # of one entrypoint on the CPU (on torch's fake process group).
+    lint, audit = report["analysis"]
+    assert lint["rc"] == 0 and lint["report"]["ok"] and len(lint["report"]["rules"]) == 12
+    assert audit["rc"] == 0 and audit["report"]["entrypoints"] == ["train_step.lm"]
+    assert audit["report"]["device"] == "cpu"
     loaded = [m for m in report["modules"] if _forbidden(m) or m.split(".")[0] == "sklearn"]
     assert loaded == []
     assert "dss_ml_at_scale_tpu_torch.ops.flash_attention" in report["modules"]
@@ -236,7 +250,10 @@ def test_port_serves_a_generation_without_jax():
                  "hpo.shipping", "hpo.objectives", "runtime.rpc", "resilience.workers",
                  "telemetry.export", "resilience.chaos", "telemetry.flightrec",
                  "telemetry.federation", "telemetry.device", "telemetry.catalog",
-                 "config.observe"):
+                 "config.observe", "config.analysis", "analysis.core",
+                 "analysis.checkers.host_sync", "analysis.sanitize.runtime",
+                 "analysis.sanitize.workloads", "analysis.audit.core",
+                 "analysis.audit.entrypoints", "analysis.audit.rules"):
         assert f"dss_ml_at_scale_tpu_torch.{name}" in report["modules"]
 
 
@@ -299,7 +316,11 @@ def test_static_scan_covers_runtime_and_native():
             "ops/holt_winters.py", "ops/polish.py", "workloads/eda.py", "datagen/bom.py",
             "config/pipeline.py", "config/observe.py", "resilience/chaos.py",
             "telemetry/flightrec.py", "telemetry/federation.py", "telemetry/device.py",
-            "telemetry/catalog.py", "telemetry/export.py"} <= names
+            "telemetry/catalog.py", "telemetry/export.py", "config/analysis.py",
+            "analysis/core.py", "analysis/astutil.py", "analysis/checkers/trace_safety.py",
+            "analysis/checkers/retrace_hazard.py", "analysis/sanitize/runtime.py",
+            "analysis/sanitize/report.py", "analysis/audit/core.py",
+            "analysis/audit/entrypoints.py"} <= names
 
 
 def _sources():
@@ -311,7 +332,8 @@ def _sources():
                                          ROOT / "scripts" / "lm_curve_torch.py",
                                          ROOT / "scripts" / "profile_torch_groupfit.py",
                                          ROOT / "scripts" / "golden_fit_sweep_torch.py",
-                                         ROOT / "scripts" / "real_photos_spread.py"]
+                                         ROOT / "scripts" / "real_photos_spread.py",
+                                         ROOT / "scripts" / "analysis_tiers_probe.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
