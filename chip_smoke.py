@@ -5,7 +5,11 @@ Run from the root of a checkout, on a machine with the card:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; there is no CPU path):
+Phases (any failure exits non-zero; there is no CPU path). Phases 1-14
+run one after another; then 15-15f start in the background and this
+process runs 16-20, 22, 23 and 15's card checks beside them, waits for
+them, and runs 21 last. A ``time:`` line after each step gives its
+seconds.
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions; TF32
    off for matmuls and convolutions (the LM head is an f32 product, and
@@ -43,6 +47,14 @@ Phases (any failure exits non-zero; there is no CPU path):
    order. Times of each kernel, its plain version and the cuBLAS product of
    the same shapes alone (the matmul part only: no PyTorch call computes
    the fused function), beside the least time the card could take.
+3a. fused-f32: K1f-K3f (``csrc/fused_matmul_f32.cu``) against their plain
+   versions in f32 at the same ten cases: K1f's out at rtol/atol 1e-5
+   (tests/test_fused_matmul.py:76), K2f's gt within 1e-5 of max-abs and its
+   ReLU mask bit for bit; the M-long sums (sum_g, sum_gx, dW) each held,
+   beside the plain version's, against an f64 sum of the same f32 terms:
+   within 1e-5 of max-abs or no worse than twice the plain version. Times
+   of each kernel, its plain version and cuBLAS SGEMM (TF32 off) of the
+   same product, beside the bound (operations, 67 TFLOP/s f32).
 4. training: a 848-row train table and a 212-row val table from the port's
    ``datagen images`` (256 px JPEGs, 1000 classes), then the port's
    ``train`` entry at full width: ResNet-50, ``--pallas-fused``, batch
@@ -60,7 +72,25 @@ Phases (any failure exits non-zero; there is no CPU path):
    middle-BN gamma/beta gradients within 5e-2 of max-abs (bf16, rtol
    0.05 of tests/test_fused_matmul.py:203). The whole model's bf16
    gradients are not held to 5e-2: any two bf16 implementations of it
-   differ by far more (PERF.md), while in f32 the two levels agree.
+   differ by far more (PERF.md); 5b holds them in f32.
+5a. f32-train: the f32 ResNet-50 pallas level at full width through the
+   port's API (``ResNet(..., dtype=float32, fused_bn="pallas")`` from
+   ``seeded_resnet``, ``ClassifierTask``, ``Trainer.fit``) on the training
+   phase's tables: batch 212, crop 224, Adam 1e-5, 2 steps and 1 eval batch;
+   finite metrics, K1 48 / K2 32 / K3 32 launches, all of the f32 variants
+   (``.launches_f32``); step ms, images/s, peak GiB.
+5b. f32-parity: the f32 pallas level (K1f-K3f) on one batch of 212, cuDNN
+   deterministic: against the f32 fused level, logits and loss within 1e-4
+   and every BN running statistic within 1e-5 of max-abs; against the same
+   model through the plain versions, every parameter gradient within 5e-4
+   of max-abs (JAX's model-level bar); the gradients against the fused
+   level recorded (mask flips at this depth: PERF.md); each of the 16 blocks
+   alone, output within 1e-5 of the fused level's and conv3/middle-BN
+   gradients within 1e-4 of the plain versions' (the fused level's recorded).
+5c. pad: ``bn_relu_matmul`` at JAX's awkward shape (3, 5, 7, 17) -> N 33,
+   zero-padded to the kernels' 16-byte rows, in f32 and bf16: K1-K3 launched
+   once each (the f32 variants in f32), forward and dy against the plain
+   composition at JAX's tolerances.
 6. slice: the full-width LM (vocab 8192, dim 1024, 8 heads, 4 layers, bf16,
    flash attention, seeded random weights) behind the HTTP server: 8
    slots, max_len 2048, prefill buckets 128/512/1024. Six concurrent
@@ -152,23 +182,24 @@ Phases (any failure exits non-zero; there is no CPU path):
    bom and sku_mapper tables written; wall time, skus/s, NM iterations,
    peak memory and the card's idle share (``nvidia-smi`` utilization
    sampled every 200 ms, read over the forecast's wall_s and over the
-   task). The card against the CPU in float64 on 4 of those SKUs
+   task; the side runs' work included). In this process, the card against
+   the CPU in float64 on 4 of those SKUs
    (max orders 1/1/1, max_iter 20, bfgs_iter 5): winning orders equal,
    params within 1e-6 relative. The golden fixture in float32: loglike
    and predict at the pinned points with the JAX test's tolerances, and
-   (run beside the side runs of 15b-15d, for the script's time)
+   (a process of its own beside 15a-15f, for the script's time)
    ``sarimax_fit``'s loglike for every d >= 1 order within the JAX test's
    per-order bar at that test's config (max_iter 600), but for (4, 2, 1),
    whose float32 fit lands in either of two basins in the JAX package too:
    its shortfall is printed and held finite. At the 1,024-group chunk
    shape (230,400 lanes): one NM iteration's ms, one BFGS
    value-and-gradient's seconds and peak memory.
-15a. tpe (no kernel): ``forecast --search tpe --max-evals 2`` (the
-   reference's 10 cut for time) through the CLI on that table at the
-   default bounds: 7,850 finite rows, the run FINISHED with max_evals
+15a. tpe (no kernel; beside 15b-15f): ``forecast --search tpe --max-evals
+   1`` (the reference's 10 cut for time) through the CLI on that table at
+   the default bounds: 7,850 finite rows, the run FINISHED with max_evals
    logged; seconds per round, the projected cost of 10 rounds, the idle
-   share. An 8-group panel at max orders 1/1/1, ``max_evals`` 3, on the
-   card in float64 against the CPU in float64: identical per-group
+   share. In a process of its own, an 8-group panel at max orders 1/1/1,
+   ``max_evals`` 3, on the card in float64 against the CPU in float64: identical per-group
    histories (losses within 1e-6 relative), best orders, Demand_Fitted
    within 1e-6 relative.
 15b. eda (no kernel): ``eda --polish --max-evals 2 --parallelism 2`` (the
@@ -203,7 +234,8 @@ Phases (any failure exits non-zero; there is no CPU path):
    [0, 10], seconds per trial, the card's idle share over the closure
    sweep.
 15e. chaos (beside 15b-15d, on a thread): the ``chaos`` soaks of train,
-   serve and hpo on the card, every invariant held (``CHAOS_SOAKS``).
+   then serve, with hpo beside them, on the card, every invariant held
+   (``CHAOS_SOAKS``).
 15f. analysis (beside 15b-15e, on a thread): the three analysis tiers of
    the port through its CLI, one process each: ``lint --json`` rc 0;
    ``sanitize --device cuda --json`` rc 0 (the feeder workload placing on
@@ -279,12 +311,14 @@ Phases (any failure exits non-zero; there is no CPU path):
    at most 5% of tokens routed apart; the qkv, w_up and router gradients within
    5e-2 of max-abs on tokens routed alike (the one-process model given the
    ranks' routing) and equal on both ranks.
-24. the script's total seconds, a ``kernels`` JSON line, the card line, and
-   the device JSON line last.
+24. the script's total seconds, a ``kernels`` JSON line (K1-K3's entries
+   carry an ``f32`` block: K1f-K3f's cases, times and f32-train launches),
+   the card line, and the device JSON line last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import json
 import math
@@ -322,6 +356,22 @@ FUSED_RTOL, FUSED_ATOL = 0.05, 0.15  # K1 out: tests/test_fused_matmul.py:203
 FUSED_REL = 2.0 ** -7  # gt, sums, dW: one bf16 spacing of the plain max-abs
 PARITY_LOGITS = 2e-2  # pallas vs fused model: logits and loss, of max-abs
 PARITY_GRADS = 5e-2  # conv3 and middle-BN gradients, of max-abs
+# K1f-K3f: K1f's out at rtol/atol 1e-5 (tests/test_fused_matmul.py:76); K2f's
+# gt within 1e-5 of the plain max-abs; the M-long sums (K2f's two, K3f's dW)
+# within 1e-5 of the max-abs of an f64 sum of the same f32 terms, or no
+# worse than twice the plain version's error against that sum.
+FUSED_F32_TOL = 1e-5
+# The f32 pallas level against the fused level at full width: logits and
+# loss (JAX's 1e-5 holds at its 2-block test model; here 16 blocks and 53
+# layers), every BN running statistic (JAX's rtol 1e-5, :309-313), every
+# parameter gradient (JAX's model-level bar, :407), each block alone.
+F32_PARITY_LOGITS = 1e-4
+F32_PARITY_STATS = 1e-5
+F32_PARITY_GRADS = 5e-4
+F32_BLOCK_OUT, F32_BLOCK_GRADS = 1e-5, 1e-4
+F32_STEPS = 2  # the f32 training phase: train steps, then 1 eval batch
+# JAX's awkward-shape case (tests/test_fused_matmul.py:107-118): K 17, N 33.
+PAD_SHAPE, PAD_N = (3, 5, 7, 17), 33
 TRAIN_ROWS, VAL_ROWS, BATCH, STEPS = 848, 212, 212, 4
 # The LM training configuration: bench.py child_lm (the repo's full-width LM).
 LM_TRAIN = ["--vocab", "8192", "--dim", "1024", "--heads", "8", "--layers", "4",
@@ -341,6 +391,17 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+_LAP = [T_START]
+
+
+def lap(what: str) -> None:
+    """Print the seconds since the last mark and since the start: where the
+    script's time goes."""
+    now = time.perf_counter()
+    print(f"time: {what} {now - _LAP[0]:.1f} s (at {now - T_START:.1f} s)", flush=True)
+    _LAP[0] = now
 
 
 def card_line() -> str:
@@ -503,8 +564,8 @@ def kernel_phase(torch, F) -> list[dict]:
     return rows
 
 
-def _bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS["bfloat16"]
+def _bound(nbytes: float, flops: float, dtype: str = "bfloat16") -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -596,6 +657,125 @@ def fused_kernel_phase(torch) -> dict[str, list[dict]]:
     return rows
 
 
+def fused_f32_kernel_phase(torch) -> dict[str, list[dict]]:
+    """K1f-K3f (the f32 variants) against their plain versions at the
+    path's shapes, in f32, with TF32 off (the plain products are full f32)."""
+    from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = {"K1": [], "K2": [], "K3": []}
+    tol = FUSED_F32_TOL
+
+    def randn(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std + mean
+
+    def sum_errs(got, plain, got64, plain64) -> tuple[float, float]:
+        """Each result against an f64 sum of its own f32 terms, of the
+        f64 sum's max-abs."""
+        scale = plain64.abs().max().item()
+        return ((got.double() - got64).abs().max().item() / scale,
+                (plain.double() - plain64).abs().max().item() / scale)
+
+    def summed(what: str, case: str, errs: tuple[float, float]) -> dict:
+        e, p = errs
+        check(math.isfinite(e) and (e <= tol or e <= 2 * p),
+              f"{case}: {what} err {e} of max-abs against its f64 sum > {tol} "
+              f"and > twice the plain version's {p}")
+        return {f"rel_err_{what}": e, f"rel_err_plain_{what}": p}
+
+    for name, m, k, n in FUSED_SHAPES:
+        y = randn(m, k)
+        mean = y.mean(0)
+        var = y.square().mean(0) - mean.square()
+        inv = torch.rsqrt(var + 1e-5)
+        s = randn(k, mean=1.0, std=0.2) * inv
+        t = randn(k, std=0.2) - mean * s
+        w = randn(k, n, std=k ** -0.5)
+        g = randn(m, n)
+        x_hat = (y - mean) * inv
+        for with_res in (False, True):
+            res = randn(m, k) if with_res else None
+            case = f"f32 {name} M{m} K{k} N{n}" + (" +res" if with_res else "")
+            rb = m * k * 4 if with_res else 0  # residual bytes
+            z = fm._z(y, s, t, res)
+            a = torch.clamp_min(z, 0.0)
+            # K1f
+            out = fm.bn_relu_matmul_fwd(y, s, t, w, res)
+            torch.cuda.synchronize()
+            ref = fm.bn_relu_matmul_fwd_reference(y, s, t, w, res)
+            diff = (out - ref).abs()
+            check(bool(torch.isfinite(out).all()), f"K1f {case}: non-finite output")
+            bad = int((diff > tol + tol * ref.abs()).sum())
+            check(bad == 0, f"K1f {case}: {bad} elements outside rtol/atol {tol}")
+            bound, by = _bound(4 * m * k + rb + 4 * k * n + 4 * m * n + 8 * k, 2 * m * k * n,
+                               "float32")
+            rows["K1"].append({
+                "shape": case, "max_abs_err": diff.max().item(), "rel_err": _rel(out, ref),
+                "tol": tol,
+                "ms": device_ms(lambda: fm.bn_relu_matmul_fwd(y, s, t, w, res)),
+                "plain_ms": device_ms(lambda: fm.bn_relu_matmul_fwd_reference(y, s, t, w, res), 5),
+                "library_ms": device_ms(lambda: torch.matmul(a, w)),
+                "bound_ms": bound, "bound_by": by,
+            })
+            del out, ref, diff
+            # K2f
+            gt, sg, sgx = fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res)
+            torch.cuda.synchronize()
+            rgt, rsg, rsgx = fm.bn_relu_matmul_bwd_da_reference(g, w, y, s, t, mean, inv, res)
+            gt_err = _rel(gt, rgt)
+            check(math.isfinite(gt_err) and gt_err <= tol,
+                  f"K2f {case}: gt max-abs err {gt_err} of max-abs > {tol}")
+            # The ReLU mask bit for bit: gt is zero wherever the plain mask
+            # is off, and nonzero wherever it is on and the plain gt is.
+            mask = z > 0
+            flips = int(gt[~mask].ne(0).sum()) + int(((gt != 0) != mask)[rgt != 0].sum())
+            check(flips == 0, f"K2f {case}: {flips} elements off the plain ReLU mask")
+            row = {"shape": case, "rel_err_gt": gt_err, "mask_flips": flips,
+                   "max_abs_err": (gt - rgt).abs().max().item(), "tol": tol}
+            row.update(summed("sum_g", f"K2f {case}",
+                              sum_errs(sg, rsg, gt.double().sum(0), rgt.double().sum(0))))
+            row.update(summed("sum_gx", f"K2f {case}", sum_errs(
+                sgx, rsgx, (gt * x_hat).double().sum(0), (rgt * x_hat).double().sum(0))))
+            bound, by = _bound(4 * m * n + 4 * k * n + 4 * m * k + rb + 16 * k + 4 * m * k + 8 * k,
+                               2 * m * k * n, "float32")
+            row.update({
+                "rel_err": max(v for key, v in row.items() if key.startswith("rel_err_")
+                               and "plain" not in key),
+                "ms": device_ms(lambda: fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res)),
+                "plain_ms": device_ms(
+                    lambda: fm.bn_relu_matmul_bwd_da_reference(g, w, y, s, t, mean, inv, res), 5),
+                "library_ms": device_ms(lambda: torch.matmul(g, w.t())),
+                "bound_ms": bound, "bound_by": by,
+            })
+            rows["K2"].append(row)
+            del gt, rgt, mask
+            # K3f: both against the f64 product of the same f32 terms (the
+            # kernel's a is the plain version's bit for bit).
+            dw = fm.bn_relu_matmul_bwd_dw(y, s, t, g, res)
+            torch.cuda.synchronize()
+            rdw = fm.bn_relu_matmul_bwd_dw_reference(y, s, t, g, res)
+            dw64 = a.double().t() @ g.double()
+            row = {"shape": case, "max_abs_err": (dw - rdw).abs().max().item(), "tol": tol,
+                   "rel_err_vs_plain": _rel(dw, rdw)}
+            row.update(summed("dw", f"K3f {case}", sum_errs(dw, rdw, dw64, dw64)))
+            bound, by = _bound(4 * m * k + rb + 8 * k + 4 * m * n + 4 * k * n, 2 * m * k * n,
+                               "float32")
+            row.update({
+                "rel_err": row["rel_err_dw"],
+                "ms": device_ms(lambda: fm.bn_relu_matmul_bwd_dw(y, s, t, g, res)),
+                "plain_ms": device_ms(lambda: fm.bn_relu_matmul_bwd_dw_reference(y, s, t, g, res), 5),
+                "library_ms": device_ms(lambda: torch.matmul(a.t(), g)),
+                "bound_ms": bound, "bound_by": by,
+            })
+            rows["K3"].append(row)
+            del dw, rdw, dw64, z, a, res
+            for kname in rows:
+                print(f"kernel-case {kname}f " + json.dumps(rows[kname][-1]), flush=True)
+        del y, g, w, x_hat
+        torch.cuda.empty_cache()
+    return rows
+
+
 def train_phase(torch) -> dict:
     """The port's datagen and train entries at full width, 4 steps + 1 eval."""
     from dss_ml_at_scale_tpu_torch.config import cli
@@ -650,6 +830,290 @@ def train_phase(torch) -> dict:
         "peak_memory_gib": peak / 2 ** 30,
         "trace": trace_checks(torch, epoch["steady_step_time_s"] * 1e3, peak),
     }
+
+
+def f32_train_phase(torch, tables, card: str) -> dict:
+    """The f32 ResNet-50 pallas level at full width through the port's API
+    (the JAX CLI has no f32 model flag; JAX's tests build this model):
+    ``ResNet(stage_sizes=[3, 4, 6, 3], block_cls=BottleneckBlock,
+    num_filters=64, num_classes=1000, dtype=float32, fused_bn="pallas")``
+    seeded by ``seeded_resnet``, trained by ``ClassifierTask`` under
+    ``Trainer.fit`` on the training phase's tables: batch 212, crop 224,
+    Adam 1e-5, 2 steps and 1 eval batch. Checks finite metrics and K1 48 /
+    K2 32 / K3 32 launches, every one of them the f32 variant's."""
+    from dss_ml_at_scale_tpu_torch.data import batch_loader, make_batch_reader
+    from dss_ml_at_scale_tpu_torch.data.transform import imagenet_transform_spec
+    from dss_ml_at_scale_tpu_torch.models import BottleneckBlock, seeded_resnet
+    from dss_ml_at_scale_tpu_torch.parallel import ClassifierTask, Trainer, TrainerConfig
+
+    train, val = tables
+    spec = imagenet_transform_spec(crop=224)
+    model = seeded_resnet(5, device="cuda", stage_sizes=[3, 4, 6, 3], block_cls=BottleneckBlock,
+                          num_filters=64, num_classes=1000, dtype=torch.float32,
+                          fused_bn="pallas")
+    task = ClassifierTask(model=model, learning_rate=1e-5)
+    trainer = Trainer(TrainerConfig(max_epochs=1, steps_per_epoch=F32_STEPS,
+                                    limit_val_batches=1), device="cuda")
+
+    def val_factory():
+        return make_batch_reader(val, batch_size=BATCH, num_epochs=1, transform_spec=spec,
+                                 shuffle_row_groups=False)
+
+    # The main path: counts set to 0 just before, read just after.
+    _zero_fused_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with batch_loader(train, batch_size=BATCH, num_epochs=None, transform_spec=spec) as reader:
+        result = trainer.fit(task, reader, val_data_factory=val_factory)
+    wall = time.perf_counter() - t0
+    launches, launches_f32 = _fused_launches(), _fused_launches_f32()
+    epoch = result.history[0]
+    check(result.steps == F32_STEPS, f"f32 train ran {result.steps} steps, want {F32_STEPS}")
+    for key in ("train_loss", "train_acc", "grad_norm", "val_loss", "val_acc"):
+        check(key in epoch and math.isfinite(epoch[key]), f"f32 train metric {key}: "
+              f"{epoch.get(key)}")
+    want = {"K1": 16 * F32_STEPS + 16, "K2": 16 * F32_STEPS, "K3": 16 * F32_STEPS}
+    check(launches == want, f"f32 train kernel launches {launches}, want {want}")
+    check(launches_f32 == want, f"f32 train f32-variant launches {launches_f32}, want {want}")
+    out = {
+        "launches": launches, "launches_f32": launches_f32, "wall_s": wall,
+        "train_loss": epoch["train_loss"], "grad_norm": epoch["grad_norm"],
+        "val_loss": epoch["val_loss"],
+        "step_ms_step_2": epoch["steady_step_time_s"] * 1e3,
+        "images_per_sec_step_2": epoch["steady_images_per_sec"],
+        "data_wait_ms_step_2": epoch["steady_data_wait_s"] * 1e3,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+    }
+    print(f"f32-train ({card}): " + json.dumps(out), flush=True)
+    del model, task, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _plain_fused_matmul():
+    """The op's three wrappers swapped for their plain versions, so that the
+    pallas level runs its arithmetic without the kernels: the comparison's
+    plain side, which launches nothing."""
+    from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
+
+    saved = fm.bn_relu_matmul_fwd, fm.bn_relu_matmul_bwd_da, fm.bn_relu_matmul_bwd_dw
+    fm.bn_relu_matmul_fwd = fm.bn_relu_matmul_fwd_reference
+    fm.bn_relu_matmul_bwd_da = fm.bn_relu_matmul_bwd_da_reference
+    fm.bn_relu_matmul_bwd_dw = fm.bn_relu_matmul_bwd_dw_reference
+    try:
+        yield
+    finally:
+        fm.bn_relu_matmul_fwd, fm.bn_relu_matmul_bwd_da, fm.bn_relu_matmul_bwd_dw = saved
+
+
+def f32_parity_phase(torch, card: str) -> dict:
+    """The f32 pallas-level ResNet-50 through K1f-K3f at full width, with
+    the last BN scale of every block nonzero, on one batch of 212 at crop
+    224 (cuDNN deterministic, so that its convolutions add no run-to-run
+    noise). Against the f32 fused level (no kernel) with identical weights:
+    logits and loss within 1e-4 of max-abs and every updated BN running
+    statistic within 1e-5 of its max-abs. Against the same pallas level
+    through the plain versions: every parameter gradient of the whole model
+    within 5e-4 of max-abs (JAX's model-level f32 bar, which bf16 cannot
+    meet). The whole model's gradients against the fused level are
+    recorded, not held: at this depth they differ by up to 4e-2 of max-abs,
+    as much through the plain versions as through the kernels, where an
+    element's ReLU argument lies within the two levels' forward difference
+    of zero and its mask flips (PERF.md, ROADMAP). Then each of the 16
+    blocks alone at its full-width shape: output within 1e-5 of the fused
+    level's, conv3 and middle-BN gradients within 1e-4 of max-abs of the
+    plain versions' (the fused level's recorded: the same flips)."""
+    import torch.nn.functional as F
+
+    from dss_ml_at_scale_tpu_torch.models import seeded_resnet
+
+    config = dict(stage_sizes=[3, 4, 6, 3], num_classes=1000, dtype=torch.float32)
+    kernel = seeded_resnet(0, device="cuda", fused_bn="pallas", **config)
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for name, p in kernel.named_parameters():
+            if name.endswith("bn3.weight"):  # zero-init would hide the backward
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02 + 0.1)
+    state = {k: v.clone() for k, v in kernel.state_dict().items()}
+    plain = seeded_resnet(0, device="cuda", fused_bn=True, **config)
+    plain.load_state_dict(state)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(BATCH, 224, 224, 3, generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        def step(model):
+            logits = model(x)
+            loss = F.cross_entropy(logits, labels)
+            loss.backward()
+            torch.cuda.synchronize()
+            return logits.detach(), loss.item()
+
+        _zero_fused_launches()
+        out = {"kernel": step(kernel)}
+        want = {"K1": 16, "K2": 16, "K3": 16}
+        check(_fused_launches() == want and _fused_launches_f32() == want,
+              f"f32 parity step launched {_fused_launches()} (f32 {_fused_launches_f32()}), "
+              f"want {want}")
+        out["plain"] = step(plain)
+        versions = seeded_resnet(0, device="cuda", fused_bn="pallas", **config)
+        versions.load_state_dict(state)
+        with _plain_fused_matmul():
+            out["versions"] = step(versions)
+        check(_fused_launches() == want, "the plain versions launched a kernel")
+        check(bool(torch.isfinite(out["kernel"][0]).all()), "f32 parity: non-finite logits")
+        logits_err = _rel(out["kernel"][0], out["plain"][0])
+        loss_err = abs(out["kernel"][1] - out["plain"][1]) / abs(out["plain"][1])
+        check(logits_err <= F32_PARITY_LOGITS, f"f32 logits differ by {logits_err} of max-abs")
+        check(loss_err <= F32_PARITY_LOGITS, f"f32 loss differs by {loss_err}")
+        plain_state = plain.state_dict()
+        stat_errs = {name: _rel(v, plain_state[name])
+                     for name, v in kernel.state_dict().items() if "running" in name}
+        check(len(stat_errs) == 2 * 53, f"{len(stat_errs)} running statistics, want 106")
+        worst_stat = max(stat_errs, key=stat_errs.get)
+        check(stat_errs[worst_stat] <= F32_PARITY_STATS,
+              f"{worst_stat} differs by {stat_errs[worst_stat]} of max-abs")
+
+        def grad_errs(a, b) -> dict:
+            theirs = dict(b.named_parameters())
+            return {name: _rel(p.grad, theirs[name].grad) for name, p in a.named_parameters()}
+
+        vs_versions = grad_errs(kernel, versions)
+        check(len(vs_versions) == 161, f"{len(vs_versions)} parameters, want 161")
+        for name in vs_versions:
+            if name.endswith(("conv3.weight", "bn2.weight", "bn2.bias")):
+                check(kernel.get_parameter(name).grad.abs().max().item() > 0,
+                      f"{name}: zero gradient")
+        worst = max(vs_versions, key=vs_versions.get)
+        check(vs_versions[worst] <= F32_PARITY_GRADS,
+              f"f32 model gradient {worst}: kernels and plain versions differ by "
+              f"{vs_versions[worst]} of max-abs")
+        vs_fused, versions_vs_fused = grad_errs(kernel, plain), grad_errs(versions, plain)
+        worst_fused = max(vs_fused, key=vs_fused.get)
+        block_errs, block_fused_errs, out_errs = [], [], []
+        for li, count in enumerate(config["stage_sizes"], start=1):
+            for j in range(count):
+                blocks = {tag: getattr(model, f"layer{li}")[j] for tag, model in
+                          (("kernel", kernel), ("versions", versions), ("plain", plain))}
+                hw = 56 >> (li - 1) if j else 56 >> max(li - 2, 0)  # the block's input
+                xb = torch.randn(BATCH, hw, hw, blocks["kernel"].conv1.weight.shape[1],
+                                 generator=gen, device="cuda")
+                yb = {}
+                for tag, blk in blocks.items():
+                    blk.zero_grad()
+                    with _plain_fused_matmul() if tag == "versions" else contextlib.nullcontext():
+                        yb[tag] = blk(xb)
+                cot = torch.randn(yb["plain"].shape, generator=gen, device="cuda")
+                for tag, blk in blocks.items():
+                    with _plain_fused_matmul() if tag == "versions" else contextlib.nullcontext():
+                        yb[tag].backward(cot)
+                e = _rel(yb["kernel"].detach(), yb["plain"].detach())
+                check(e <= F32_BLOCK_OUT, f"f32 layer{li}.{j}: output differs by {e} of max-abs")
+                out_errs.append(e)
+                for attr in ("conv3.weight", "bn2.weight", "bn2.bias"):
+                    grad = {tag: blk.get_parameter(attr).grad for tag, blk in blocks.items()}
+                    e = _rel(grad["kernel"], grad["versions"])
+                    check(e <= F32_BLOCK_GRADS, f"f32 layer{li}.{j}.{attr}: kernels and plain "
+                          f"versions' gradients differ by {e} of max-abs")
+                    block_errs.append(e)
+                    block_fused_errs.append(_rel(grad["kernel"], grad["plain"]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    result = {"logits_rel_err": logits_err, "loss_rel_err": loss_err, "loss": out["kernel"][1],
+              "logits_rel_err_plain_versions": _rel(out["kernel"][0], out["versions"][0]),
+              "running_stat_rel_err_max": stat_errs[worst_stat], "running_stat_worst": worst_stat,
+              "model_grad_rel_err_max": vs_versions[worst], "model_grad_worst": worst,
+              "model_grad_rel_err_median": statistics.median(vs_versions.values()),
+              "model_grads_checked": len(vs_versions),
+              "vs_fused_model_grad_rel_err_max": vs_fused[worst_fused],
+              "vs_fused_model_grad_worst": worst_fused,
+              "vs_fused_model_grad_rel_err_median": statistics.median(vs_fused.values()),
+              "vs_fused_model_grads_over_5e-4": sum(e > F32_PARITY_GRADS for e in vs_fused.values()),
+              "plain_versions_vs_fused_model_grad_rel_err_max": max(versions_vs_fused.values()),
+              "block_out_rel_err_max": max(out_errs),
+              "block_grad_rel_err_max": max(block_errs),
+              "block_grads_checked": len(block_errs),
+              "vs_fused_block_grad_rel_err_max": max(block_fused_errs),
+              "vs_fused_block_grad_rel_err_median": statistics.median(block_fused_errs)}
+    print(f"f32-parity ({card}): " + json.dumps(result), flush=True)
+    del kernel, plain, versions, out
+    torch.cuda.empty_cache()
+    return result
+
+
+def _bn_relu_matmul_composition(torch, y, gamma, beta, w, eps=1e-5):
+    """The plain composition of JAX's test (tests/test_fused_matmul.py:35-47):
+    batch statistics differentiated by autograd, in f32."""
+    k = y.shape[-1]
+    yf = y.reshape(-1, k).float()
+    mean = yf.mean(0)
+    var = yf.square().mean(0) - mean.square()
+    a = torch.clamp_min((y.float() - mean) * torch.rsqrt(var + eps) * gamma + beta, 0.0)
+    return (a.reshape(-1, k) @ w.float()).reshape(*y.shape[:-1], w.shape[1])
+
+
+def pad_phase(torch, card: str) -> dict:
+    """``bn_relu_matmul`` on the card at JAX's awkward shape, (3, 5, 7, 17)
+    -> N 33 (tests/test_fused_matmul.py:107-118): K and N are zero-padded to
+    the kernels' 16-byte rows and K1-K3 run on the padded operands, in f32
+    (K1f-K3f) and in bf16. f32: forward within rtol/atol 1e-5 and dy within
+    rtol 1e-4 / atol 1e-5 of the plain composition; bf16: forward within
+    rtol 0.05 / atol 0.15 of the f32 composition (:203) and dy within 5e-2
+    of its max-abs."""
+    import numpy as np
+
+    from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
+
+    rng = np.random.default_rng(42)  # JAX's _inputs, in its order
+    y = rng.normal(size=PAD_SHAPE).astype(np.float32)
+    rng.normal(size=PAD_SHAPE)  # its residual, unused by the awkward case
+    k = PAD_SHAPE[-1]
+    gamma = rng.normal(1.0, 0.2, k).astype(np.float32)
+    beta = rng.normal(0.0, 0.2, k).astype(np.float32)
+    w = rng.normal(0.0, 0.1, (k, PAD_N)).astype(np.float32)
+    cuda = [torch.from_numpy(a).cuda() for a in (y, gamma, beta, w)]
+    ref_y = cuda[0].clone().requires_grad_()
+    ref = _bn_relu_matmul_composition(torch, ref_y, *cuda[1:])
+    ref.sum().backward()
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ty = cuda[0].to(dtype, copy=True).requires_grad_()
+        tw = cuda[3].to(dtype)
+        yf = ty.detach().reshape(-1, k).float()
+        mean = yf.mean(0)
+        var = yf.square().mean(0) - mean.square()
+        _zero_fused_launches()
+        out = fm.bn_relu_matmul(ty, cuda[1], cuda[2], mean, var, tw)
+        out.float().sum().backward()
+        torch.cuda.synchronize()
+        f32 = dtype == torch.float32
+        want = {"K1": 1, "K2": 1, "K3": 1}
+        check(_fused_launches() == want, f"pad {dtype}: launches {_fused_launches()}")
+        check(_fused_launches_f32() == (want if f32 else {"K1": 0, "K2": 0, "K3": 0}),
+              f"pad {dtype}: f32-variant launches {_fused_launches_f32()}")
+        check(tuple(out.shape) == (*PAD_SHAPE[:-1], PAD_N) and out.dtype == dtype,
+              f"pad {dtype}: output {tuple(out.shape)} {out.dtype}")
+        got, dy = out.detach().float(), ty.grad.float()
+        fwd_err = (got - ref.detach()).abs()
+        dy_err = (dy - ref_y.grad).abs()
+        if f32:
+            check(bool((fwd_err <= 1e-5 + 1e-5 * ref.detach().abs()).all()),
+                  f"pad f32: forward off rtol/atol 1e-5 by {fwd_err.max().item()}")
+            check(bool((dy_err <= 1e-5 + 1e-4 * ref_y.grad.abs()).all()),
+                  f"pad f32: dy off rtol 1e-4 / atol 1e-5 by {dy_err.max().item()}")
+        else:
+            check(bool((fwd_err <= FUSED_ATOL + FUSED_RTOL * ref.detach().abs()).all()),
+                  f"pad bf16: forward off rtol {FUSED_RTOL} / atol {FUSED_ATOL}")
+            check(_rel(dy, ref_y.grad) <= PARITY_GRADS,
+                  f"pad bf16: dy differs by {_rel(dy, ref_y.grad)} of max-abs")
+        result[str(dtype).removeprefix("torch.")] = {
+            "forward_max_abs_err": fwd_err.max().item(), "dy_max_abs_err": dy_err.max().item(),
+            "dy_rel_err": _rel(dy, ref_y.grad), "launches": _fused_launches(),
+            "launches_f32": _fused_launches_f32()}
+    print(f"pad ({card}): " + json.dumps(result), flush=True)
+    return result
 
 
 def _cli_out(argv: list[str]) -> tuple[int, str]:
@@ -1546,12 +2010,19 @@ def _fused_launches() -> dict:
             "K3": fm.bn_relu_matmul_bwd_dw.launches}
 
 
+def _fused_launches_f32() -> dict:
+    from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
+
+    return {"K1": fm.bn_relu_matmul_fwd.launches_f32,
+            "K2": fm.bn_relu_matmul_bwd_da.launches_f32,
+            "K3": fm.bn_relu_matmul_bwd_dw.launches_f32}
+
+
 def _zero_fused_launches() -> None:
     from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
 
-    fm.bn_relu_matmul_fwd.launches = 0
-    fm.bn_relu_matmul_bwd_da.launches = 0
-    fm.bn_relu_matmul_bwd_dw.launches = 0
+    for fn in (fm.bn_relu_matmul_fwd, fm.bn_relu_matmul_bwd_da, fm.bn_relu_matmul_bwd_dw):
+        fn.launches = fn.launches_f32 = 0
 
 
 def resilience_train_phase(torch, tables, work: Path, card: str) -> dict:
@@ -1955,24 +2426,6 @@ def _port_env(**extra) -> dict:
 CLI = [sys.executable, "-m", "dss_ml_at_scale_tpu_torch.config.cli"]
 
 
-def _sampled(cmd: list[str], timeout: float, **kw):
-    """Run ``cmd`` with ``nvidia-smi`` sampling the card's utilization every
-    200 ms; returns ``(CompletedProcess, wall s, [(epoch s, util %)])``.
-    The utilization is the fraction of each sample period in which a
-    kernel was running."""
-    sampler = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=timestamp,utilization.gpu", "--format=csv,noheader,nounits",
-         "-lms", "200"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, **kw)
-    finally:
-        wall = time.perf_counter() - t0
-        sampler.terminate()
-        samples, _ = sampler.communicate(timeout=60)
-    return proc, wall, _util_samples(samples)
-
-
 def _idle(util, lo: float, hi: float) -> tuple[float, int]:
     """The card's idle share over ``[lo, hi]`` (epoch s), and the samples."""
     inside = [u for t, u in util if lo <= t <= hi]
@@ -1990,37 +2443,22 @@ def _task_seconds(text: str) -> dict:
     return out
 
 
-def run_spec(spec: Path, work: Path, timeout: float, *extra: str):
-    """``pipeline --spec`` through the port's CLI with ``--task-device cuda``,
-    every task's runs in ``work/runs``; returns ``(CompletedProcess, wall s,
-    utilization samples)``."""
-    return _sampled(CLI + ["pipeline", "--spec", str(spec), "--workdir", str(work),
-                           "--task-device", "cuda", *extra],
-                    timeout, cwd=work, env=_port_env(DSST_TRACKING_ROOT=str(work / "runs")))
-
-
-def group_fit_phase(torch, card: str) -> dict:
-    """``datagen demand`` and ``forecast`` at their defaults on the card, run
-    as ``pipelines/demand_forecasting.json`` through the port's ``pipeline``
-    (the spec's two commands at the same size, plus its ``datagen bom``;
-    this run takes the place of the phase's own two CLI calls, to keep the
-    script's time); the card against the CPU in float64 and against the
-    golden fixture in float32; one Nelder-Mead iteration and one BFGS
-    value-and-gradient at the 1,024-group chunk shape. Returns the spec's
-    run for the pipeline phase under ``"spec_run"``."""
+def group_fit_phase(card: str, side: dict) -> dict:
+    """Read back ``datagen demand`` and ``forecast`` at their defaults on the
+    card, run as ``pipelines/demand_forecasting.json`` through the port's
+    ``pipeline`` (the spec's two commands at the same size, plus its
+    ``datagen bom``; this run takes the place of the phase's own two CLI
+    calls, to keep the script's time), started by :func:`start_side_runs`;
+    the card's idle share from the block's sampler. Returns the spec's run
+    for the pipeline phase under ``"spec_run"``."""
     import numpy as np
 
-    from dss_ml_at_scale_tpu_torch.ops import bfgs, sarimax as sx
-    from dss_ml_at_scale_tpu_torch.ops.neldermead import nelder_mead
-    from dss_ml_at_scale_tpu_torch.parallel.group_apply import grid_fit_panel, pad_groups
-    from dss_ml_at_scale_tpu_torch.workloads.forecasting import EXO_FIELDS, add_exo_variables
-
     out: dict = {}
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_groupfit_"))
+    run = side["group_fit"]
+    work, util = run["work"], side["util"]
 
     # 1. The main path at the reference's size: the demand_forecasting spec.
-    spec = Path(__file__).resolve().parent / "pipelines" / "demand_forecasting.json"
-    proc, wall, util = run_spec(spec, work, 1800)
+    proc, wall = _wait(run, 1800, "demand_forecasting pipeline")
     check(proc.returncode == 0 and proc.stdout.strip().endswith("pipeline ok"),
           f"demand_forecasting pipeline failed:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
     tasks = _task_seconds(proc.stdout)
@@ -2056,15 +2494,30 @@ def group_fit_phase(torch, card: str) -> dict:
         nm_iterations=int(metrics["nm_iterations"]),
         peak_mem_gib=round(metrics["peak_mem_bytes"] / 2 ** 30, 3),
         mse=round(metrics["mse"], 2), grid_chunks=int(metrics["grid_chunks"]),
-        idle_share=idle, util_samples=n_fit, idle_share_command=idle_cmd,
+        idle_share_side_by_side=idle, util_samples=n_fit,
+        idle_share_command_side_by_side=idle_cmd,
         util_samples_command=n_cmd, run_status=meta["status"], bom_edges=bom.num_rows,
-        demand=str(work / "part_level_demand"),
         spec_run={"tasks": tasks, "wall_s": round(wall, 2), "bom_edges": bom.num_rows,
                   "sku_mappings": mapper.num_rows, "forecast_rows": table.num_rows})
     print(f"group-fit forecast ({card}): {fc_lines[0]}", flush=True)
+    return out
 
+
+def group_fit_card_checks(torch, demand_path: str) -> dict:
+    """The group-fit phase's checks in this process, on the spec's demand
+    table: the card against the CPU in float64 and against the golden
+    fixture in float32; one Nelder-Mead iteration and one BFGS
+    value-and-gradient at the 1,024-group chunk shape."""
+    import numpy as np
+
+    from dss_ml_at_scale_tpu_torch.ops import bfgs, sarimax as sx
+    from dss_ml_at_scale_tpu_torch.ops.neldermead import nelder_mead
+    from dss_ml_at_scale_tpu_torch.parallel.group_apply import grid_fit_panel, pad_groups
+    from dss_ml_at_scale_tpu_torch.workloads.forecasting import EXO_FIELDS, add_exo_variables
+
+    out: dict = {}
     # 2. The card against the CPU, float64, at a small config.
-    demand = add_exo_variables(_read_delta(work / "part_level_demand"))
+    demand = add_exo_variables(_read_delta(demand_path))
     padded = pad_groups(demand, ["Product", "SKU"], ["Demand", *EXO_FIELDS], sort_by="Date")
     y = padded.values["Demand"]
     exog = np.stack([padded.values[f] for f in EXO_FIELDS], -1)
@@ -2150,9 +2603,9 @@ def group_fit_golden(torch) -> dict:
     ``tests/test_sarimax_golden.py``'s slow-test config (max_iter 600), each
     loglike within that test's per-order bar of the oracle's, but for
     (4, 2, 1), whose float32 fit lands in either of two basins in the JAX
-    package too: its shortfall is printed and held finite. It runs on the
-    main thread beside the side runs (a fit bound by the host's dispatch,
-    the card idle most of it), after ``tpe_parity``."""
+    package too: its shortfall is printed and held finite. A process of its
+    own beside the side runs (:func:`child_main`; a fit bound by the host's
+    dispatch, the card idle most of it)."""
     from dss_ml_at_scale_tpu_torch.ops import sarimax as sx
 
     fix = json.loads(GF_GOLDEN.read_text())
@@ -2186,7 +2639,9 @@ def group_fit_golden(torch) -> dict:
 # The forecasting track's search: TPE, eda, and the job DAG
 # ---------------------------------------------------------------------------
 
-TPE_EVALS = 2  # the reference's --max-evals 10, cut for the script's time
+# The reference's --max-evals 10, cut for the script's time (2 until the f32
+# phases came; both rounds are TPE's random start-up draws either way).
+TPE_EVALS = 1
 TPE_F64 = dict(GF_F64)  # the card-vs-CPU panel's config (max orders 1/1/1)
 TPE_F64_GROUPS, TPE_F64_EVALS, TPE_F64_TOL = 8, 3, 1e-6
 # The CLI's --max-evals 10, --parallelism 10 and --max-iter 200, cut for the
@@ -2256,22 +2711,25 @@ def _run_dir(runs: Path, experiment: str) -> tuple[Path, dict, dict, dict]:
     return run_dir, meta, params, records
 
 
-def tpe_phase(torch, card: str, demand: str) -> dict:
+def tpe_argv(demand: str, work: Path) -> list[str]:
     """``forecast --search tpe`` through the CLI on the group-fit phase's
-    reference-size table (50 SKUs x 157 weeks) at the default order bounds
-    and max_iter, alone on the card, with ``--max-evals 2`` where the
-    reference takes 10 (a round is one batched fit bound by the host's
-    dispatch, ~45 s; PERF.md states the cost of 10): 7,850 finite rows,
-    the run FINISHED with ``max_evals`` logged; seconds per round, the
-    projected cost of 10, the card's idle share."""
+    reference-size table, at the default order bounds and max_iter, with
+    ``--max-evals 1`` where the reference takes 10."""
+    return CLI + ["forecast", "--data", demand, "--out", str(work / "f"), "--search", "tpe",
+                  "--max-evals", str(TPE_EVALS), "--tracking-root", str(work / "runs")]
+
+
+def tpe_phase(card: str, side: dict) -> dict:
+    """Read back ``forecast --search tpe`` (:func:`tpe_argv`), run beside
+    the other side runs (a round is one batched fit bound by the host's
+    dispatch; PERF.md states the cost of 10): 7,850 finite rows, the run
+    FINISHED with ``max_evals`` logged; seconds per round, the projected
+    cost of 10, the card's idle share (the side runs' work included)."""
     import numpy as np
 
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tpe_"))
-    runs = work / "runs"
-    t0 = time.time()
-    proc, wall, util = _sampled(CLI + ["forecast", "--data", demand, "--out", str(work / "f"),
-                                       "--search", "tpe", "--max-evals", str(TPE_EVALS),
-                                       "--tracking-root", str(runs)], 1500, env=_port_env())
+    run = side["tpe"]
+    work = run["work"]
+    proc, wall = _wait(run, 1500, "forecast --search tpe")
     check(proc.returncode == 0, f"forecast --search tpe failed: {proc.stderr[-3000:]}")
     last = proc.stdout.strip().splitlines()[-1]
     check(last.startswith(f"forecast: {GF_GROUPS} groups, {GF_ROWS} rows, mse "),
@@ -2280,15 +2738,15 @@ def tpe_phase(torch, card: str, demand: str) -> dict:
     check(table.num_rows == GF_ROWS, f"tpe forecast table has {table.num_rows} rows")
     check(bool(np.isfinite(table.column("Demand_Fitted").to_numpy()).all()),
           "tpe forecast: non-finite Demand_Fitted")
-    _, meta, params, records = _run_dir(runs, "forecasting")
+    _, meta, params, records = _run_dir(work / "runs", "forecasting")
     check(meta["status"] == "FINISHED", f"tpe forecast run is {meta['status']}")
     check(params.get("max_evals") == TPE_EVALS and params.get("search") == "tpe",
           f"tpe run params: max_evals {params.get('max_evals')}, search {params.get('search')}")
     rounds = [m["value"] for m in sorted(records["tpe_round_s"], key=lambda m: m["step"])]
     check(len(rounds) == TPE_EVALS, f"{len(rounds)} TPE rounds logged")
     fit_s, fit_end = records["wall_s"][-1]["value"], records["wall_s"][-1]["ts"]
-    idle, n = _idle(util, fit_end - fit_s, fit_end)
-    idle_cmd, n_cmd = _idle(util, t0, t0 + wall)
+    idle, n = _idle(side["util"], fit_end - fit_s, fit_end)
+    idle_cmd, n_cmd = _idle(side["util"], run["epoch0"], run["epoch0"] + wall)
     print(f"tpe forecast ({card}): {last}", flush=True)
     return {"wall_s": round(wall, 2), "fit_s": round(fit_s, 2),
             "round_s": [round(r, 2) for r in rounds],
@@ -2296,8 +2754,9 @@ def tpe_phase(torch, card: str, demand: str) -> dict:
             "refit_and_io_s": round(fit_s - sum(rounds), 2),
             "projected_max_evals_10_s": round(fit_s + (10 - TPE_EVALS) * float(np.mean(rounds)),
                                               1),
-            "idle_share": idle, "util_samples": n, "idle_share_command": idle_cmd,
-            "util_samples_command": n_cmd, "mse": records["mse"][-1]["value"],
+            "idle_share_side_by_side": idle, "util_samples": n,
+            "idle_share_command_side_by_side": idle_cmd, "util_samples_command": n_cmd,
+            "mse": records["mse"][-1]["value"],
             "peak_mem_gib": round(records["peak_mem_bytes"][-1]["value"] / 2 ** 30, 3)
             if "peak_mem_bytes" in records else None}
 
@@ -2306,7 +2765,8 @@ def tpe_parity(torch, demand: str) -> dict:
     """An 8-group panel of the table at max orders 1/1/1, ``max_evals`` 3,
     through the API on the card in float64 against the CPU in float64:
     identical per-group histories (losses within 1e-6 relative) and best
-    orders, Demand_Fitted within 1e-6 relative."""
+    orders, Demand_Fitted within 1e-6 relative. A process of its own beside
+    the side runs (:func:`child_main`)."""
     import numpy as np
     import pyarrow as pa
     import pyarrow.compute as pc
@@ -2345,14 +2805,18 @@ def tpe_parity(torch, demand: str) -> dict:
             "f64_cpu_s": round(c_s, 2)}
 
 
-def start_side_runs(demand: str) -> dict:
-    """Start, side by side in the background, the ``eda`` command, the
-    pipeline phase's specs (``real_photos_train.json`` among them) and, on
-    threads, the HPO chain (:func:`hpo_chain`) and the chaos soaks
-    (:func:`chaos_chain`): each a chain of processes
-    whose time is mostly the host's (the card idles > 0.85 under each).
-    They share the card and the host's cores while the script goes on with
-    ``tpe_parity``. Their times are measured beside one another."""
+def start_side_runs() -> dict:
+    """Start, side by side in the background, the group-fit phase's
+    ``demand_forecasting.json`` and, on its demand table once its first task
+    has written it, ``eda``, ``forecast --search tpe`` (:func:`tpe_argv`)
+    and :func:`tpe_parity` (on a thread, :func:`_start_search`); the
+    pipeline phase's specs (``real_photos_train.json`` among them),
+    :func:`group_fit_golden`, and, on threads, the HPO chain
+    (:func:`hpo_chain`), the chaos soaks (:func:`chaos_chain`) and the
+    analysis tiers: each a chain of processes whose time is mostly the
+    host's. They share the card and the host's cores while the script goes
+    on with the LM's parallel extras. Their times are measured beside one
+    another."""
     import importlib
 
     side: dict = {"sampler": _track(subprocess.Popen(
@@ -2364,16 +2828,21 @@ def start_side_runs(demand: str) -> dict:
     except ImportError as e:
         side["plot"], why = False, str(e)
     print(f"eda: import matplotlib {'works' if side['plot'] else 'fails: ' + why}", flush=True)
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_eda_"))
-    argv = CLI + ["eda", "--data", demand, "--max-evals", str(EDA_EVALS), "--parallelism",
-                  str(EDA_PARALLELISM), "--max-iter", str(EDA_MAX_ITER), "--polish",
-                  "--tracking-root", str(work / "runs")]
-    if side["plot"]:
-        argv += ["--plot", str(work / "eda.png")]
-    else:
+    if not side["plot"]:
         print("eda: --plot not run: matplotlib does not import on this host", flush=True)
-    side["eda"] = {**_start(argv, work / "eda", env=_port_env()), "work": work}
     root = Path(__file__).resolve().parent / "pipelines"
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_groupfit_"))
+    side["group_fit"] = {**_start(
+        CLI + ["pipeline", "--spec", str(root / "demand_forecasting.json"), "--workdir",
+               str(work), "--task-device", "cuda"], work / "pipeline", cwd=work,
+        env=_port_env(DSST_TRACKING_ROOT=str(work / "runs"))), "work": work}
+    side["demand"] = str(work / "part_level_demand")
+    side["search"] = threading.Thread(target=_start_search, args=(side,), name="search",
+                                      daemon=True)
+    side["search"].start()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_golden_"))
+    side["golden"] = _start([sys.executable, str(Path(__file__).resolve()), "--child",
+                             "golden"], work / "golden", env=_port_env())
     specs = {"full_stack": root / "full_stack.json",
              "imagenet_train": root / "imagenet_train.json",
              "real_photos": root / "real_photos_train.json"}
@@ -2427,6 +2896,42 @@ def start_side_runs(demand: str) -> dict:
     return side
 
 
+def _start_search(side: dict) -> None:
+    """Wait for the demand_forecasting spec's ``generate_demand`` task, then
+    start ``eda``, ``forecast --search tpe`` and :func:`tpe_parity` on its
+    table (a thread of :func:`start_side_runs`)."""
+    run, demand = side["group_fit"], side["demand"]
+    out = run["log"].with_suffix(".out")
+    deadline = time.monotonic() + 600
+    while "[generate_demand] ok (" not in out.read_text():
+        if run["proc"].poll() is not None or time.monotonic() > deadline:
+            side["search_error"] = f"the spec wrote no demand table:\n{out.read_text()[-2000:]}"
+            return
+        time.sleep(0.2)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_eda_"))
+    argv = CLI + ["eda", "--data", demand, "--max-evals", str(EDA_EVALS), "--parallelism",
+                  str(EDA_PARALLELISM), "--max-iter", str(EDA_MAX_ITER), "--polish",
+                  "--tracking-root", str(work / "runs")]
+    if side["plot"]:
+        argv += ["--plot", str(work / "eda.png")]
+    side["eda"] = {**_start(argv, work / "eda", env=_port_env()), "work": work}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tpe_"))
+    side["tpe"] = {**_start(tpe_argv(demand, work), work / "tpe", env=_port_env()),
+                   "work": work}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tpe_parity_"))
+    side["tpe_parity"] = _start([sys.executable, str(Path(__file__).resolve()), "--child",
+                                 "tpe_parity", demand], work / "tpe_parity", env=_port_env())
+
+
+def demand_table(side: dict) -> str:
+    """The spec's demand table, once :func:`_start_search` has started the
+    runs that read it."""
+    side["search"].join(timeout=660)
+    check(not side["search"].is_alive() and "search_error" not in side,
+          f"demand_forecasting: {side.get('search_error', 'no demand table in 660 s')}")
+    return side["demand"]
+
+
 # The chaos soaks on the card. train: the JAX package's tier-1 soak
 # (tests/test_crashonly.py: 5 SIGKILL cycles, seed 0, 2 epochs, kills at
 # 1-3 s, 48 rows of 32 px, the tiny model); serve: 2 kill/restart cycles on
@@ -2441,16 +2946,22 @@ CHAOS_SOAKS = (
 
 
 def chaos_chain(work: Path) -> dict:
-    """``chaos`` on the card, each soak a process of its own, one after
-    another (serve on the train soak's checkpoint): rc, every invariant,
-    wall time and kills delivered."""
+    """``chaos`` on the card, each soak a process of its own: train, then
+    serve on its checkpoint, with hpo (which needs neither) beside them:
+    rc, every invariant, wall time and kills delivered."""
     work.mkdir(parents=True, exist_ok=True)
-    out = {}
-    for name, argv in CHAOS_SOAKS:
+
+    def start(name: str, argv: list[str]) -> dict:
         if name == "serve":
             argv = [*argv, "--checkpoint-dir", str(work / "train" / "ckpt")]
-        run = _start(CLI + ["chaos", "--workdir", str(work / name), *argv, "--device", "cuda",
-                            "--timeout", "300", "--json"], work / f"{name}_soak", env=_port_env())
+        return _start(CLI + ["chaos", "--workdir", str(work / name), *argv, "--device", "cuda",
+                             "--timeout", "300", "--json"], work / f"{name}_soak",
+                      env=_port_env())
+
+    runs = {name: start(name, argv) for name, argv in CHAOS_SOAKS if name == "hpo"}
+    out = {}
+    for name, argv in CHAOS_SOAKS:
+        run = runs.get(name) or start(name, argv)
         proc, wall = _wait(run, 900, f"chaos --workload {name}")
         report = json.loads(proc.stdout.strip().splitlines()[-1])
         out[name] = {"rc": proc.returncode, "ok": report["ok"], "wall_s": round(wall, 2),
@@ -2568,6 +3079,47 @@ def analysis_phase(card: str, side: dict) -> dict:
     return summary
 
 
+def stop_sampler(side: dict) -> float:
+    """Wait for the side runs the card's utilization is read over (the HPO
+    chain, whose closure sweep it covers, tpe and the group-fit spec), stop
+    the sampler, and return the card's idle share over the side-by-side
+    block."""
+    side["hpo"]["thread"].join(timeout=max(1.0, side["hpo"]["t0"] + 1500 - time.perf_counter()))
+    _wait(side["tpe"], 1500, "forecast --search tpe")
+    _wait(side["group_fit"], 1800, "demand_forecasting pipeline")
+    side["sampler"].terminate()
+    samples, _ = side["sampler"].communicate(timeout=60)
+    side["util"] = util = _util_samples(samples)
+    return _idle(util, 0, float("inf"))[0]
+
+
+def child_result(side: dict, name: str, what: str) -> dict:
+    """Wait for a :func:`child_main` process of the side-by-side block and
+    return the JSON object of its last line."""
+    proc, _ = _wait(side[name], 1500, what)
+    check(proc.returncode == 0, f"{what} rc {proc.returncode}:\n{proc.stdout[-2000:]}"
+          f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def child_main(argv: list[str]) -> int:
+    """One check of the side-by-side block in a process of its own
+    (``chip_smoke.py --child tpe_parity DEMAND`` or ``--child golden``,
+    started by :func:`start_side_runs`): its result as the last line."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if argv[0] == "tpe_parity":
+        out = tpe_parity(torch, argv[1])
+    elif argv[0] == "golden":
+        out = group_fit_golden(torch)
+    else:
+        fail(f"no child check named {argv[0]}")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def eda_phase(torch, card: str, side: dict) -> dict:
     """``eda --polish --max-evals 2 --parallelism 2 --max-iter 50`` (the
     CLI's 10, 10 and 200, cut for the script's time: each SARIMAX fit is
@@ -2651,26 +3203,24 @@ def _json_lines(text: str) -> list[dict]:
     return rows
 
 
-def job_pipeline_phase(torch, card: str, demand_run: dict, side: dict) -> dict:
+def job_pipeline_phase(torch, card: str, side: dict) -> dict:
     """The port's ``pipeline`` on the card (``--task-device cuda``), each
     spec unchanged in its own workdir, started side by side with ``eda``
     (:func:`start_side_runs`): ``full_stack.json`` (every output it names:
     the forecast table, the predictions, ``weights.npz``, the ``lm`` line's
     ``sample_mean_true_prob`` with K4's launches counted by the task at
     head_dim 8, the train line's ``val_top2_acc``) and
-    ``imagenet_train.json`` to ``pipeline ok``; ``demand_forecasting.json``
-    ran alone in the group-fit phase (``demand_run``). A spec whose first
+    ``imagenet_train.json`` to ``pipeline ok`` (``demand_forecasting.json``
+    is the group-fit phase's). A spec whose first
     task fails skips its dependent and returns 1. ``real_photos_train.json``
     (``datagen photos`` -> ``ingest`` -> ``train --model tiny`` for 8 epochs
     -> ``predict``) to ``pipeline ok``: 256 rows with ids 0..255,
     ``labels.json`` {china: 0, flower: 1}, every ``pred_label`` named from
     the checkpoint's ``label_names``, ``accuracy_vs_label_index`` over 0.6
-    (the JAX package's slow test's bar). Each task's seconds, and the
-    card's idle share over the side-by-side runs (after the HPO chain,
-    whose closure sweep it also covers, has ended)."""
+    (the JAX package's slow test's bar). Each task's seconds."""
     import numpy as np
 
-    out: dict = {"demand_forecasting": demand_run}
+    out: dict = {}
     proc, wall = _wait(side["full_stack"], 2400, "full_stack pipeline")
     work = side["full_stack"]["work"]
     check(proc.returncode == 0 and proc.stdout.strip().endswith("pipeline ok"),
@@ -2736,13 +3286,7 @@ def job_pipeline_phase(torch, card: str, demand_run: dict, side: dict) -> dict:
     out["real_photos_train"] = {"tasks": _task_seconds(proc.stdout), "wall_s": round(wall, 2),
                                 "rows": table.num_rows,
                                 "accuracy_vs_label_index": acc["accuracy_vs_label_index"]}
-    side["hpo"]["thread"].join(timeout=max(1.0, side["hpo"]["t0"] + 1500 - time.perf_counter()))
-    side["sampler"].terminate()
-    samples, _ = side["sampler"].communicate(timeout=60)
-    side["util"] = util = _util_samples(samples)
-    out["side_by_side_idle_share"] = _idle(util, 0, float("inf"))[0]
-    out["demand_forecasting"] = demand_run
-    for name in ("demand_forecasting", "full_stack", "imagenet_train", "real_photos_train"):
+    for name in ("full_stack", "imagenet_train", "real_photos_train"):
         print(f"pipeline {name} task seconds ({card}): {json.dumps(out[name]['tasks'])}",
               flush=True)
     return out
@@ -4199,6 +4743,8 @@ def main() -> int:
         return par_rank_main(phase, int(rank), int(world), work)
     if "--serve-child" in sys.argv:  # the image-serve phase's server
         return serve_child_main(sys.argv[sys.argv.index("--serve-child") + 1:])
+    if "--child" in sys.argv:  # a check of the side-by-side block
+        return child_main(sys.argv[sys.argv.index("--child") + 1:])
     import torch
     import torch.nn.functional as F
 
@@ -4250,88 +4796,103 @@ def main() -> int:
           f"(+res {[k1.dsst_bn_relu_matmul_bwd_dw_smem_bytes(b, 1) for b in (64, 128)]} B); "
           f"{SM_COUNT} SMs", flush=True)
 
+    lap("build")
     cases = kernel_phase(torch, F)
+    lap("kernels")
     fused = fused_kernel_phase(torch)
+    lap("fused kernels")
+    fused_f32 = fused_f32_kernel_phase(torch)
+    lap("fused-f32 kernels")
     training = train_phase(torch)
     print(f"training ({kind}; {card}): " + json.dumps(training), flush=True)
     torch.cuda.empty_cache()
+    lap("training")
     parity = parity_phase(torch)
     print(f"parity ({kind}; {card}): " + json.dumps(parity), flush=True)
+    lap("parity")
+    f32_train = f32_train_phase(torch, training["tables"], card)
+    f32_parity_phase(torch, card)
+    pad = pad_phase(torch, card)
+    lap("f32-train, f32-parity and pad")
     dp = dp_phase(torch, card)
+    lap("dp")
     flags = train_flags_phase(torch, training["tables"], card)
     torch.cuda.empty_cache()
     augment_phase(torch, card)
     decode_phase(training["tables"], card)
-    t0 = time.perf_counter()
+    lap("train-flags, augment and decode")
     photos = photos_train_phase(torch, card)
-    print(f"photos-train phase: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
+    lap("photos-train")
     serving = slice_phase(torch)
     print(f"serving ({kind}; {card}): " + json.dumps(serving), flush=True)
     torch.cuda.empty_cache()
+    lap("serving")
     lm_train = lm_train_phase(torch, card)
     print(f"lm-train ({kind}; {card}): " + json.dumps(lm_train), flush=True)
     torch.cuda.empty_cache()
+    lap("lm-train")
     lm_dp = lm_dp_phase(torch, card)
     torch.cuda.empty_cache()
     lm_parity = lm_parity_phase(torch)
     print(f"lm-parity ({kind}; {card}): " + json.dumps(lm_parity), flush=True)
     torch.cuda.empty_cache()
+    lap("lm-dp and lm-parity")
     res_work = Path(tempfile.mkdtemp(prefix="chip_smoke_resilience_"))
     res_train = resilience_train_phase(torch, training["tables"], res_work, card)
     torch.cuda.empty_cache()
     res_step = resilience_step_phase(torch, card)
+    lap("resilience train and step")
     res_lm = resilience_lm_phase(torch, res_work, card)
     for name, c in res_step["supervision"].items():
         print(f"resilience supervision cost, {name} step ms, off vs skip, in turns "
               f"({card}): off {c['off_ms']} skip {c['skip_ms']}", flush=True)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    group_fit = group_fit_phase(torch, card)
-    print(f"group-fit ({card}): " + json.dumps(group_fit), flush=True)
-    print(f"group-fit phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    tpe = tpe_phase(torch, card, group_fit["demand"])
-    print(f"tpe phase (alone on the card): {time.perf_counter() - t0:.1f} s", flush=True)
-    # eda and the pipeline specs run side by side in the background while
-    # this process holds the TPE search on the card against the CPU.
-    t0 = time.perf_counter()
-    side = start_side_runs(group_fit["demand"])
-    tpe.update(tpe_parity(torch, group_fit["demand"]))
-    print(f"tpe ({card}): " + json.dumps(tpe), flush=True)
-    torch.cuda.empty_cache()
-    golden = group_fit_golden(torch)
-    print(f"group-fit golden ({card}): " + json.dumps(golden), flush=True)
-    torch.cuda.empty_cache()
-    eda = eda_phase(torch, card, side)
-    print(f"eda ({card}): " + json.dumps(eda), flush=True)
-    t1 = time.perf_counter()
-    jobs = job_pipeline_phase(torch, card, group_fit.pop("spec_run"), side)
-    print(f"pipeline ({card}): " + json.dumps(jobs), flush=True)
-    hpo_phase(card, side)
-    print(f"hpo chain: {side['hpo']['wall_s']:.1f} s beside the others", flush=True)
-    chaos_phase(card, side)
-    analysis = analysis_phase(card, side)
-    audit_launches = analysis["audit"]["launches"]
-    print(f"tpe parity, eda, pipeline, hpo, chaos and analysis phases side by side: "
-          f"{time.perf_counter() - t0:.1f} s (after eda {time.perf_counter() - t1:.1f} s)",
-          flush=True)
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    lap("resilience lm")
+    # The side-by-side block: the forecasting track (the group-fit spec,
+    # tpe, its f64 parity, the golden fit, eda), the pipeline specs, the HPO
+    # chain, the chaos soaks and the analysis tiers start in the background,
+    # each mostly the host's; this process runs the LM's parallel extras,
+    # the ViT, ring-moe and the group-fit phase's card checks beside them.
+    side = start_side_runs()
     moe_lm = moe_lm_phase(torch, card)
     torch.cuda.empty_cache()
     moe_parity_phase(torch, card)
     moe_dp = moe_dp_phase(torch, card)
     ring_phase(torch, card)
     pipeline_phase(torch, card)
-    print(f"parallel-extras phases: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    vit_phase(torch, training["tables"], card)
+    torch.cuda.empty_cache()
+    ring_moe_phase(torch, card)
+    torch.cuda.empty_cache()
+    gf_checks = group_fit_card_checks(torch, demand_table(side))
+    torch.cuda.empty_cache()
+    lap("parallel extras, vit, ring-moe and group-fit checks (beside the side runs)")
+    eda = eda_phase(torch, card, side)
+    print(f"eda ({card}): " + json.dumps(eda), flush=True)
+    jobs = job_pipeline_phase(torch, card, side)
+    jobs["side_by_side_idle_share"] = stop_sampler(side)
+    group_fit = {**group_fit_phase(card, side), **gf_checks}
+    jobs["demand_forecasting"] = group_fit.pop("spec_run")
+    print(f"group-fit ({card}): " + json.dumps(group_fit), flush=True)
+    print(f"pipeline demand_forecasting task seconds ({card}): "
+          f"{json.dumps(jobs['demand_forecasting']['tasks'])}", flush=True)
+    print(f"pipeline ({card}): " + json.dumps(jobs), flush=True)
+    tpe = tpe_phase(card, side)
+    tpe.update(child_result(side, "tpe_parity", "tpe f64 parity"))
+    print(f"tpe ({card}): " + json.dumps(tpe), flush=True)
+    golden = child_result(side, "golden", "group-fit golden fit")
+    print(f"group-fit golden ({card}): " + json.dumps(golden), flush=True)
+    hpo_phase(card, side)
+    print(f"hpo chain: {side['hpo']['wall_s']:.1f} s beside the others", flush=True)
+    chaos_phase(card, side)
+    analysis = analysis_phase(card, side)
+    audit_launches = analysis["audit"]["launches"]
+    lap("the rest of the side-by-side block")
     torch.cuda.empty_cache()
     image_serve = image_serve_phase(torch, training["tables"], flags["checkpoint_dir"], card)
-    vit_phase(torch, training["tables"], card)
-    ring_moe_phase(torch, card)
-    print(f"slice-10 phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("image-serve")
 
     head = cases[2]  # causal s1024: the largest prefill bucket of the path
     train_case = next(c for c in cases if c["shape"] == "causal b8 h8 s2048 d128")
@@ -4375,8 +4936,11 @@ def main() -> int:
             "launches": (training["launches"][key] + flags["launches"][key]
                          + sum(r[key] for r in dp["launches_per_rank"])
                          + res_train["launches"][key] + photos["launches"][key]
-                         + audit_launches["ops.fused_matmul.grad"][key]),
+                         + audit_launches["ops.fused_matmul.grad"][key]
+                         + f32_train["launches"][key]),
             "launches_by_path": {"train": training["launches"][key],
+                                 "f32_train": f32_train["launches_f32"][key],
+                                 "pad_f32": pad["float32"]["launches_f32"][key],
                                  "train_flags": flags["launches"][key],
                                  "photos_train": photos["launches"][key],
                                  "dp_per_rank": [r[key] for r in dp["launches_per_rank"]],
@@ -4393,6 +4957,14 @@ def main() -> int:
             "library": "cuBLAS product of the same shapes (matmul part only)",
             "shape": head["shape"],
             "cases": fused[key],
+            "f32": {  # K1f-K3f, csrc/fused_matmul_f32.cu; library: cuBLAS SGEMM, TF32 off
+                "source": "dss_ml_at_scale_tpu_torch/csrc/fused_matmul_f32.cu",
+                "launches": f32_train["launches_f32"][key],
+                **{x: fused_f32[key][0][x] for x in ("shape", "ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "library_ms")},
+                "max_abs_err": max(c["max_abs_err"] for c in fused_f32[key]),
+                "cases": fused_f32[key],
+            },
         })
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

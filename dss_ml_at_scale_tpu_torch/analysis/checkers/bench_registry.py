@@ -41,6 +41,7 @@ def _literal_str(node) -> str | None:
 @register_checker
 class BenchRegistryChecker(Checker):
     name = "bench-registry"
+    full_scan_only = True
     description = (
         "Scenario()/Metric() declarations reconcile both ways against "
         "telemetry.catalog.KNOWN_BENCH_METRICS (names literal, metric "

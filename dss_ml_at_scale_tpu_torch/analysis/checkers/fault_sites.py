@@ -62,6 +62,7 @@ def _registered(site: str, is_prefix: bool, known: dict) -> bool:
 @register_checker
 class FaultSitesChecker(Checker):
     name = "fault-sites"
+    full_scan_only = True
     description = (
         "fault-injection sites used in the package ⊆ documented "
         "resilience.faults.KNOWN_SITES, and no registered site is dead"

@@ -48,6 +48,7 @@ def _name_arg(node: ast.Call) -> ast.expr | None:
 @register_checker
 class SloRegistryChecker(Checker):
     name = "slo-registry"
+    full_scan_only = True
     description = (
         "Objective(name=...) declarations and set_target() call sites "
         "⊆ telemetry.catalog.KNOWN_SLOS, and no declared objective is "

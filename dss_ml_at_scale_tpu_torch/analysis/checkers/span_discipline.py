@@ -47,6 +47,7 @@ _TELEMETRY_PREFIX = "dss_ml_at_scale_tpu_torch/telemetry/"
 @register_checker
 class SpanDisciplineChecker(Checker):
     name = "span-discipline"
+    full_scan_only = True
     description = (
         "span names at span() call sites ⊆ telemetry.catalog."
         "KNOWN_SPANS, no declared span is dead, and raw record() calls "

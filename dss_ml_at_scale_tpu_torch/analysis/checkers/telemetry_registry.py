@@ -43,6 +43,7 @@ _SKIP_FILES = {
 @register_checker
 class TelemetryRegistryChecker(Checker):
     name = "telemetry-registry"
+    full_scan_only = True
     description = (
         "metric names at counter()/gauge()/histogram() call sites ⊆ "
         "telemetry.catalog.KNOWN_METRICS (kinds match), and no "

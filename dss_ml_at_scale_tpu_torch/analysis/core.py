@@ -230,6 +230,11 @@ class Checker:
     name: str = ""
     description: str = ""
     roots: tuple[str, ...] = ("package",)
+    # Registry-reconciling checkers (finalize() compares call sites with a
+    # catalog across ALL files) misfire on a partial scan, where a file
+    # outside the subset looks like a missing call site: they declare
+    # full_scan_only and ``lint --changed`` skips them.
+    full_scan_only: bool = False
 
     def wants(self, ctx: FileContext) -> bool:
         return ctx.root in self.roots
@@ -442,6 +447,26 @@ def iter_contexts(
             )
 
 
+def _contexts_for_paths(
+    paths: Sequence[Path],
+    scan_roots: Sequence[tuple[str, Path]],
+) -> Iterable[FileContext]:
+    """Contexts for an explicit file list (``lint --changed``), each
+    attributed to the scan root that holds it, so per-root rule scoping
+    (``Checker.roots``) is that of a full scan; files outside every root
+    are not linted."""
+    for path in sorted(Path(p).resolve() for p in paths):
+        label = next((lbl for lbl, root in scan_roots
+                      if path.is_relative_to(Path(root).resolve())), None)
+        if label is None:
+            continue
+        try:
+            rel = path.relative_to(REPO_ROOT).as_posix()
+        except ValueError:
+            rel = path.name
+        yield FileContext(path, rel, label, path.read_text(encoding="utf-8"))
+
+
 def default_roots() -> list[tuple[str, Path]]:
     return [("package", PACKAGE_DIR)]
 
@@ -452,17 +477,22 @@ def run_lint(
     roots: Sequence[tuple[str, Path]] | None = None,
     baseline_path: Path | None = None,
     checkers: Sequence[Checker] | None = None,
+    paths: Sequence[Path] | None = None,
 ) -> LintResult:
     """Run the suite; the single entry point the CLI and the tests share.
 
     ``rules`` selects a subset (default: all registered). ``checkers``
     overrides instantiation entirely (tests inject checkers with fake
-    registries). Baseline staleness is judged only against the selected
-    rules —
+    registries). ``paths`` restricts the scan to an explicit file list
+    (``lint --changed``): full-scan-only checkers are dropped (naming one in
+    ``rules`` is a usage error), and baseline staleness is judged only
+    against the scanned files. Baseline staleness is judged only against
+    the selected rules —
     ``--rules no-print`` must not declare every other rule's entries
     stale.
     """
     _load_plugins()
+    explicit_rules = checkers is None and bool(rules)
     if checkers is None:
         names = list(rules) if rules else sorted(_CHECKERS)
         unknown = [n for n in names if n not in _CHECKERS]
@@ -472,6 +502,17 @@ def run_lint(
                 f"known: {', '.join(sorted(_CHECKERS))}"
             )
         checkers = [_CHECKERS[n]() for n in names]
+    if paths is not None:
+        dropped = sorted(c.name for c in checkers if c.full_scan_only)
+        if dropped and explicit_rules:
+            # Skipping a rule the user named would report a clean pass for
+            # a check that never ran.
+            raise LintUsageError(
+                f"rule(s) {', '.join(dropped)} reconcile a full registry "
+                "and cannot run on a --changed subset; drop them from "
+                "--rules or run a full lint"
+            )
+        checkers = [c for c in checkers if not c.full_scan_only]
     selected = [c.name for c in checkers]
 
     scan_roots = list(roots) if roots is not None else default_roots()
@@ -481,7 +522,7 @@ def run_lint(
     # stale (otherwise dead entries linger, and a re-added file with the
     # same flagged line would silently inherit the exemption).
     root_prefixes: list[str] = []
-    for _, root in scan_roots:
+    for _, root in scan_roots if paths is None else ():
         try:
             root_prefixes.append(
                 Path(root).resolve().relative_to(REPO_ROOT).as_posix() + "/"
@@ -491,7 +532,8 @@ def run_lint(
     contexts: dict[str, FileContext] = {}
     raw: list[Finding] = []
     suppressed: list[Finding] = []
-    for ctx in iter_contexts(scan_roots):
+    for ctx in (iter_contexts(scan_roots) if paths is None
+                else _contexts_for_paths(paths, scan_roots)):
         contexts[ctx.rel] = ctx
         # Reasonless suppression comments are findings of the framework
         # itself — rule "suppression", not suppressible (a suppression

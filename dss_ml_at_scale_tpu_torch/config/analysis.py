@@ -1,7 +1,8 @@
 """The analysis commands of the port's CLI: ``lint``, ``sanitize``, ``audit``.
 
 Ports of the JAX commands (``config/commands.py``: ``register_lint``,
-``register_audit``, ``register_sanitize``) with their flags, exit codes
+``register_audit``, ``register_sanitize``) with their flags (``lint
+--changed`` included), exit codes
 (0 clean, 1 findings or stale baseline entries, 2 usage error) and JSON
 schema (its ``version`` field), pointed at the port's sources, threads and
 programs (:mod:`..analysis`). The defaults of ``--baseline`` are the port's
@@ -61,6 +62,13 @@ def _register_lint(sub) -> None:
     ln.add_argument("--rules", default=None, metavar="R1,R2",
                     help="comma-separated subset of rules (default: all)")
     _add_baseline_args(ln, "analysis/baselines/lint.json")
+    ln.add_argument(
+        "--changed", nargs="?", const="HEAD", default=None, metavar="REF",
+        help="lint only the files changed vs the git ref (default HEAD: staged, "
+        "unstaged and untracked), the fast pre-commit mode. The whole-package "
+        "registry rules (telemetry-registry, fault-sites, ...) are skipped: "
+        "they reconcile call sites against a registry across ALL files and "
+        "would misfire on a subset")
     ln.set_defaults(fn=_cmd_lint)
 
 
@@ -80,7 +88,19 @@ def _cmd_lint(args: argparse.Namespace) -> int:
                 print(f"{name:20s} {desc}")
             return 0
         baseline = Path(args.baseline) if args.baseline else DEFAULT_BASELINE
-        res = run_lint(_split(args.rules), baseline_path=baseline)
+        paths = None
+        if args.changed is not None:
+            if args.update_baseline:
+                raise LintUsageError("--changed cannot --update-baseline: a partial scan "
+                                     "must never rewrite the whole-package baseline")
+            paths = _changed_python_files(args.changed)
+            if not paths and not args.json:
+                # --json keeps its one parseable document even then: an
+                # empty-scope run below.
+                print(f"lint --changed {args.changed}: no changed Python files in scope; "
+                      "nothing to lint")
+                return 0
+        res = run_lint(_split(args.rules), baseline_path=baseline, paths=paths)
         if args.update_baseline:
             # Entries of rules OUTSIDE this run's selection are kept: a
             # --rules subset update must not wipe what it never re-checked.
@@ -100,6 +120,36 @@ def _cmd_lint(args: argparse.Namespace) -> int:
     except LintUsageError as e:
         print(f"lint: {e}", file=sys.stderr)
         return 2
+
+
+def _changed_python_files(ref: str) -> list[Path]:
+    """The ``.py`` files changed vs ``ref`` (``git diff``) and the untracked
+    ones, within the lint's scan roots: the ``lint --changed`` scope.
+    Deleted files drop out (there is nothing left to lint)."""
+    import subprocess
+
+    from ..analysis import LintUsageError
+    from ..analysis.core import REPO_ROOT, default_roots
+
+    def git(*argv: str) -> list[str]:
+        out = subprocess.run(["git", *argv], cwd=REPO_ROOT, capture_output=True, text=True)
+        if out.returncode != 0:
+            raise LintUsageError(f"git {' '.join(argv)} failed: {out.stderr.strip()}")
+        return [line for line in out.stdout.splitlines() if line.strip()]
+
+    names = set(git("diff", "--name-only", ref))
+    names.update(git("ls-files", "--others", "--exclude-standard"))
+    # Scoped to the scan roots, derived rather than listed, so that
+    # --changed and the full scan agree on what is lintable.
+    prefixes = []
+    for _, root in default_roots():
+        try:
+            prefixes.append(Path(root).resolve().relative_to(REPO_ROOT).as_posix() + "/")
+        except ValueError:
+            continue
+    return [REPO_ROOT / name for name in sorted(names)
+            if name.endswith(".py") and name.startswith(tuple(prefixes))
+            and (REPO_ROOT / name).exists()]
 
 
 # -- audit --------------------------------------------------------------------

@@ -6,8 +6,9 @@ resolve an objective by its ``module:qualname`` reference
 sweeps need importable functions: the counterpart of the reference's
 notebook-global ``objective`` that SparkTrials pickles to executors. The
 refs name this module, ``dss_ml_at_scale_tpu_torch.hpo.objectives``. The
-JAX module's two group-apply demos (pandas groups for its process executor)
-belong to no HPO path and are not copied.
+JAX module's two group-apply demos are here too, over pyarrow groups (the
+port has no pandas): importable functions for
+``parallel.group_apply.group_apply(executor="process")``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,29 @@ def brittle_quadratic(args) -> float:
     if args["x"] < 0:
         raise RuntimeError(f"objective blew up at x={args['x']}")
     return (args["x"] - 3.0) ** 2
+
+
+def group_pid_summary(group):
+    """A per-group demo for ``group_apply(executor="process")``: the group's
+    SKU, its mean demand and the worker's ``pid``. GIL-bound on purpose (a
+    pure-Python loop, a stand-in for a statsmodels-style fit), and the pid
+    lets a caller check that the group ran out of process."""
+    import pyarrow as pa
+
+    acc = 0.0
+    for i in range(50_000):
+        acc += (i % 7) * 0.5
+    demand = group.column("Demand").to_numpy(zero_copy_only=False)
+    return pa.table({"SKU": [group.column("SKU")[0].as_py()],
+                     "mean": [float(demand.mean())], "pid": [os.getpid()]})
+
+
+def brittle_group_head(group):
+    """A group function that raises for one SKU (``SKU2``): the per-group
+    failure-isolation probe. Other groups give their first row's SKU."""
+    if group.column("SKU")[0].as_py() == "SKU2":
+        raise RuntimeError("group blew up")
+    return group.slice(0, 1).select(["SKU"])
 
 
 # The broadcast regime (~100 MB). Workers import this module, so each

@@ -6,10 +6,10 @@ of every bottleneck block the conv output ``y`` is normalized, rectified and
 fed to the third (1x1) conv; here the normalize + ReLU runs as the prologue
 of the product, so the normalized activation never reaches device memory:
 
-    forward   out = bf16(relu(y*s + t [+ res])) @ W                  (K1)
+    forward   out = a @ W,  a = relu(y*s + t [+ res]) in y.dtype     (K1)
     backward  gt  = (g @ W^T) * [y*s + t (+ res) > 0], with the      (K2)
                     channel sums sum(gt) and sum(gt * x_hat)
-              dW  = bf16(relu(y*s + t [+ res]))^T @ g                (K3)
+              dW  = a^T @ g                                          (K3)
 
 with ``s = gamma * rsqrt(var + eps)`` and ``t = beta - mean * s``. The
 elementwise ``dy`` finish stays in torch ops, as it stays HLO in JAX:
@@ -24,14 +24,18 @@ while ``dgamma``, ``dbeta`` and ``dW`` stay the rank's own (data
 parallelism averages them, as the JAX transpose sums them).
 
 Each kernel's wrapper (:func:`bn_relu_matmul_fwd`, :func:`bn_relu_matmul_bwd_da`,
-:func:`bn_relu_matmul_bwd_dw`) launches ``csrc/fused_matmul.cu`` for CUDA
-tensors, or raises for what the kernel does not take (a dtype other than
-bf16, strided or misaligned storage, K or N not a multiple of 8); it runs
-the plain version (``*_reference``) only for tensors on the CPU. Each
-counts its launches in ``.launches``. The TPU pads M to 512 and K, N to 128
-(its tiling); the CUDA kernels take any M and mask the ragged edge, and
-``n_count`` is the real row count. f32 tensors on the card are refused:
-the training path is bf16, and the f32 variants are still to write.
+:func:`bn_relu_matmul_bwd_dw`) launches a kernel for CUDA tensors: the bf16
+ones of ``csrc/fused_matmul.cu`` for bf16 operands, the f32 ones of
+``csrc/fused_matmul_f32.cu`` (K1f-K3f) for f32 operands. It raises for what
+the kernels do not take (another dtype, f16 included, operands of mixed
+types, strided or misaligned storage, K or N that leave rows off 16 bytes:
+multiples of 8 in bf16, of 4 in f32), and runs the plain version
+(``*_reference``) only for tensors on the CPU. Each counts its launches in
+``.launches``, and those of the f32 variant also in ``.launches_f32``. The
+kernels take any M and mask the ragged edge; ``n_count`` is the real row
+count. The op :func:`bn_relu_matmul` takes any K and N: it zero-pads them
+to the kernels' alignment, as the JAX op pads them to its 128 lanes, on
+every device, and an aligned shape takes no pad.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .fused_norm import reduce_grad_sums
 
@@ -53,10 +58,18 @@ from .fused_norm import reduce_grad_sums
 _FWD_TILE_M, _FWD_TILE_N = 128, 256
 _DA_TILE_M = 128
 _DW_TILE_N, _DW_DEPTH = 256, 64
+# Those of csrc/fused_matmul_f32.cu: K1f-K3f compute 128 x 128 tiles (128 x
+# 64 at 64 channels, the same ``da_tile_n``/``dw_tile_k`` rule) with 256
+# threads, two CTAs to an SM, summing in slabs of 8 rows (kBK). K1f takes
+# one CTA per tile; K2f's walk and K3f's runs fill two CTAs per SM.
+_F32_TILE = 128
+_F32_DEPTH = 8
+_F32_CTAS_PER_SM = 2
 # TMA coordinates and the kernels' row indices are 32-bit signed integers.
 _MAX_ROWS = 2 ** 31 - 1
 
 _lib = None
+_lib_f32 = None
 
 
 # ---------------------------------------------------------------------------
@@ -120,18 +133,50 @@ def _kernel():
     return _lib
 
 
-def check_kernel_inputs(m: int, k: int, n: int, *, bf16=(), f32=(), shapes=()) -> None:
+def _kernel_f32():
+    global _lib_f32
+    if _lib_f32 is None:
+        from ._build import load
+
+        lib = load("fused_matmul_f32")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dsst_bn_relu_matmul_fwd_f32.argtypes = [p] * 6 + [i] * 3 + [p]
+        lib.dsst_bn_relu_matmul_bwd_da_f32.argtypes = [p] * 11 + [i] * 5 + [p]
+        lib.dsst_bn_relu_matmul_bwd_dw_f32.argtypes = [p] * 7 + [i] * 6 + [p]
+        for fn in (lib.dsst_bn_relu_matmul_fwd_f32, lib.dsst_bn_relu_matmul_bwd_da_f32,
+                   lib.dsst_bn_relu_matmul_bwd_dw_f32):
+            fn.restype = ctypes.c_int
+        _lib_f32 = lib
+    return _lib_f32
+
+
+# The operand types the kernels take, each with its library; f16 is taken by
+# no path of either package.
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def row_align(dtype: torch.dtype) -> int:
+    """K and N must be multiples of this for ``dtype`` rows to span whole
+    16-byte units (8 in bf16, 4 in f32): the unit of the kernels' loads."""
+    return 16 // dtype.itemsize
+
+
+def check_kernel_inputs(m: int, k: int, n: int, *, operands=(), f32=(), shapes=()) -> None:
     """Raise ``ValueError`` for what the kernels do not take: tensors on
-    different devices, bf16 operands of another dtype, channel vectors
-    other than f32, a wrong shape, strided or misaligned storage, K or N
-    not a multiple of 8, or more rows than 32-bit row indices hold."""
-    tensors = [x for x in bf16 + f32 if x is not None]
+    different devices, operands other than bf16 or f32 or of mixed types,
+    channel vectors other than f32, a wrong shape, strided or misaligned
+    storage, K or N off the dtype's 16-byte rows (:func:`row_align`), or
+    more rows than 32-bit row indices hold."""
+    tensors = [x for x in operands + f32 if x is not None]
     devices = {x.device for x in tensors}
     if len(devices) != 1:
         raise ValueError(f"fused matmul inputs on different devices: {sorted(map(str, devices))}")
-    for x in bf16:
-        if x is not None and x.dtype != torch.bfloat16:
-            raise ValueError(f"fused matmul kernels take bfloat16 operands, got {x.dtype}")
+    dtypes = {x.dtype for x in operands if x is not None}
+    for dtype in dtypes:
+        if dtype not in _KERNEL_DTYPES:
+            raise ValueError(f"fused matmul kernels take bfloat16 or float32 operands, got {dtype}")
+    if len(dtypes) != 1:
+        raise ValueError(f"fused matmul operands must be of one type, got {sorted(map(str, dtypes))}")
     for x in f32:
         if x.dtype != torch.float32:
             raise ValueError(f"fused matmul channel vectors must be float32, got {x.dtype}")
@@ -143,8 +188,11 @@ def check_kernel_inputs(m: int, k: int, n: int, *, bf16=(), f32=(), shapes=()) -
             raise ValueError("fused matmul kernels need contiguous tensors")
         if x.data_ptr() % 16:
             raise ValueError("fused matmul kernels need 16-byte aligned storage")
-    if k % 8 or n % 8:
-        raise ValueError(f"fused matmul kernels need K and N multiples of 8, got K={k}, N={n}")
+    (dtype,) = dtypes
+    align = row_align(dtype)
+    if k % align or n % align:
+        raise ValueError(f"fused matmul kernels need K and N multiples of {align} in {dtype} "
+                         f"(16-byte rows), got K={k}, N={n}")
     if not 1 <= m <= _MAX_ROWS:
         raise ValueError(f"fused matmul kernels take 1..{_MAX_ROWS} rows, got {m}")
 
@@ -171,42 +219,58 @@ def _sm_count(x: torch.Tensor) -> int:
     return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
-def fwd_tile_walk(m: int, n: int, sm_count: int) -> list[list[tuple[int, int]]]:
+def cta_slots(sm_count: int, dtype: torch.dtype) -> int:
+    """CTAs that run at once on ``sm_count`` SMs: one per SM for the bf16
+    kernels, two for the f32 ones (256 threads and at most 128 registers
+    each, 33 KB of shared memory)."""
+    return sm_count * (_F32_CTAS_PER_SM if dtype == torch.float32 else 1)
+
+
+def fwd_tile_walk(m: int, n: int, sm_count: int,
+                  dtype: torch.dtype = torch.bfloat16) -> list[list[tuple[int, int]]]:
     """K1's persistent walk: for each of its ``min(tiles, sm_count)`` CTAs,
     the ``(row, column)`` origins of the 128 x 256 output tiles it computes,
     in order. Tile ``i`` is row tile ``i % tiles_m`` of column band
     ``i // tiles_m`` (M first within a band of N), and CTA ``c`` takes tiles
-    ``c, c + grid, c + 2 grid, ...``, as the kernel does."""
+    ``c, c + grid, c + 2 grid, ...``, as the kernel does. K1f (``dtype``
+    f32) orders its 128 x 128 tiles the same way, one CTA per tile."""
+    tile_n = _F32_TILE if dtype == torch.float32 else _FWD_TILE_N
     tiles_m = -(-m // _FWD_TILE_M)
-    tiles = tiles_m * -(-n // _FWD_TILE_N)
-    grid = min(tiles, sm_count)
-    return [[((i % tiles_m) * _FWD_TILE_M, (i // tiles_m) * _FWD_TILE_N)
+    tiles = tiles_m * -(-n // tile_n)
+    grid = tiles if dtype == torch.float32 else min(tiles, sm_count)
+    return [[((i % tiles_m) * _FWD_TILE_M, (i // tiles_m) * tile_n)
              for i in range(c, tiles, grid)] for c in range(grid)]
 
 
 def bn_relu_matmul_fwd(y2, s, t, w, res=None) -> torch.Tensor:
-    """K1 on the card, or its plain version for CPU tensors."""
+    """K1 (K1f for f32 operands) on the card, or its plain version for CPU
+    tensors."""
     if not y2.is_cuda:
         _on_cpu_or_raise(y2, "bn_relu_matmul_fwd")
         return bn_relu_matmul_fwd_reference(y2, s, t, w, res)
     m, k = y2.shape
     n = w.shape[1]
-    check_kernel_inputs(m, k, n, bf16=(y2, w, res), f32=(s, t),
+    check_kernel_inputs(m, k, n, operands=(y2, w, res), f32=(s, t),
                         shapes=((w, (k, n)), (res, (m, k)), (s, (k,)), (t, (k,))))
     out = torch.empty((m, n), dtype=y2.dtype, device=y2.device)
-    lib = _kernel()
+    f32 = y2.dtype == torch.float32
+    args = (y2.data_ptr(), _ptr(res), s.data_ptr(), t.data_ptr(), w.data_ptr(),
+            out.data_ptr(), m, k, n)
     with torch.cuda.device(y2.device):
-        rc = lib.dsst_bn_relu_matmul_fwd(
-            y2.data_ptr(), _ptr(res), s.data_ptr(), t.data_ptr(), w.data_ptr(),
-            out.data_ptr(), m, k, n, _sm_count(y2), _stream(y2))
+        if f32:
+            rc = _kernel_f32().dsst_bn_relu_matmul_fwd_f32(*args, _stream(y2))
+        else:
+            rc = _kernel().dsst_bn_relu_matmul_fwd(*args, _sm_count(y2), _stream(y2))
     _raise_if(rc, "bn_relu_matmul_fwd")
     bn_relu_matmul_fwd.launches += 1
+    bn_relu_matmul_fwd.launches_f32 += f32
     return out
 
 
 def da_tile_n(k: int) -> int:
     """K2's tile width, the wgmma N dimension: 64 channels at K <= 64, else
-    128 (256-wide tiles ran slower at stages 3-4: PERF.md)."""
+    128 (256-wide tiles ran slower at stages 3-4: PERF.md). K2f's tiles
+    follow the same rule, so no 128-wide tile is half idle at stage 1."""
     return 64 if k <= 64 else 128
 
 
@@ -217,7 +281,7 @@ def da_tile_walk(m: int, k: int, bn: int, sm_count: int) -> list[list[tuple[int,
     tile ``i // tiles_k`` (the bands of an M band first), and CTA ``c`` takes
     tiles ``c, c + grid, ...``, as the kernel does. It is a fixed function of
     its arguments, so each CTA's row of channel sums is added in the same
-    order on every run."""
+    order on every run. K2f walks the same way over ``cta_slots`` CTAs."""
     tiles_k = -(-k // bn)
     tiles = -(-m // _DA_TILE_M) * tiles_k
     grid = min(tiles, sm_count)
@@ -226,92 +290,111 @@ def da_tile_walk(m: int, k: int, bn: int, sm_count: int) -> list[list[tuple[int,
 
 
 def bn_relu_matmul_bwd_da(g, w, y2, s, t, mean, inv, res=None):
-    """K2 on the card (then its fixed-order second pass over the CTAs' rows
-    of channel sums), or its plain version for CPU tensors."""
+    """K2 (K2f for f32 operands) on the card, then its fixed-order second
+    pass over the CTAs' rows of channel sums, or its plain version for CPU
+    tensors."""
     if not g.is_cuda:
         _on_cpu_or_raise(g, "bn_relu_matmul_bwd_da")
         return bn_relu_matmul_bwd_da_reference(g, w, y2, s, t, mean, inv, res)
     m, k = y2.shape
     n = w.shape[1]
-    check_kernel_inputs(m, k, n, bf16=(g, w, y2, res), f32=(s, t, mean, inv),
+    check_kernel_inputs(m, k, n, operands=(g, w, y2, res), f32=(s, t, mean, inv),
                         shapes=((g, (m, n)), (w, (k, n)), (res, (m, k)), (s, (k,)),
                                 (t, (k,)), (mean, (k,)), (inv, (k,))))
     bn = da_tile_n(k)
     sm_count = _sm_count(y2)
-    grid = min(-(-m // _DA_TILE_M) * -(-k // bn), sm_count)
+    f32 = y2.dtype == torch.float32
+    grid = min(-(-m // _DA_TILE_M) * -(-k // bn), cta_slots(sm_count, y2.dtype))
     gt = torch.empty((m, k), dtype=y2.dtype, device=y2.device)
     partial = torch.empty((grid, 2 * k), dtype=torch.float32, device=y2.device)
     sums = torch.empty((2, k), dtype=torch.float32, device=y2.device)
-    lib = _kernel()
-    with torch.cuda.device(y2.device):
-        rc = lib.dsst_bn_relu_matmul_bwd_da(
-            g.data_ptr(), w.data_ptr(), y2.data_ptr(), _ptr(res), s.data_ptr(),
+    args = (g.data_ptr(), w.data_ptr(), y2.data_ptr(), _ptr(res), s.data_ptr(),
             t.data_ptr(), mean.data_ptr(), inv.data_ptr(), gt.data_ptr(),
-            partial.data_ptr(), sums.data_ptr(), m, k, n, bn, sm_count, _stream(y2))
+            partial.data_ptr(), sums.data_ptr(), m, k, n, bn)
+    with torch.cuda.device(y2.device):
+        if f32:
+            rc = _kernel_f32().dsst_bn_relu_matmul_bwd_da_f32(*args, grid, _stream(y2))
+        else:
+            rc = _kernel().dsst_bn_relu_matmul_bwd_da(*args, sm_count, _stream(y2))
     _raise_if(rc, "bn_relu_matmul_bwd_da")
     bn_relu_matmul_bwd_da.launches += 1
+    bn_relu_matmul_bwd_da.launches_f32 += f32
     return gt, sums[0], sums[1]
 
 
 def dw_tile_k(k: int) -> int:
     """K3's output tile height, the channels of dW per CTA: 64 at K <= 64
     (the kernel's two warpgroups then share the tile, on alternate ring
-    stages), else 128 (64 each)."""
+    stages), else 128 (64 each). K3f's tiles follow the same rule."""
     return 64 if k <= 64 else 128
 
 
-def dw_plan(m: int, k: int, n: int, sm_count: int) -> tuple[int, int]:
+def dw_plan(m: int, k: int, n: int, sm_count: int,
+            dtype: torch.dtype = torch.bfloat16) -> tuple[int, int]:
     """``(splits, chunk)``: K3 sums M in ``splits`` runs of ``chunk`` rows,
     a multiple of its ring's 64-row depth (no ring stage crosses into the
     next run: TMA zero-fills only at the tensor's edge), for every
     ``dw_tile_k(k)`` x 256 output tile. As many runs as fill the SMs once
-    with one CTA per (tile, run), at least one ring stage each."""
-    tiles = -(-k // dw_tile_k(k)) * -(-n // _DW_TILE_N)
-    splits = max(1, min(sm_count // tiles, -(-m // _DW_DEPTH)))
-    chunk = -(-(-(-m // splits)) // _DW_DEPTH) * _DW_DEPTH
+    with one CTA per (tile, run), at least one ring stage each. K3f
+    (``dtype`` f32): ``dw_tile_k(k)`` x 128 tiles, runs of whole 8-row
+    slabs, filling two CTAs per SM."""
+    f32 = dtype == torch.float32
+    tile_n, depth = (_F32_TILE, _F32_DEPTH) if f32 else (_DW_TILE_N, _DW_DEPTH)
+    tiles = -(-k // dw_tile_k(k)) * -(-n // tile_n)
+    splits = max(1, min(cta_slots(sm_count, dtype) // tiles, -(-m // depth)))
+    chunk = -(-(-(-m // splits)) // depth) * depth
     return -(-m // chunk), chunk
 
 
-def dw_work(m: int, k: int, n: int, sm_count: int) -> list[tuple[int, int, int, int]]:
-    """K3's work items in CTA order: ``(channel, column, first row, end
-    row)`` of each CTA's output tile and run of M, the tiles of one run
-    neighbours, as the kernel reads ``blockIdx.x``."""
-    splits, chunk = dw_plan(m, k, n, sm_count)
+def dw_work(m: int, k: int, n: int, sm_count: int,
+            dtype: torch.dtype = torch.bfloat16) -> list[tuple[int, int, int, int]]:
+    """K3's (or K3f's) work items in CTA order: ``(channel, column, first
+    row, end row)`` of each CTA's output tile and run of M, the tiles of one
+    run neighbours, as the kernel reads ``blockIdx.x``."""
+    splits, chunk = dw_plan(m, k, n, sm_count, dtype)
     tile_k = dw_tile_k(k)
+    tile_n = _F32_TILE if dtype == torch.float32 else _DW_TILE_N
     tiles_k = -(-k // tile_k)
-    tiles = tiles_k * -(-n // _DW_TILE_N)
-    return [((b % tiles % tiles_k) * tile_k, (b % tiles // tiles_k) * _DW_TILE_N,
+    tiles = tiles_k * -(-n // tile_n)
+    return [((b % tiles % tiles_k) * tile_k, (b % tiles // tiles_k) * tile_n,
              (b // tiles) * chunk, min(m, (b // tiles + 1) * chunk))
             for b in range(tiles * splits)]
 
 
 def bn_relu_matmul_bwd_dw(y2, s, t, g, res=None) -> torch.Tensor:
-    """K3 on the card (then its fixed-order second pass over the M runs),
-    or its plain version for CPU tensors. Returns dW in f32."""
+    """K3 (K3f for f32 operands) on the card, then its fixed-order second
+    pass over the M runs, or its plain version for CPU tensors. Returns dW
+    in f32."""
     if not y2.is_cuda:
         _on_cpu_or_raise(y2, "bn_relu_matmul_bwd_dw")
         return bn_relu_matmul_bwd_dw_reference(y2, s, t, g, res)
     m, k = y2.shape
     n = g.shape[1]
-    check_kernel_inputs(m, k, n, bf16=(y2, g, res), f32=(s, t),
+    check_kernel_inputs(m, k, n, operands=(y2, g, res), f32=(s, t),
                         shapes=((g, (m, n)), (res, (m, k)), (s, (k,)), (t, (k,))))
-    splits, chunk = dw_plan(m, k, n, _sm_count(y2))
+    f32 = y2.dtype == torch.float32
+    splits, chunk = dw_plan(m, k, n, _sm_count(y2), y2.dtype)
     partial = torch.empty((splits, k, n), dtype=torch.float32, device=y2.device)
     dw = torch.empty((k, n), dtype=torch.float32, device=y2.device)
-    lib = _kernel()
-    with torch.cuda.device(y2.device):
-        rc = lib.dsst_bn_relu_matmul_bwd_dw(
-            y2.data_ptr(), _ptr(res), s.data_ptr(), t.data_ptr(), g.data_ptr(),
+    args = (y2.data_ptr(), _ptr(res), s.data_ptr(), t.data_ptr(), g.data_ptr(),
             partial.data_ptr(), dw.data_ptr(), m, k, n, dw_tile_k(k), splits, chunk,
             _stream(y2))
+    with torch.cuda.device(y2.device):
+        if f32:
+            rc = _kernel_f32().dsst_bn_relu_matmul_bwd_dw_f32(*args)
+        else:
+            rc = _kernel().dsst_bn_relu_matmul_bwd_dw(*args)
     _raise_if(rc, "bn_relu_matmul_bwd_dw")
     bn_relu_matmul_bwd_dw.launches += 1
+    bn_relu_matmul_bwd_dw.launches_f32 += f32
     return dw
 
 
-bn_relu_matmul_fwd.launches = 0
-bn_relu_matmul_bwd_da.launches = 0
-bn_relu_matmul_bwd_dw.launches = 0
+# Launches of each kernel, bf16 and f32 variants together; those of the
+# f32 variant also in ``.launches_f32``.
+bn_relu_matmul_fwd.launches = bn_relu_matmul_fwd.launches_f32 = 0
+bn_relu_matmul_bwd_da.launches = bn_relu_matmul_bwd_da.launches_f32 = 0
+bn_relu_matmul_bwd_dw.launches = bn_relu_matmul_bwd_dw.launches_f32 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -381,6 +464,14 @@ def bn_relu_matmul(
     statistics of every rank's ``y``, K2's sums are all-reduced over it,
     and ``global_count`` is the row count of every rank together. Returns
     ``[..., N]`` in ``y.dtype``.
+
+    K and N off the kernels' 16-byte rows (:func:`row_align` of
+    ``y.dtype``) are zero-padded, on every device, as the JAX op pads them
+    to its lanes: the padded channels have gamma = beta = mean = var = 0, so
+    their a = relu(0) = 0, and the padded columns of W are zero; the output
+    is sliced back, autograd slices the gradients, and the statistics keep
+    the real row count. An aligned shape takes no pad: the kernels see the
+    caller's tensors.
     """
     if kernel.ndim == 4:
         if tuple(kernel.shape[:2]) != (1, 1):
@@ -399,7 +490,17 @@ def bn_relu_matmul(
     m = math.prod(lead)
     y2 = y.reshape(m, k)
     res2 = residual.reshape(m, k) if residual is not None else None
+    gamma, beta, mean, var = gamma.float(), beta.float(), mean.float(), var.float()
+    align = row_align(y.dtype)
+    pad_k, pad_n = -k % align, -n % align
+    if pad_k or pad_n:
+        y2 = F.pad(y2, (0, pad_k))
+        res2 = F.pad(res2, (0, pad_k)) if res2 is not None else None
+        gamma, beta, mean, var = (F.pad(v, (0, pad_k)) for v in (gamma, beta, mean, var))
+        kernel = F.pad(kernel, (0, pad_n, 0, pad_k))
     out = _BnReluMatmul.apply(
-        y2, gamma.float(), beta.float(), mean.float(), var.float(), kernel, res2,
+        y2, gamma, beta, mean, var, kernel, res2,
         float(eps), bool(batch_stats), int(global_count if global_count is not None else m), group)
+    if pad_n:
+        out = out[:, :n]
     return out.reshape(*lead, n)

@@ -1,12 +1,45 @@
-"""Step timing: the port of ``dss_ml_at_scale_tpu/utils/profiling.py::StepTimer``.
+"""Profiling hooks and step timing: the port of
+``dss_ml_at_scale_tpu/utils/profiling.py``.
 
-The JAX module's ``jax.profiler`` trace hooks have no counterpart here yet;
-``torch.profiler`` is used directly where a trace is wanted.
+- :func:`trace`: a ``torch.profiler`` trace of the enclosed block, written
+  as a Chrome trace (``chrome://tracing``, Perfetto) into a directory, where
+  the JAX module writes a ``jax.profiler`` trace for TensorBoard. It records
+  the host's ops and, where a card is present, its kernels.
+- :func:`annotate`: a named span (``record_function``), so that phases such
+  as decode, transfer and the train step show up labelled in the trace.
+- :class:`StepTimer`: per-step wall time.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
+from pathlib import Path
+from typing import Iterator
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str | os.PathLike) -> Iterator[Path]:
+    """Profile the enclosed block with ``torch.profiler`` and write its
+    Chrome trace to ``logdir/trace_<pid>.json`` when the block ends (the
+    path is what the context yields). CUDA activity is recorded when a card
+    is available."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    out = Path(logdir) / f"trace_{os.getpid()}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield out
+    prof.export_chrome_trace(str(out))
+
+
+def annotate(name: str):
+    """A named trace span: ``with annotate("decode"): ...``."""
+    return torch.profiler.record_function(name)
 
 
 class StepTimer:

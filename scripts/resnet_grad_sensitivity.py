@@ -14,9 +14,10 @@ f32 and in bf16. For every conv3 weight and middle-BN gamma/beta it prints
 the max-abs difference of two levels over the max-abs of the fused level's
 gradient: pallas vs fused in f32, pallas vs fused in bf16, and unfused vs
 fused in bf16 (two levels the JAX package itself has, neither of which
-runs a kernel). This is what decides how the pallas model's gradients can
-be checked on the card: to a tight tolerance in f32, and in bf16 only
-block by block.
+runs a kernel). At this size the f32 levels agree tightly and bf16 ones
+only block by block; at crop 224 the f32 levels part too, by ReLU masks
+that flip (``scripts/f32_level_parity_probe.py``), so the card holds the
+f32 pallas model's gradients against its own plain versions.
 """
 
 from __future__ import annotations

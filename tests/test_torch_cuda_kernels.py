@@ -5,6 +5,9 @@ machine with the card has no JAX, and ``tests/conftest.py`` imports it, so
 this file imports neither and is run there without the conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+The fused-matmul cases run in bf16 (K1-K3) and in f32 (K1f-K3f); a
+``-k float32`` run takes the f32 ones alone.
 """
 
 import importlib
@@ -194,8 +197,8 @@ def test_generate_at_awkward_prompt_length_launches_the_kernel(cuda, monkeypatch
     assert int(out.min()) >= 0 and int(out.max()) < 512
 
 
-def _fused_inputs(gen, m, k, n, with_res):
-    def randn(*shape, std=1.0, mean=0.0, dtype=torch.bfloat16):
+def _fused_inputs(gen, m, k, n, with_res, dtype=torch.bfloat16):
+    def randn(*shape, std=1.0, mean=0.0, dtype=dtype):
         return (torch.randn(*shape, generator=gen, device="cuda") * std + mean).to(dtype)
 
     y = randn(m, k)
@@ -211,32 +214,46 @@ def _rel(got, ref):
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
-# K1 out at the bf16 tolerance of tests/test_fused_matmul.py:203; gt, the
-# sums and dW to one bf16 spacing (2^-7) of the plain result's max-abs.
-# M, K and N on and off K1's 128 x 256 x 64 tile edges.
+def _launches():
+    return tuple((f.launches, f.launches_f32) for f in
+                 (fm.bn_relu_matmul_fwd, fm.bn_relu_matmul_bwd_da, fm.bn_relu_matmul_bwd_dw))
+
+
+# bf16: K1 out at the bf16 tolerance of tests/test_fused_matmul.py:203; gt,
+# the sums and dW to one bf16 spacing (2^-7) of the plain result's max-abs.
+# f32 (K1f-K3f): out at rtol/atol 1e-5 (:76), gt, the sums and dW within
+# 1e-5 of the plain result's max-abs (f32 sums in another order).
+DTYPES = [pytest.param(torch.bfloat16, dict(rtol=0.05, atol=0.15), 2.0 ** -7, id="bfloat16"),
+          pytest.param(torch.float32, dict(rtol=1e-5, atol=1e-5), 1e-5, id="float32")]
+DTYPE_IDS = ["bfloat16", "float32"]
+
+
+# M, K and N on and off K1's 128 x 256 x 64 tile edges and K1f's 128 x 128
+# x 8 ones.
+@pytest.mark.parametrize("dtype,out_tol,rel", DTYPES)
 @pytest.mark.parametrize("with_res", [False, True])
 @pytest.mark.parametrize("n", [200, 256, 2048])
 @pytest.mark.parametrize("k", [64, 72, 512])
 @pytest.mark.parametrize("m", [1, 127, 128, 129, 4133])
-def test_fused_matmul_kernels_match_plain_versions(cuda, m, k, n, with_res):
-    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, n, with_res)
-    before = (fm.bn_relu_matmul_fwd.launches, fm.bn_relu_matmul_bwd_da.launches,
-              fm.bn_relu_matmul_bwd_dw.launches)
+def test_fused_matmul_kernels_match_plain_versions(cuda, m, k, n, with_res, dtype, out_tol, rel):
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, n, with_res, dtype)
+    before = _launches()
     out = fm.bn_relu_matmul_fwd(y, s, t, w, res)
     gt, sg, sgx = fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res)
     dw = fm.bn_relu_matmul_bwd_dw(y, s, t, g, res)
     torch.cuda.synchronize()
-    assert (fm.bn_relu_matmul_fwd.launches, fm.bn_relu_matmul_bwd_da.launches,
-            fm.bn_relu_matmul_bwd_dw.launches) == tuple(b + 1 for b in before)
+    f32 = dtype == torch.float32
+    assert _launches() == tuple((a + 1, b + f32) for a, b in before)
     ref = fm.bn_relu_matmul_fwd_reference(y, s, t, w, res)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=0.05, atol=0.15)
+    assert out.dtype == dtype and gt.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), **out_tol)
     rgt, rsg, rsgx = fm.bn_relu_matmul_bwd_da_reference(g, w, y, s, t, mean, inv, res)
     for got, want in ((gt, rgt), (sg, rsg), (sgx, rsgx),
                       (dw, fm.bn_relu_matmul_bwd_dw_reference(y, s, t, g, res))):
         # Of the plain result's max-abs, which is 0 where M = 1 makes the
         # batch statistics' x_hat 0.
         err = (got.float() - want.float()).abs().max().item()
-        assert err <= 2.0 ** -7 * want.float().abs().max().item()
+        assert err <= rel * want.float().abs().max().item()
 
 
 def _check_backward(cuda, m, k, n, with_res):
@@ -285,38 +302,44 @@ def test_fused_backward_kernels_on_split_edges(cuda, m, k, n, with_res):
 
 # K3's prologue rounds as the plain version does: with g the identity on its
 # first rows, each entry of dW is one product, a * 1, so dW^T is a itself.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=DTYPE_IDS)
 @pytest.mark.parametrize("with_res", [False, True])
 @pytest.mark.parametrize("m,k,n", [(256, 64, 256), (700, 136, 520), (2048, 512, 2048)])
-def test_dw_prologue_is_the_plain_a_bit_for_bit(cuda, m, k, n, with_res):
-    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, n, with_res)
+def test_dw_prologue_is_the_plain_a_bit_for_bit(cuda, m, k, n, with_res, dtype):
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, n, with_res, dtype)
     rows = min(m, n)
-    eye = torch.zeros(m, n, dtype=torch.bfloat16, device="cuda")
-    eye[:rows, :rows] = torch.eye(rows, dtype=torch.bfloat16, device="cuda")
+    eye = torch.zeros(m, n, dtype=dtype, device="cuda")
+    eye[:rows, :rows] = torch.eye(rows, dtype=dtype, device="cuda")
     dw = fm.bn_relu_matmul_bwd_dw(y, s, t, eye, res)
     torch.cuda.synchronize()
-    a = torch.clamp_min(fm._z(y, s, t, res), 0.0).to(torch.bfloat16).float()
+    a = torch.clamp_min(fm._z(y, s, t, res), 0.0).to(dtype).float()
     assert torch.equal(dw[:, :rows].t(), a[:rows])
 
 
 # K2's ReLU mask is the plain version's bit for bit: with g and W positive,
 # g @ W^T is positive everywhere (no sum cancels), so gt is nonzero exactly
 # where the plain mask is on.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=DTYPE_IDS)
 @pytest.mark.parametrize("with_res", [False, True])
 @pytest.mark.parametrize("m,k,n", [(300, 64, 256), (1000, 264, 520), (2048, 512, 2048)])
-def test_da_mask_is_the_plain_mask_bit_for_bit(cuda, m, k, n, with_res):
-    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, n, with_res)
+def test_da_mask_is_the_plain_mask_bit_for_bit(cuda, m, k, n, with_res, dtype):
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, n, with_res, dtype)
     gt = fm.bn_relu_matmul_bwd_da(g.abs(), w.abs(), y, s, t, mean, inv, res)[0]
     torch.cuda.synchronize()
     assert torch.equal(gt != 0, fm._z(y, s, t, res) > 0)
 
 
-def test_fused_matmul_kernels_are_deterministic(cuda):
-    # K2's walk gives each CTA several tiles (782 tiles on at most 132 CTAs);
-    # K3 splits M over as many CTAs as the card has SMs.
+@pytest.mark.parametrize("dtype,tiles_per_cta", [(torch.bfloat16, 3), (torch.float32, 2)],
+                         ids=DTYPE_IDS)
+def test_fused_matmul_kernels_are_deterministic(cuda, dtype, tiles_per_cta):
+    # K2's walk gives each CTA several tiles (782 tiles on at most 132 CTAs;
+    # K2f's on 264, two to an SM); K3 and K3f split M over as many CTAs as
+    # the card runs at once.
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    assert fm.dw_plan(100000, 64, 256, sm_count)[0] > 100
-    assert len(fm.da_tile_walk(100000, 64, 64, sm_count)[0]) > 3
-    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, 100000, 64, 256, True)
+    assert fm.dw_plan(100000, 64, 256, sm_count, dtype)[0] > 100
+    walk = fm.da_tile_walk(100000, 64, 64, fm.cta_slots(sm_count, dtype))
+    assert len(walk[0]) > tiles_per_cta
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, 100000, 64, 256, True, dtype)
     first = fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res)
     again = fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res)
     for a, b in zip(first, again):
@@ -327,17 +350,54 @@ def test_fused_matmul_kernels_are_deterministic(cuda):
 
 def test_fused_matmul_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     y, s, t, mean, inv, w, g, _ = _fused_inputs(cuda, 256, 64, 128, False)
-    with pytest.raises(ValueError, match="bfloat16"):
-        fm.bn_relu_matmul_fwd(y.float(), s, t, w.float())
+    # f32 is taken now (K1f); f16, which no path uses, and mixed types are not.
+    with pytest.raises(ValueError, match="bfloat16 or float32 operands, got torch.float16"):
+        fm.bn_relu_matmul_fwd(y.half(), s, t, w.half())
+    with pytest.raises(ValueError, match="of one type"):
+        fm.bn_relu_matmul_fwd(y.float(), s, t, w)
     with pytest.raises(ValueError, match="contiguous"):
         fm.bn_relu_matmul_fwd(y.t().contiguous().t(), s, t, w)
     with pytest.raises(ValueError, match="float32"):
         fm.bn_relu_matmul_fwd(y, s.to(torch.bfloat16), t, w)
+    y60, w60 = y[:, :60].contiguous(), w[:60].contiguous()
+    s60, t60 = s[:60].contiguous(), t[:60].contiguous()
     with pytest.raises(ValueError, match="multiples of 8"):
-        fm.bn_relu_matmul_fwd(y[:, :60].contiguous(), s[:60].contiguous(), t[:60].contiguous(),
-                              w[:60].contiguous())
+        fm.bn_relu_matmul_fwd(y60, s60, t60, w60)
+    # The op takes K = 60, zero-padded to 64, through the kernels.
+    before = _launches()
+    y4 = y60.reshape(4, 8, 8, 60).requires_grad_()
+    out = fm.bn_relu_matmul(y4, s60 * 0 + 1, t60 * 0, y60.float().mean(0),
+                            y60.float().var(0, unbiased=False), w60)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert _launches() == tuple((a + 1, b) for a, b in before)
+    assert out.shape == (4, 8, 8, 128) and y4.grad.shape == y4.shape
     with pytest.raises(ValueError, match="channels-last"):
         fm.bn_relu_matmul(y.reshape(4, 8, 8, 64).transpose(1, 2), s, t, mean, inv * 0 + 1, w)
+
+
+def test_tiny_bottleneck_f32_train_step_launches_the_f32_kernels(cuda):
+    """The f32 pallas level (JAX's test model, tests/test_fused_matmul.py:304)
+    takes a train step through K1f-K3f: every launch is the f32 variant's."""
+    from dss_ml_at_scale_tpu_torch.models import BottleneckBlock, seeded_resnet
+    from dss_ml_at_scale_tpu_torch.parallel import ClassifierTask
+
+    model = seeded_resnet(0, device="cuda", stage_sizes=[1, 1], block_cls=BottleneckBlock,
+                          num_classes=10, num_filters=8, dtype=torch.float32,
+                          fused_bn="pallas")
+    with torch.no_grad():  # a nonzero last-BN scale lets the gradient reach K2f/K3f
+        for name, p in model.named_parameters():
+            if name.endswith("bn3.weight"):
+                p.fill_(0.5)
+    task = ClassifierTask(model=model)
+    batch = {"image": torch.randn(8, 32, 32, 3, generator=cuda, device="cuda"),
+             "label": torch.randint(0, 10, (8,), generator=cuda, device="cuda")}
+    before = _launches()
+    metrics = task.train_step(batch)
+    torch.cuda.synchronize()
+    assert _launches() == tuple((a + 2, b + 2) for a, b in before)  # 2 blocks
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert model.layer1[0].conv3.weight.grad.abs().max() > 0
 
 
 def test_tiny_bottleneck_train_step_launches_all_three_kernels(cuda):

@@ -234,6 +234,42 @@ def test_group_apply_failure_isolation_and_executors(frame):
         ga.group_apply(table, "SKU", fn, executor="dask")
 
 
+def test_process_executor_demos_match_jax(frame):
+    """``hpo/objectives.py``'s group demos through the process executor:
+    each group runs in a worker process (its pid is not this one), and the
+    per-SKU means equal JAX's demo run through JAX's group_apply."""
+    import os
+
+    from dss_ml_at_scale_tpu.hpo import objectives as jax_objectives
+    from dss_ml_at_scale_tpu_torch.hpo import objectives
+
+    out = ga.group_apply(_arrow(frame), "SKU", objectives.group_pid_summary,
+                         executor="process", num_workers=2)
+    want = jax_ga.group_apply(frame, "SKU", jax_objectives.group_pid_summary,
+                              executor="inline")
+    assert sorted(out.column("SKU").to_pylist()) == sorted(want["SKU"]) == [
+        f"SKU{i}" for i in range(6)]
+    expected = dict(zip(want["SKU"], want["mean"]))
+    for sku, mean in zip(out.column("SKU").to_pylist(), out.column("mean").to_pylist()):
+        np.testing.assert_allclose(mean, expected[sku], rtol=1e-6)
+    assert os.getpid() not in out.column("pid").to_pylist(), "groups ran in-process"
+
+
+def test_process_executor_isolates_the_brittle_group_as_jax_does(frame):
+    from dss_ml_at_scale_tpu.hpo import objectives as jax_objectives
+    from dss_ml_at_scale_tpu_torch.hpo import objectives
+
+    table = _arrow(frame)
+    with pytest.raises(RuntimeError, match="group blew up"):
+        ga.group_apply(table, "SKU", objectives.brittle_group_head, executor="process")
+    out = ga.group_apply(table, "SKU", objectives.brittle_group_head, executor="process",
+                         on_error="skip")
+    want = jax_ga.group_apply(frame, "SKU", jax_objectives.brittle_group_head,
+                              executor="inline", on_error="skip")
+    assert sorted(out.column("SKU").to_pylist()) == sorted(want["SKU"]) == [
+        "SKU0", "SKU1", "SKU3", "SKU4", "SKU5"]
+
+
 def test_add_exo_variables_matches_jax(frame):
     df = frame.copy()
     df["Date"] = pd.date_range("2019-12-02", periods=len(df), freq="W-MON")

@@ -573,3 +573,141 @@ def test_workerpool_declares_its_contract_and_survives_drop_close():
         for t in ts:
             t.join()
         pool.close()
+
+
+# -- lint --changed: JAX's twins (tests/test_lint.py:574-707) ------------------
+
+
+def test_changed_paths_scope_the_scan(tmp_path):
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    (pkg / "a.py").write_text("def f(x):\n    print(x)\n")
+    (pkg / "b.py").write_text("def g(x):\n    print(x)\n")
+    roots = [("package", pkg)]
+    bl = tmp_path / "baseline.json"
+    assert len(run_lint(["no-print"], roots=roots, baseline_path=bl).findings) == 2
+    sub = run_lint(["no-print"], roots=roots, baseline_path=bl, paths=[pkg / "a.py"])
+    assert [f.path for f in sub.findings] == ["a.py"]
+
+
+def test_changed_ignores_files_outside_every_root(tmp_path):
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    foreign = tmp_path / "foreign.py"
+    foreign.write_text("print('not ours')\n")
+    res = run_lint(["no-print"], roots=[("package", pkg)],
+                   baseline_path=tmp_path / "baseline.json", paths=[foreign])
+    assert res.findings == []
+
+
+def test_changed_drops_full_scan_only_checkers(tmp_path):
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    (pkg / "a.py").write_text("def f(x):\n    return x\n")
+    res = run_lint(None, roots=[("package", pkg)], baseline_path=tmp_path / "baseline.json",
+                   paths=[pkg / "a.py"])
+    # The same rules skip as in JAX's --changed: the registry reconcilers.
+    from dss_ml_at_scale_tpu.analysis import core as jax_core
+
+    jax_core._load_plugins()
+    jax_full = {n for n, c in jax_core._CHECKERS.items() if c.full_scan_only}
+    skipped = set(checker_names()) - set(res.rules)
+    assert skipped == jax_full & set(checker_names()) == {
+        "bench-registry", "fault-sites", "slo-registry", "span-discipline",
+        "telemetry-registry"}
+    assert "no-print" in res.rules and res.findings == []
+
+
+def test_changed_explicit_full_scan_only_rule_is_a_usage_error(tmp_path):
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    (pkg / "a.py").write_text("def f(x):\n    return x\n")
+    with pytest.raises(LintUsageError, match="full registry"):
+        run_lint(["telemetry-registry", "no-print"], roots=[("package", pkg)],
+                 baseline_path=tmp_path / "baseline.json", paths=[pkg / "a.py"])
+
+
+def test_changed_does_not_stale_unscanned_baseline_entries(tmp_path):
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    (pkg / "a.py").write_text("def f(x):\n    print(x)\n")
+    (pkg / "b.py").write_text("def g(x):\n    return x\n")
+    roots = [("package", pkg)]
+    bl = tmp_path / "baseline.json"
+    write_baseline(bl, run_lint(["no-print"], roots=roots, baseline_path=bl).findings, {},
+                   "accepted for the fixture")
+    (pkg / "a.py").write_text("def f(x):\n    return x\n")
+    sub = run_lint(["no-print"], roots=roots, baseline_path=bl, paths=[pkg / "b.py"])
+    assert sub.findings == [] and sub.stale_baseline == []
+    assert len(run_lint(["no-print"], roots=roots, baseline_path=bl).stale_baseline) == 1
+
+
+def _git(cwd, *argv):
+    import subprocess
+
+    subprocess.run(["git", *argv], cwd=cwd, check=True, capture_output=True, text=True)
+
+
+def test_changed_files_in_a_git_repo_match_jax(tmp_path, monkeypatch):
+    """``_changed_python_files`` of both packages on one temporary git repo:
+    the files changed vs the ref plus the untracked ones, ``.py`` only, within
+    the scan roots, deleted ones dropped."""
+    from dss_ml_at_scale_tpu.analysis import core as jax_core
+    from dss_ml_at_scale_tpu.config import commands as jax_commands
+    from dss_ml_at_scale_tpu_torch.analysis import core
+    from dss_ml_at_scale_tpu_torch.config import analysis as port_analysis
+
+    repo, pkg = tmp_path / "repo", tmp_path / "repo" / "pkg"
+    (pkg / "sub").mkdir(parents=True)
+    for name in ("kept.py", "edited.py", "deleted.py", "sub/staged.py", "notes.md"):
+        (pkg / name).write_text("x = 1\n")
+    (repo / "outside.py").write_text("x = 1\n")
+    _git(repo, "init", "-q")
+    _git(repo, "add", "-A")
+    _git(repo, "-c", "user.name=t", "-c", "user.email=t@t", "commit", "-qm", "base")
+    (pkg / "edited.py").write_text("x = 2\n")
+    (pkg / "deleted.py").unlink()
+    (pkg / "sub" / "staged.py").write_text("x = 3\n")
+    _git(repo, "add", "pkg/sub/staged.py")
+    (pkg / "notes.md").write_text("changed, not python\n")
+    (pkg / "new.py").write_text("x = 4\n")
+    (repo / "outside.py").write_text("x = 5\n")
+    for mod in (core, jax_core):
+        monkeypatch.setattr(mod, "REPO_ROOT", repo)
+        monkeypatch.setattr(mod, "default_roots", lambda: [("package", pkg)])
+    got = port_analysis._changed_python_files("HEAD")
+    assert got == [pkg / "edited.py", pkg / "new.py", pkg / "sub" / "staged.py"]
+    assert got == jax_commands._changed_python_files("HEAD")
+    _git(repo, "add", "-A")
+    _git(repo, "-c", "user.name=t", "-c", "user.email=t@t", "commit", "-qm", "next")
+    assert port_analysis._changed_python_files("HEAD") == []
+    assert port_analysis._changed_python_files("HEAD~1") == [
+        pkg / "edited.py", pkg / "new.py", pkg / "sub" / "staged.py"]
+    with pytest.raises(LintUsageError, match="git diff"):
+        port_analysis._changed_python_files("no-such-ref")
+
+
+def test_cli_changed_rejects_update_baseline():
+    assert main(["lint", "--changed", "--update-baseline", "--reason", "nope"]) == 2
+
+
+def test_cli_changed_json_is_json_even_with_no_changes(monkeypatch, capsys):
+    from dss_ml_at_scale_tpu_torch.config import analysis as port_analysis
+
+    monkeypatch.setattr(port_analysis, "_changed_python_files", lambda ref: [])
+    assert main(["lint", "--changed", "--json"]) == 0
+    payload = json.loads(capsys.readouterr().out)
+    assert payload["counts"]["active"] == 0
+    assert main(["lint", "--changed"]) == 0
+    assert "nothing to lint" in capsys.readouterr().out
+
+
+def test_cli_changed_lints_only_the_changed_files(monkeypatch, capsys):
+    from dss_ml_at_scale_tpu_torch.analysis.core import PACKAGE_DIR
+    from dss_ml_at_scale_tpu_torch.config import analysis as port_analysis
+
+    one = PACKAGE_DIR / "ops" / "fused_matmul.py"
+    monkeypatch.setattr(port_analysis, "_changed_python_files", lambda ref: [one])
+    assert main(["lint", "--changed", "--json"]) == 0
+    payload = json.loads(capsys.readouterr().out)
+    assert "telemetry-registry" not in payload["rules"] and "no-print" in payload["rules"]

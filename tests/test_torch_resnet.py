@@ -6,7 +6,9 @@ same numpy images go into both models, in f32. Checked at every
 batch statistics at rtol 1e-5 (``tests/test_fused_matmul.py:308-312``),
 eval logits at the same tolerance, and every parameter gradient of a
 cross-entropy loss at a max-abs error under 5e-4 of the flax gradient's
-max-abs (``:385-407``). The last BN scale of every block is set nonzero in
+max-abs (``:385-407``). The pallas level runs in f32 here, the JAX
+model of those tests (``ResNet(dtype=float32, fused_bn="pallas")``), at
+aligned channels and at ragged ones that the op pads. The last BN scale of every block is set nonzero in
 both models first: at its zero init the gradient reaching the fused site is
 exactly zero and the backward would pass without being tested.
 """
@@ -39,6 +41,9 @@ GEOMETRIES = {
     "tiny-bottleneck": (JaxBottleneck, BottleneckBlock, [1, 1], 8, 32),
     "resnet50-2block": (JaxBottleneck, BottleneckBlock, [1, 1], 64, 32),
     "tiny-basic": (JaxBasic, ResNetBlock, [1, 1], 8, 32),
+    # 6 filters: the first pallas site's 6 channels are off the f32 kernels'
+    # 4-channel rows, so the op zero-pads K (JAX pads it to 128 lanes).
+    "ragged-bottleneck": (JaxBottleneck, BottleneckBlock, [1, 1], 6, 32),
 }
 LEVELS = (False, True, "pallas")
 NUM_CLASSES = 7
