@@ -16,8 +16,9 @@ seconds.
    the plain versions of the kernels must be full f32);
    builds every kernel of ``dss_ml_at_scale_tpu_torch/csrc`` with nvcc,
    one process per source, all at once; prints the build time, each
-   kernel's registers, spills and static shared memory from ptxas, and the
-   dynamic shared memory of K4 and K1.
+   kernel's registers, spills and static shared memory from ptxas (and its
+   C75xx performance notes, such as serialized wgmmas), the dynamic shared
+   memory of K4 and K1, and K4's wide and f32 layouts.
 2. kernels: the flash attention kernel (K4) against its plain version on the
    card, in bf16, at the serving shapes (b=1, h=8, d=128, causal, seq 128,
    512, 1024), the LM training shape (causal b8 h8 s2048 d128) plus a
@@ -25,16 +26,24 @@ seconds.
    command's default head dim), and heads the kernel has no tile for,
    zero-padded to 32 (d8 and d16 at b1 h4 s24 and s128, and d8 at the
    full_stack pipeline's lm shape, b8 h4 s24), and heads above 128 (the
-   wide kernels: d192, zero-padded to 256, d256 and d512, causal and not,
-   at b1 h8 s2048 in bf16 and in f32, and d256 at the training shape b8 h8
-   s2048); atol 2e-2, and a mean error under one bf16 spacing of the mean
-   output. The f32 cases (d128 causal b1 h8 s512 and the wide ones) hold
-   the kernel's f32 variant, which serving does not take, to atol 2e-5. Median times (CUDA events) of the kernel, the plain version and
+   wide kernels: d192, d256, d320 and d512, causal and not, at b1 h8 s2048
+   in bf16 and in f32, and d256 at the training shape b8 h8 s2048); atol
+   2e-2, and a mean error under one bf16 spacing of the mean output. The
+   f32 cases (d32, d64 and d128 causal b1 h8 s512, the LM training shape
+   b8 h8 s2048 d128, and the wide ones) hold the f32 kernel to atol 2e-5.
+   Median times (CUDA events) of the kernel, the plain version and
    ``scaled_dot_product_attention`` (the library yardstick, never called
    by the port), beside the least time the card could take. At the three
    serving buckets also the kernel with and without its key-split plan
    (``split_ms``, ``nosplit_ms``), both held to the same limits, and the
    split output checked bit for bit from run to run.
+2a. wide-lm: the head-256 LM of ``lm --dim 1024 --heads 4``
+   (``TransformerLM`` vocab 8192, dim 1024, 4 heads, 4 layers, seeded), one
+   causal forward through ``attention="flash"`` against
+   ``attention="reference"`` with the same weights: bf16 at batch 8, seq
+   2048, logits within 2e-2 of max-abs and 4 launches of the bf16 wide
+   kernel (``launches_wide``); f32 at batch 8, seq 512, within 2e-5 and 4
+   launches of the f32 kernel (``launches_f32``).
 3. fused-matmul kernels: K1 (BN-apply + ReLU + 1x1 conv forward), K2 (its
    masked input gradient with the BN channel sums) and K3 (its weight
    gradient) against their plain versions, in bf16, at the four ResNet-50
@@ -473,8 +482,12 @@ def kernel_phase(torch, F) -> list[dict]:
         ("causal b1 h8 s1024 d32", 1, 8, 1024, 1024, 32, True, bf16),
         # The LM training shape.
         ("causal b8 h8 s2048 d128", 8, 8, 2048, 2048, 128, True, bf16),
-        # The f32 kernel: off the serving path, held to the f32 contract.
+        # The f32 kernel: off the serving path, held to the f32 contract;
+        # at the LM training shape too.
         ("f32 causal b1 h8 s512 d128", 1, 8, 512, 512, 128, True, f32),
+        ("f32 causal b1 h8 s512 d64", 1, 8, 512, 512, 64, True, f32),
+        ("f32 causal b1 h8 s512 d32", 1, 8, 512, 512, 32, True, f32),
+        ("f32 causal b8 h8 s2048 d128", 8, 8, 2048, 2048, 128, True, f32),
         # Heads the kernel has no tile for, zero-padded to 32: d8 is the
         # full_stack pipeline's lm (--dim 32 --heads 4), at its shape last.
         ("causal b1 h4 s24 d8", 1, 4, 24, 24, 8, True, bf16),
@@ -482,10 +495,10 @@ def kernel_phase(torch, F) -> list[dict]:
         ("causal b1 h4 s24 d16", 1, 4, 24, 24, 16, True, bf16),
         ("causal b1 h4 s128 d16", 1, 4, 128, 128, 16, True, bf16),
         ("causal b8 h4 s24 d8", 8, 4, 24, 24, 8, True, bf16),
-        # Heads above 128 (the wide kernels, 192 zero-padded to 256), causal
-        # and not, in both dtypes; d256 also at the LM training shape.
+        # Heads above 128 (the wide kernels; 320 in slices of 256 and 64),
+        # causal and not, in both dtypes; d256 also at the LM training shape.
         *((f"{dn}causal b1 h8 s2048 d{d}", 1, 8, 2048, 2048, d, causal, dtype)
-          for dtype, dn_dtype in ((bf16, ""), (f32, "f32 ")) for d in (192, 256, 512)
+          for dtype, dn_dtype in ((bf16, ""), (f32, "f32 ")) for d in (192, 256, 320, 512)
           for causal, dn in ((True, dn_dtype), (False, dn_dtype + "non-"))),
         ("causal b8 h8 s2048 d256", 8, 8, 2048, 2048, 256, True, bf16),
         # A wide head few enough to take the key-split plan per column slice.
@@ -540,20 +553,18 @@ def kernel_phase(torch, F) -> list[dict]:
             check(werr.max().item() <= atol, f"{name}: unsplit max abs err {werr.max().item()}")
             check(werr.mean().item() / ref.float().abs().mean().item() <= MEAN_REL,
                   f"{name}: unsplit mean abs err over the limit")
-            plan = fa.split_plan(b * h * fa.column_slices(fa.padded_head_dim(d)), sq, sk,
-                                 causal, SM_COUNT)
+            d_pad = fa.padded_head_dim(d)
+            plan = fa.split_plan(b * h * fa.launch_slices(d_pad), sq, sk, causal, SM_COUNT,
+                                 **fa.plan_tiling(d_pad))
             row["split_items"] = None if plan is None else len(plan[0])
             row["split_ms"] = device_ms(lambda: fa._launch(q, k, v, causal, split=True))
             row["nosplit_ms"] = device_ms(lambda: fa._launch(q, k, v, causal, split=False))
-        # The f32 wide kernels take 10-60 ms a call: fewer launches time them.
-        n = 3 if dtype == f32 and d > 128 else 20
         row.update({
-            "ms": device_ms(lambda: flash_attention(q, k, v, causal=causal), n),
-            "plain_ms": device_ms(
-                lambda: attention_reference(q, k, v, causal=causal), n),
+            "ms": device_ms(lambda: flash_attention(q, k, v, causal=causal)),
+            "plain_ms": device_ms(lambda: attention_reference(q, k, v, causal=causal)),
             "library_ms": device_ms(
                 lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, is_causal=is_causal), n),
+                    q, k, v, attn_mask=mask, is_causal=is_causal)),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         })
@@ -562,6 +573,75 @@ def kernel_phase(torch, F) -> list[dict]:
         del q, k, v, out, ref, diff
         torch.cuda.empty_cache()
     return rows
+
+
+# The head-256 LM of `lm --dim 1024 --heads 4`: the bf16 wide kernel on a
+# CLI path; and the same model in f32 through the API.
+WIDE_LM = dict(vocab_size=8192, dim=1024, num_heads=4, num_layers=4, max_seq=2048)
+WIDE_LM_CASES = (("bfloat16", 8, 2048, PARITY_LOGITS), ("float32", 8, 512, ATOL_F32))
+
+
+def wide_lm_phase(torch) -> dict:
+    """One causal forward of the head-256 LM through the flash kernel and
+    through the reference attention, the same seeded weights, per dtype:
+    logits within the dtype's bar of max-abs, and 4 launches (one a layer)
+    of the bf16 wide kernel or of the f32 kernel."""
+    from dss_ml_at_scale_tpu_torch.models import seeded_lm
+    from dss_ml_at_scale_tpu_torch.ops.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for name, batch, seq, tol in WIDE_LM_CASES:
+        tokens = torch.randint(0, WIDE_LM["vocab_size"], (batch, seq), generator=gen,
+                               device="cuda")
+        flash_attention.launches = flash_attention.launches_wide = 0
+        flash_attention.launches_f32 = 0
+        logits = {}
+        for attention in ("flash", "reference"):  # one model at a time
+            model = seeded_lm(0, device="cuda", attention=attention,
+                              dtype=getattr(torch, name), **WIDE_LM)
+            with torch.inference_mode():
+                logits[attention] = model(tokens).float()
+            del model
+        torch.cuda.synchronize()
+        counts = {"launches": flash_attention.launches,
+                  "launches_wide": flash_attention.launches_wide,
+                  "launches_f32": flash_attention.launches_f32}
+        layers = WIDE_LM["num_layers"]
+        want = {"launches": layers, "launches_wide": layers if name == "bfloat16" else 0,
+                "launches_f32": layers if name == "float32" else 0}
+        check(counts == want, f"wide-lm {name}: launches {counts}, want {want}")
+        check(bool(torch.isfinite(logits["flash"]).all()), f"wide-lm {name}: non-finite logits")
+        err = _rel(logits["flash"], logits["reference"])
+        check(err <= tol, f"wide-lm {name}: logits differ by {err} of max-abs > {tol}")
+        out[name] = {"shape": f"b{batch} s{seq} head 256", "logits_rel_err": err, "tol": tol,
+                     **counts}
+        del logits, tokens
+        torch.cuda.empty_cache()
+    return out
+
+
+def k4_variants(cases: list[dict], wide_lm: dict) -> dict:
+    """K4's wide and f32 kernels for the kernels line: launches from the
+    head-256 LM check, times at causal b1 h8 s2048 d256, the largest error
+    over the cases each took."""
+    def entry(kernel: str, shape: str, launches: int, picked) -> dict:
+        case = next(c for c in cases if c["shape"] == shape)
+        return {"kernel": kernel, "launches": launches,
+                **{x: case[x] for x in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+                "max_abs_err": max(c["max_abs_err"] for c in cases if picked(c))}
+
+    def head_dim(c: dict) -> int:
+        return int(c["shape"].rsplit("d", 1)[-1])
+
+    return {
+        "wide": entry("flash_fwd_bf16_wide_kernel, flash_fwd_bf16_wide_lockstep_kernel",
+                      "causal b1 h8 s2048 d256", wide_lm["bfloat16"]["launches_wide"],
+                      lambda c: c["dtype"] == "bfloat16" and head_dim(c) > 128),
+        "f32": entry("flash_fwd_f32_kernel", "f32 causal b1 h8 s2048 d256",
+                     wide_lm["float32"]["launches_f32"], lambda c: c["dtype"] == "float32"),
+    }
 
 
 def _bound(nbytes: float, flops: float, dtype: str = "bfloat16") -> tuple[float, str]:
@@ -4776,7 +4856,7 @@ def main() -> int:
           flush=True)
     for name in built:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "Compiling entry" in line or "spill" in line:
+            if any(x in line for x in ("registers", "Compiling entry", "spill", "(C75")):
                 print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}", flush=True)
     global SM_COUNT
     SM_COUNT = torch.cuda.get_device_properties(0).multi_processor_count
@@ -4786,8 +4866,18 @@ def main() -> int:
 
     fa = importlib.import_module("dss_ml_at_scale_tpu_torch.ops.flash_attention")
     k4, k1 = fa._kernel(), fm._kernel()
+    import ctypes
+
+    lay = (ctypes.c_int * 4)()
+    for d, dv in ((192, 192), (256, 256), (320, 256), (320, 64), (512, 256)):
+        b = k4.dsst_flash_attention_wide_layout(d, dv, lay)
+        print(f"K4 wide d{d} slice {dv}: {b} B (Q resident, K slots, V stages, tile held: "
+              f"{list(lay)})", flush=True)
+    for d, dv in ((32, 32), (128, 128), (256, 256), (512, 256)):
+        b = k4.dsst_flash_attention_f32_smem_bytes(d, dv, lay)
+        print(f"K4 f32 d{d} slice {dv}: {b} B (Q resident {lay[0]})", flush=True)
     print(f"dynamic shared memory per CTA: K4 d128 {k4.dsst_flash_attention_smem_bytes(128)} B "
-          f"(d > 128 {k4.dsst_flash_attention_smem_bytes(256)} B), "
+          f"(d256 {k4.dsst_flash_attention_smem_bytes(256)} B), "
           f"K1 K512 {k1.dsst_bn_relu_matmul_fwd_smem_bytes(512, 0)} B "
           f"(+res {k1.dsst_bn_relu_matmul_fwd_smem_bytes(512, 1)} B), "
           f"K2 64/128 channels {[k1.dsst_bn_relu_matmul_bwd_da_smem_bytes(b, 0) for b in (64, 128)]} B "
@@ -4799,6 +4889,9 @@ def main() -> int:
     lap("build")
     cases = kernel_phase(torch, F)
     lap("kernels")
+    wide_lm = wide_lm_phase(torch)
+    print(f"wide-lm ({kind}; {card}): " + json.dumps(wide_lm), flush=True)
+    lap("wide-lm")
     fused = fused_kernel_phase(torch)
     lap("fused kernels")
     fused_f32 = fused_f32_kernel_phase(torch)
@@ -4922,6 +5015,7 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "shape": head["shape"],
+        **k4_variants(cases, wide_lm),
         "cases": cases,
     }]
     sources = (("K1", "bn_relu_matmul_fwd", ":113"), ("K2", "bn_relu_matmul_bwd_da", ":128"),

@@ -12,7 +12,11 @@ tensor (bf16 on the tensor cores, f32 on the CUDA cores) or raises. It takes
 the plain version, :func:`attention_reference`, only for a tensor on the
 CPU, which is where the tests run it. The block sizes are the TPU kernel's
 tiling and are checked for the contract only: the CUDA kernel tiles by its
-own 64 x 64 and masks ragged edges itself.
+own 64 x 64 (128 query rows a CTA above head_dim 128) and masks ragged
+edges itself. Three kernels sit behind the one call, and each counts its
+launches beside ``launches`` (which counts them all): bf16 up to head_dim
+128, bf16 above (``launches_wide``), and f32 at every width
+(``launches_f32``).
 
 The gradient is the JAX function's custom VJP (``_flash_bwd``): the forward
 saves ``(q, k, v)`` and the backward recomputes attention in query chunks of
@@ -40,10 +44,12 @@ import torch
 _NEG_INF = -1e30  # finite "minus infinity": avoids inf-inf NaNs in masking
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _KERNEL_HEAD_DIMS = (32, 64, 128)  # the kernel's tiles; narrower heads are zero-padded
-_SLICE = 128  # output columns of a wide-head CTA: wider heads pad to a multiple
-_MAX_GRID_Y = 65535  # the f32 kernel puts batch*heads on grid.y (and slices on grid.z)
+_WIDE_PAD = 64  # above 128, heads pad to a multiple of this
+_SLICE = 256  # output columns of a CTA at most: wider heads are taken in slices
+_MAX_GRID_Y = 65535  # a grid's y and z limit (column slices ride grid.z); batch*heads too
 _Q_TILE, _K_TILE = 64, 64  # query rows of a bf16 kernel CTA; keys of a key tile
 _CTAS_PER_SM = 2  # bf16 kernel CTAs resident on one SM (shared memory bounds it)
+_WIDE_Q_TILE, _WIDE_CTAS_PER_SM = 128, 1  # the same above head_dim 128
 _MIN_PIECE = 2  # key tiles per split piece at least: shorter ones lose to the combine
 # A query tile of at most this many key tiles is not split: the combine pass
 # and the f32 partials cost more than the shorter chain saves. On an H100 the
@@ -90,7 +96,8 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
     devices or dtypes, a dtype other than bf16/f32, an empty head, k and v
     of different shapes, non-contiguous or misaligned storage, or more than
     65535 batch*heads. Every head_dim from 1 up is taken, as the JAX
-    function takes it: :func:`_launch` pads it to :func:`padded_head_dim`."""
+    function takes it: :func:`_launch` pads it to :func:`padded_head_dim`
+    and takes it in :func:`column_slices`."""
     if not (q.device == k.device == v.device):
         raise ValueError(
             f"q, k, v on different devices: {q.device}, {k.device}, {v.device}"
@@ -101,7 +108,7 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
         raise ValueError(f"flash kernel takes bfloat16 or float32, got {q.dtype}")
     if q.shape[-1] < 1:
         raise ValueError(f"flash kernel needs head_dim >= 1, got {q.shape[-1]}")
-    if padded_head_dim(q.shape[-1]) // _SLICE > _MAX_GRID_Y:
+    if column_slices(padded_head_dim(q.shape[-1])) > _MAX_GRID_Y:
         raise ValueError(f"head_dim {q.shape[-1]} needs more than {_MAX_GRID_Y} column slices")
     if k.shape != v.shape or k.shape[:2] + k.shape[3:] != q.shape[:2] + q.shape[3:]:
         raise ValueError(
@@ -119,18 +126,19 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
         )
 
 
-def visible_key_tiles(sq: int, sk: int, causal: bool) -> list[int]:
-    """Key tiles of 64 that each 64-row query tile of the bf16 kernel
-    walks: all of them, or with the causal mask those up to the tile's last
-    row's last visible key (fully masked tiles are skipped)."""
+def visible_key_tiles(sq: int, sk: int, causal: bool, q_tile: int = _Q_TILE) -> list[int]:
+    """Key tiles of 64 that each query tile of ``q_tile`` rows of the bf16
+    kernel walks: all of them, or with the causal mask those up to the
+    tile's last row's last visible key (fully masked tiles are skipped)."""
     n_kt = -(-sk // _K_TILE)
     if not causal:
-        return [n_kt] * -(-sq // _Q_TILE)
-    return [min(n_kt, (min(q0 + _Q_TILE, sq) - 1 + sk - sq) // _K_TILE + 1)
-            for q0 in range(0, sq, _Q_TILE)]
+        return [n_kt] * -(-sq // q_tile)
+    return [min(n_kt, (min(q0 + q_tile, sq) - 1 + sk - sq) // _K_TILE + 1)
+            for q0 in range(0, sq, q_tile)]
 
 
-def split_plan(bh: int, sq: int, sk: int, causal: bool, sm_count: int):
+def split_plan(bh: int, sq: int, sk: int, causal: bool, sm_count: int,
+               q_tile: int = _Q_TILE, ctas_per_sm: int = _CTAS_PER_SM, one_wave: bool = True):
     """How the bf16 kernel splits key ranges, or ``None`` for no split.
 
     One CTA per (head, query tile) leaves SMs idle when ``bh`` times the
@@ -139,8 +147,14 @@ def split_plan(bh: int, sq: int, sk: int, causal: bool, sm_count: int):
     ``_MAX_UNSPLIT`` key tiles, the plan cuts each tile's visible key range
     into pieces of at most ``chunk`` key tiles (sizes differing by at most
     one), with ``chunk`` the least, and at least ``_MIN_PIECE``, whose
-    pieces of all heads still run in one wave of ``_CTAS_PER_SM`` CTAs per
-    SM. No split when no tile is longer than ``chunk``.
+    pieces of all heads still run in one wave of ``ctas_per_sm`` CTAs per
+    SM. No split when no tile is longer than ``chunk``. Query tiles are of
+    ``q_tile`` rows: 64, or above head_dim 128 the wide kernel's 128 with
+    one CTA an SM (:func:`wide_combine` then gives the combine's entries).
+    ``one_wave=False`` (the wide kernels): ``chunk`` is the mean load of a
+    CTA slot instead, its pieces run in as many waves as they take, longest
+    first; at one CTA an SM the unsplit grid is already one wave, and a
+    causal launch would last twice that mean.
 
     Returns ``(items, combine, n_slots)``: ``items`` are the work items
     ``(qt, kt_begin, kt_end, slot)`` in launch order, longest first
@@ -149,13 +163,16 @@ def split_plan(bh: int, sq: int, sk: int, causal: bool, sm_count: int):
     ``(qt, first_slot, pieces)`` for each split tile, whose slots are
     consecutive and combined in slot order.
     """
-    tiles = visible_key_tiles(sq, sk, causal)
+    tiles = visible_key_tiles(sq, sk, causal, q_tile)
     if bh * len(tiles) >= sm_count or max(tiles) <= _MAX_UNSPLIT:
         return None
-    chunk = _MIN_PIECE
-    slots = _CTAS_PER_SM * sm_count
-    while chunk < max(tiles) and bh * sum(-(-n // chunk) for n in tiles) > slots:
-        chunk += 1
+    slots = ctas_per_sm * sm_count
+    if one_wave:
+        chunk = _MIN_PIECE
+        while chunk < max(tiles) and bh * sum(-(-n // chunk) for n in tiles) > slots:
+            chunk += 1
+    else:
+        chunk = max(_MIN_PIECE, -(-bh * sum(tiles) // slots))
     if max(tiles) <= chunk:
         return None
     items, combine, n_slots = [], [], 0
@@ -176,27 +193,30 @@ def split_plan(bh: int, sq: int, sk: int, causal: bool, sm_count: int):
     return items, combine, n_slots
 
 
-def work_items(bh: int, sq: int, sk: int, causal: bool, sm_count: int):
+def work_items(bh: int, sq: int, sk: int, causal: bool, sm_count: int,
+               q_tile: int = _Q_TILE, ctas_per_sm: int = _CTAS_PER_SM, one_wave: bool = True):
     """The bf16 kernel's work items per head in launch order, as
     ``(qt, kt_begin, kt_end, slot)``: the split plan's, or without one each
     query tile whole, longest first (the kernel's own mapping)."""
-    plan = split_plan(bh, sq, sk, causal, sm_count)
+    plan = split_plan(bh, sq, sk, causal, sm_count, q_tile, ctas_per_sm, one_wave)
     if plan is not None:
         return plan[0]
-    tiles = visible_key_tiles(sq, sk, causal)
+    tiles = visible_key_tiles(sq, sk, causal, q_tile)
     order = range(len(tiles) - 1, -1, -1) if causal else range(len(tiles))
     return [(qt, 0, tiles[qt], -1) for qt in order]
 
 
-def split_attention_reference(q, k, v, *, causal: bool = False, plan) -> torch.Tensor:
+def split_attention_reference(q, k, v, *, causal: bool = False, plan,
+                              q_tile: int = _Q_TILE) -> torch.Tensor:
     """Plain version of the bf16 kernel's split and combine, in f32.
 
-    Each work item of ``plan`` (from :func:`split_plan`) takes softmax over
-    its own key tiles: its output, normalized, and its log-sum-exp. A tile
-    split in pieces combines them in slot order, each weighted by
-    ``exp(lse - max lse)``. A row that sees no key of a piece (the causal
-    diagonal) gets that piece's -1e30 scores at weight 1, as in the
-    kernel; its log-sum-exp is then about -1e30 and its weight 0.
+    Each work item of ``plan`` (from :func:`split_plan` at ``q_tile``) takes
+    softmax over its own key tiles: its output, normalized, and its
+    log-sum-exp. A tile split in pieces combines them in slot order, each
+    weighted by ``exp(lse - max lse)``. A row that sees no key of a piece
+    (the causal diagonal; in a 128-row tile, the first 64 rows' last key
+    tile) gets that piece's -1e30 scores at weight 1, as in the kernel; its
+    log-sum-exp is then about -1e30 and its weight 0.
     """
     items, combine, _ = plan
     sq, sk = q.shape[-2], k.shape[-2]
@@ -205,7 +225,7 @@ def split_attention_reference(q, k, v, *, causal: bool = False, plan) -> torch.T
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     parts = {}
     for qt, kb, ke, slot in items:
-        r0, r1 = qt * _Q_TILE, min(qt * _Q_TILE + _Q_TILE, sq)
+        r0, r1 = qt * q_tile, min(qt * q_tile + q_tile, sq)
         c0, c1 = kb * _K_TILE, min(ke * _K_TILE, sk)
         s = torch.matmul(qf[..., r0:r1, :], kf[..., c0:c1, :].transpose(-1, -2)) * scale
         if causal:
@@ -221,12 +241,29 @@ def split_attention_reference(q, k, v, *, causal: bool = False, plan) -> torch.T
         else:
             parts[slot] = (o, m + torch.log(l))
     for qt, first, pieces in combine:
-        r0, r1 = qt * _Q_TILE, min(qt * _Q_TILE + _Q_TILE, sq)
+        r0, r1 = qt * q_tile, min(qt * q_tile + q_tile, sq)
         lse = torch.stack([parts[first + i][1] for i in range(pieces)])
         w = torch.exp(lse - lse.amax(0))
         acc = sum(w[i] * parts[first + i][0] for i in range(pieces))
         out[..., r0:r1, :] = acc / w.sum(0)
     return out.to(q.dtype)
+
+
+def plan_tiling(d_pad: int) -> dict:
+    """:func:`split_plan`'s tiling for the bf16 kernel that takes the
+    padded head ``d_pad``: 64-row tiles, two CTAs an SM, one wave up to 128;
+    above, the wide kernels' 128-row tiles, one CTA an SM, balanced."""
+    if d_pad > _KERNEL_HEAD_DIMS[-1]:
+        return {"q_tile": _WIDE_Q_TILE, "ctas_per_sm": _WIDE_CTAS_PER_SM, "one_wave": False}
+    return {"q_tile": _Q_TILE, "ctas_per_sm": _CTAS_PER_SM, "one_wave": True}
+
+
+def wide_combine(combine, n_slots: int) -> list[tuple[int, int, int]]:
+    """The wide kernel's combine entries, in 64-row query tiles: consumer
+    warpgroup ``w`` of 128-row tile ``qt`` is tile ``2 qt + w``, and writes
+    slot ``w * n_slots + slot`` of the ``2 * n_slots`` partial slots."""
+    return [(2 * qt + w, w * n_slots + first, pieces)
+            for qt, first, pieces in combine for w in (0, 1)]
 
 
 def _kernel():
@@ -241,21 +278,29 @@ def _kernel():
         fn.restype = ctypes.c_int
         lib.dsst_flash_attention_smem_bytes.argtypes = [i]
         lib.dsst_flash_attention_smem_bytes.restype = i
+        for name in ("dsst_flash_attention_wide_layout", "dsst_flash_attention_f32_smem_bytes"):
+            getattr(lib, name).argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+            getattr(lib, name).restype = i
         _lib = lib
     return _lib
 
 
-def _device_plan(bh, sq, sk, causal, device):
+def _device_plan(bh, sq, sk, causal, device, d_pad: int):
     """The split plan on the device, made once per shape and device:
-    ``(items, combine, n_items, n_combine, n_slots)``, or ``None``."""
-    key = (bh, sq, sk, causal, device)
+    ``(items, combine, n_items, n_combine, n_slots)``, or ``None``; above
+    head_dim 128 the wide kernels' (:func:`plan_tiling`; the combine in
+    64-row tiles)."""
+    wide = d_pad > _KERNEL_HEAD_DIMS[-1]
+    key = (bh, sq, sk, causal, device, wide)
     with _plans_lock:
         if key in _plans:
             return _plans[key]
     sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-    plan = split_plan(bh, sq, sk, causal, sm_count)
+    plan = split_plan(bh, sq, sk, causal, sm_count, **plan_tiling(d_pad))
     if plan is not None:
         items, combine, n_slots = plan
+        if wide:
+            combine = wide_combine(combine, n_slots)
         plan = (torch.tensor(items, dtype=torch.int32, device=device),
                 torch.tensor([c + (0,) for c in combine], dtype=torch.int32, device=device),
                 len(items), len(combine), n_slots)
@@ -268,17 +313,26 @@ def _device_plan(bh, sq, sk, causal, device):
 
 def padded_head_dim(d: int) -> int:
     """The kernel's head_dim for a head of ``d``: the least of 32, 64 and
-    128 that holds it, or above 128 the least multiple of 128 (the wide
-    kernels' column slices)."""
+    128 that holds it, or above 128 the least multiple of 64 (192 and 320
+    run as they are, 160 at 192)."""
     if d > _KERNEL_HEAD_DIMS[-1]:
-        return -(-d // _SLICE) * _SLICE
+        return -(-d // _WIDE_PAD) * _WIDE_PAD
     return next(w for w in _KERNEL_HEAD_DIMS if w >= d)
 
 
 def column_slices(d_pad: int) -> int:
-    """Column slices of 128 a CTA of the kernel takes at the padded head
-    ``d_pad``: 1 up to 128, ``d_pad / 128`` above (the wide kernels)."""
-    return 1 if d_pad <= _KERNEL_HEAD_DIMS[-1] else d_pad // _SLICE
+    """CTAs per query tile at the padded head ``d_pad``, each a slice of
+    the output columns: 1 up to 256, above that slices of 256 and one of
+    the rest (d320: 256 + 64). Each slice computes the tile's scores."""
+    return 1 if d_pad <= _SLICE else -(-d_pad // _SLICE)
+
+
+def launch_slices(d_pad: int) -> int:
+    """Column slices whose CTAs share one launch at the padded head
+    ``d_pad``, what the split plan counts as heads: the wide kernels launch
+    their slices of 256 together and the last one of the rest on its own
+    (d320: 256, then 64), so 1 up to 511 and ``d_pad // 256`` above."""
+    return max(1, d_pad // _SLICE)
 
 
 def _launch(q, k, v, causal: bool, split: bool = True) -> torch.Tensor:
@@ -289,28 +343,29 @@ def _launch(q, k, v, causal: bool, split: bool = True) -> torch.Tensor:
     :func:`padded_head_dim` and the output sliced back: zero columns leave
     ``q @ k.T`` as it is and give zero output columns. The scale stays
     ``1/sqrt(d)`` of the true ``d``, passed to the kernel. Above 128 the
-    kernel takes the head in :func:`column_slices` of 128, each CTA one
-    slice of the output; the split plan counts the slices' CTAs as heads,
-    and its partials are kept per (head, slice)."""
+    kernel takes the head in :func:`column_slices`, each CTA one slice of
+    the output; the bf16 split plan counts the CTAs of one launch's slices
+    (:func:`launch_slices`) as heads, and its partials are kept per (head,
+    64-column block, consumer's slot).
+    The f32 kernel takes no plan."""
     check_kernel_inputs(q, k, v)
     d_true = q.shape[-1]
     d_pad = padded_head_dim(d_true)
     if d_pad != d_true:
         q, k, v = (torch.nn.functional.pad(t, (0, d_pad - d_true)) for t in (q, k, v))
     b, h, sq, d = q.shape
-    slices = column_slices(d)
+    bf16, wide = q.dtype == torch.bfloat16, d > _KERNEL_HEAD_DIMS[-1]
     out = torch.empty_like(q)
     lib = _kernel()
     plan = None
-    if split and q.dtype == torch.bfloat16:
-        plan = _device_plan(b * h * slices, sq, k.shape[2], causal, q.device)
+    if split and bf16:
+        plan = _device_plan(b * h * launch_slices(d), sq, k.shape[2], causal, q.device, d)
     args = (None, 0, None, 0, None, None, 0)  # no split
     if plan is not None:
         items, combine, n_items, n_combine, n_slots = plan
-        part_o = torch.empty((b * h * slices, n_slots, _Q_TILE, d // slices),
-                             dtype=torch.float32, device=q.device)
-        part_lse = torch.empty((b * h * slices, n_slots, _Q_TILE), dtype=torch.float32,
-                               device=q.device)
+        shape = (b * h, d // 64, 2 * n_slots, _Q_TILE) if wide else (b * h, n_slots, _Q_TILE)
+        part_o = torch.empty(shape + (64 if wide else d,), dtype=torch.float32, device=q.device)
+        part_lse = torch.empty(shape, dtype=torch.float32, device=q.device)
         args = (items.data_ptr(), n_items, combine.data_ptr(), n_combine,
                 part_o.data_ptr(), part_lse.data_ptr(), n_slots)
     with torch.cuda.device(q.device):
@@ -318,11 +373,15 @@ def _launch(q, k, v, causal: bool, split: bool = True) -> torch.Tensor:
         rc = lib.dsst_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b * h, sq, k.shape[2], d, int(causal),
-            int(q.dtype == torch.bfloat16), *args, stream, 1.0 / math.sqrt(d_true),
+            int(bf16), *args, stream, 1.0 / math.sqrt(d_true),
         )
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")
     flash_attention.launches += 1
+    if not bf16:
+        flash_attention.launches_f32 += 1
+    elif wide:
+        flash_attention.launches_wide += 1
     return out if d_pad == d_true else out[..., :d_true].contiguous()
 
 
@@ -405,7 +464,9 @@ def flash_attention(
     bf16 or f32 in, the same dtype out, f32 softmax statistics;
     differentiable (the backward recomputes in chunks of ``block_q`` rows).
     A CUDA tensor goes through the hand-written kernel (``launches`` counts
-    each launch); a CPU tensor through :func:`attention_reference`.
+    each launch, ``launches_wide`` those of the bf16 kernel above head_dim
+    128, ``launches_f32`` those of the f32 kernel); a CPU tensor through
+    :func:`attention_reference`.
     """
     if q.ndim != 4:
         raise ValueError(f"expected [batch, heads, seq, head_dim], got {tuple(q.shape)}")
@@ -428,3 +489,5 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.launches_wide = 0
+flash_attention.launches_f32 = 0

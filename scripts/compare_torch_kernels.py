@@ -45,9 +45,19 @@ One JSON line per shape; all of them to ``--out`` (default
 
 ``--flash`` compares K4 instead: this tree's ``flash_attention.cu`` against
 the earlier one in ``--old`` (with the ``hopper.cuh`` it includes beside
-it; the C interface must be this tree's), at every bf16 head dim both
-builds take, causal, at the serving shapes and the LM training shape: the
-outputs bit for bit, and the times in turns (old, new, new, old).
+it; the C interface must be this tree's up to head_dim 128), at every bf16
+head dim up to 128 both builds take, causal, at the serving shapes and the
+LM training shape: the outputs bit for bit, and the times in turns (old,
+new, new, old). Then the wide heads in bf16 and the f32 kernel
+(``FLASH_REDESIGNED``), whose designs differ: each build against the plain
+version (bf16 atol 2e-2, f32 2e-5) and the times in turns; the earlier
+build takes its own padding there (a multiple of 128 above 128) and no
+split plan (it had none at these shapes). Beside them, builds of this
+tree's source with one decision changed (``FLASH_VARIANTS``, their ptxas
+spill lines printed): 256-column slices on the warp-specialized kernel
+(three warpgroups), with and without setmaxnreg; 192-column slices on the
+lockstep kernel; the lockstep kernel with its second barrier a tile (K
+freed after Q·Kᵀ); the f32 kernel at two CTAs an SM at every width.
 
     git show <rev>:dss_ml_at_scale_tpu_torch/csrc/flash_attention.cu > build/old/flash_attention.cu
     git show <rev>:dss_ml_at_scale_tpu_torch/csrc/hopper.cuh > build/old/hopper.cuh
@@ -183,6 +193,88 @@ FLASH_SHAPES = ((1, 8, 128, 128), (1, 8, 512, 128), (1, 8, 1024, 128), (1, 8, 51
                 (8, 8, 2048, 128), (8, 8, 2048, 64))
 
 
+# Builds of this tree's flash_attention.cu with one decision changed.
+_WS = ("{ return dv > 192; }", "{ return dv > 256; }")
+FLASH_VARIANTS = {
+    "wide256_warp_specialized": (_WS,),
+    "wide256_setmaxnreg": (_WS, (
+        "    const int pt = threadIdx.x - 2 * kThreads;",
+        '    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\\n");\n'
+        "    const int pt = threadIdx.x - 2 * kThreads;"), (
+        "  const int wi = threadIdx.x / kThreads;\n  const int lane = threadIdx.x % 32;",
+        '  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\\n");\n'
+        "  const int wi = threadIdx.x / kThreads;\n  const int lane = threadIdx.x % 32;")),
+    "wide192_lockstep": (("{ return dv > 192; }", "{ return dv > 128; }"),),
+    "lockstep_two_barriers": (("const bool late = hold && rk >= 2 * nc;",
+                               "const bool late = false;"),),
+    "f32_two_ctas": (("__launch_bounds__(kF32Threads, DV > 128 ? 1 : 2)",
+                      "__launch_bounds__(kF32Threads, 2)"),),
+}
+
+
+def build_flash_variants(old: Path) -> dict[str, ctypes.CDLL]:
+    """Each of FLASH_VARIANTS built beside the old source with this tree's
+    flags; their ptxas lines of spilling wide or f32 kernels printed."""
+    import re
+
+    from dss_ml_at_scale_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    # Not beside the old source: its hopper.cuh would be included first.
+    old = old / "variants"
+    old.mkdir(exist_ok=True)
+    jobs = {}
+    for name, edits in FLASH_VARIANTS.items():
+        text = src
+        for before, after in edits:
+            if before not in text:
+                chip_smoke.fail(f"variant {name}: {before!r} not in flash_attention.cu")
+            text = text.replace(before, after)
+        (old / f"{name}.cu").write_text(text)
+        jobs[name] = subprocess.Popen(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", str(old / f"{name}.so"), str(old / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, job in jobs.items():
+        log = job.communicate()[0]
+        if job.returncode != 0:
+            chip_smoke.fail(f"nvcc failed on {old / name}.cu:\n{log[-3000:]}")
+        entry = ""
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            entry = m.group(1) if m else entry
+            if ("wide" in entry or "f32" in entry) and (
+                    "C75" in line or ("spill" in line and " 0 bytes spill stores" not in line)
+                    or "registers" in line):
+                print(f"ptxas {name} {re.sub(r'.*?(flash_fwd_\w+?kernel)', r'\1', entry)[:60]}: "
+                      f"{line.split(':', 1)[-1].strip()[:160]}", flush=True)
+        libs[name] = ctypes.CDLL(str(old / f"{name}.so"))
+    return libs
+
+
+# K4 cases whose kernels were redesigned (b, h, s, d, causal, dtype).
+FLASH_REDESIGNED = tuple(
+    (1, 8, 2048, d, causal, dt) for dt in ("bfloat16", "float32") for d in (192, 256, 512)
+    for causal in (True, False)) + (
+    (8, 8, 2048, 256, True, "bfloat16"), (1, 8, 512, 128, True, "float32"))
+
+
+def _old_launch(torch, lib, q, k, v, causal: bool):
+    """The earlier build's K4 without a split plan: head_dim padded to a
+    multiple of 128 above 128, its own C interface."""
+    b, h, sq, d = q.shape
+    dp = -(-d // 128) * 128 if d > 128 else d
+    qq, kk, vv = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
+    o = torch.empty_like(qq)
+    rc = lib.dsst_flash_attention_fwd(
+        qq.data_ptr(), kk.data_ptr(), vv.data_ptr(), o.data_ptr(), b * h, sq, k.shape[2], dp,
+        int(causal), int(q.dtype == torch.bfloat16), None, 0, None, 0, None, None, 0,
+        torch.cuda.current_stream().cuda_stream, 1.0 / math.sqrt(d))
+    chip_smoke.check(rc == 0, f"old K4 launch: CUDA error {rc}")
+    return o[..., :d]
+
+
 def flash_compare(torch, old: Path) -> list[dict]:
     """K4 of this tree against the build of ``old/flash_attention.cu``."""
     import importlib
@@ -200,14 +292,17 @@ def flash_compare(torch, old: Path) -> list[dict]:
     old_lib.dsst_flash_attention_fwd.argtypes = new_lib.dsst_flash_attention_fwd.argtypes
     old_lib.dsst_flash_attention_fwd.restype = I
 
-    def launch(lib, q, k, v):
+    def launch_causal(lib, q, k, v, causal):
         # _launch with another library: the wrapper's checks, plan and
         # scratch are this tree's either way.
         saved, fa._lib = fa._lib, lib
         try:
-            return fa._launch(q, k, v, True)
+            return fa._launch(q, k, v, causal)
         finally:
             fa._lib = saved
+
+    def launch(lib, q, k, v):
+        return launch_causal(lib, q, k, v, True)
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
@@ -221,6 +316,34 @@ def flash_compare(torch, old: Path) -> list[dict]:
         print(json.dumps(row), flush=True)
         rows.append(row)
         chip_smoke.check(same, f"K4 {row['shape']}: output differs between builds")
+    from dss_ml_at_scale_tpu_torch.ops.flash_attention import attention_reference
+
+    variants = build_flash_variants(old)
+    for lib in variants.values():
+        lib.dsst_flash_attention_fwd.argtypes = new_lib.dsst_flash_attention_fwd.argtypes
+        lib.dsst_flash_attention_fwd.restype = I
+    for b, h, s_, d, causal, dt in FLASH_REDESIGNED:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(b, h, s_, d, generator=gen, device="cuda", dtype=dtype)
+                   for _ in range(3))
+        fns = {"old": lambda: _old_launch(torch, old_lib, q, k, v, causal),
+               "new": lambda: fa._launch(q, k, v, causal)}
+        for name, lib in variants.items():
+            if (name.startswith("f32") == (dt == "float32")
+                    and (d == 192) == name.startswith("wide192")
+                    and not (name.startswith("lockstep") and d == 192)):
+                fns[name] = lambda lib=lib: launch_causal(lib, q, k, v, causal)
+        ref = attention_reference(q, k, v, causal=causal).float()
+        atol = chip_smoke.ATOL if dt == "bfloat16" else chip_smoke.ATOL_F32
+        errs = {w: (fn().float() - ref).abs().max().item() for w, fn in fns.items()}
+        row = {"shape": f"{'f32 ' if dt == 'float32' else ''}{'' if causal else 'non-'}causal "
+                        f"b{b} h{h} s{s_} d{d}", "max_abs_err": errs, **turns(fns)}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        chip_smoke.check(all(e <= atol for e in errs.values()),
+                         f"K4 {row['shape']}: max abs err {errs} > {atol}")
+        del q, k, v, ref
+        torch.cuda.empty_cache()
     return rows
 
 

@@ -36,8 +36,11 @@ def cuda():
 # 128/512/1024) and sq < sk take the split path in bf16 on an H100; b8 h8
 # s2048 d128 is the LM training shape; head_dim 32 is the lm CLI's default;
 # head_dim 8 (full_stack.json's lm), 16 and 48 run zero-padded to 32/32/64;
-# 192, 256 and 512 take the wide kernels (192 zero-padded to 256); at b1 h1
-# s1024 d256 and b1 h1 s2048 d512 in bf16 with their key-split plan.
+# above 128 bf16 takes the wide kernel (160 zero-padded to 192; 192, 256 and
+# 320 as they are; 320 and 512 in slices of 256; 640 with too few K slots
+# for turns; 1024 with Q carried by the K slots), at b1 h1 s1024 d256 and
+# b1 h1 s2048 d512 with its key-split plan; f32 takes the f32 kernel at
+# every shape.
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
 @pytest.mark.parametrize("b,h,sq,sk,d,causal", [
     (2, 4, 128, 128, 128, True), (2, 4, 64, 192, 64, True), (2, 4, 96, 96, 128, False),
@@ -50,16 +53,22 @@ def cuda():
     (2, 4, 128, 128, 192, True), (2, 4, 96, 96, 192, False), (1, 8, 1024, 1024, 256, True),
     (2, 4, 64, 192, 256, True), (1, 4, 256, 256, 512, True), (2, 2, 96, 96, 512, False),
     (1, 1, 1024, 1024, 256, True), (1, 1, 2048, 2048, 512, True),
+    (2, 4, 128, 128, 160, True), (2, 4, 96, 96, 160, False), (1, 8, 256, 256, 320, True),
+    (2, 2, 96, 96, 320, False), (1, 2, 64, 192, 320, True), (1, 2, 256, 256, 640, True),
+    (1, 2, 128, 128, 1024, True),
 ])
 def test_flash_kernel_matches_plain_version(cuda, dtype, atol, b, h, sq, sk, d, causal):
     def mk(s):
         return torch.randn(b, h, s, d, generator=cuda, device="cuda", dtype=dtype)
 
     q, k, v = mk(sq), mk(sk), mk(sk)
-    before = flash_attention.launches
+    before = (flash_attention.launches, flash_attention.launches_wide,
+              flash_attention.launches_f32)
     out = flash_attention(q, k, v, causal=causal, block_q=32, block_k=32)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    wide, f32 = dtype == torch.bfloat16 and d > 128, dtype == torch.float32
+    assert (flash_attention.launches, flash_attention.launches_wide,
+            flash_attention.launches_f32) == (before[0] + 1, before[1] + wide, before[2] + f32)
     assert out.dtype == dtype and out.shape == q.shape
     ref = attention_reference(q, k, v, causal=causal)
     assert (out.float() - ref.float()).abs().max().item() <= atol
@@ -71,6 +80,27 @@ def test_flash_split_path_is_deterministic_and_matches_unsplit(cuda, sq, sk):
     q = torch.randn(1, 8, sq, 128, generator=cuda, device="cuda", dtype=torch.bfloat16)
     k, v = (torch.randn(1, 8, sk, 128, generator=cuda, device="cuda", dtype=torch.bfloat16)
             for _ in range(2))
+    first = flash_attention(q, k, v, causal=True)
+    again = flash_attention(q, k, v, causal=True)
+    whole = fa._launch(q, k, v, True, split=False)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    ref = attention_reference(q, k, v, causal=True).float()
+    for out in (first, whole):
+        assert (out.float() - ref).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("b,h,s,d", [(1, 1, 1024, 256), (1, 1, 1024, 320), (1, 1, 2048, 512),
+                                     (1, 2, 1024, 192)])
+def test_flash_wide_split_path_is_deterministic_and_matches_unsplit(cuda, b, h, s, d):
+    """The wide kernel's key-split plan (128-row tiles; each consumer's rows
+    combined in a fixed order) is the same bit for bit from run to run."""
+    fa = importlib.import_module("dss_ml_at_scale_tpu_torch.ops.flash_attention")
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fa.split_plan(b * h * fa.launch_slices(d), s, s, True, sm_count, **fa.plan_tiling(d))
+    assert plan is not None and plan[1]
+    q, k, v = (torch.randn(b, h, s, d, generator=cuda, device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
     first = flash_attention(q, k, v, causal=True)
     again = flash_attention(q, k, v, causal=True)
     whole = fa._launch(q, k, v, True, split=False)

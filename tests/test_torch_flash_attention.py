@@ -175,33 +175,59 @@ def test_kernel_input_checks(bad):
 @pytest.mark.parametrize("d", [8, 16, 48, 160])
 def test_kernel_checks_take_every_head_dim_up_to_128(d):
     """Heads the kernel has no tile for are padded (8, 16 -> 32; 48 -> 64);
-    above 128 to a multiple of 128 (160 -> 256), taken in column slices.
-    No width is refused: the JAX function takes every one."""
+    above 128 to a multiple of 64 (160 -> 192), taken in one slice up to
+    256. No width is refused: the JAX function takes every one."""
     q, k, v = (torch.zeros(1, 2, 64, d, dtype=torch.bfloat16) for _ in range(3))
     check_kernel_inputs(q, k, v)
-    want = {8: 32, 16: 32, 48: 64, 160: 256}[d]
+    want = {8: 32, 16: 32, 48: 64, 160: 192}[d]
     assert fa_mod.padded_head_dim(d) == want
-    assert fa_mod.column_slices(want) == (2 if d > 128 else 1)
+    assert fa_mod.column_slices(want) == 1
 
 
-@pytest.mark.parametrize("d,d_pad,slices", [(129, 256, 2), (192, 256, 2), (256, 256, 2),
-                                            (384, 384, 3), (512, 512, 4), (1000, 1024, 8)])
-def test_wide_heads_pad_to_column_slices_of_128(d, d_pad, slices):
-    """Above 128 the wrapper's plan: pad to the next multiple of 128, one
-    CTA per slice of 128 output columns, the split plan counting the
-    slices' CTAs as heads. The check names no width limit."""
+WIDE = dict(q_tile=128, ctas_per_sm=1, one_wave=False)  # the wide kernels' tiling
+
+
+def test_plan_tiling_follows_the_kernel():
+    assert fa_mod.plan_tiling(128) == dict(q_tile=64, ctas_per_sm=2, one_wave=True)
+    assert all(fa_mod.plan_tiling(d) == WIDE for d in (192, 256, 320, 1024))
+
+
+@pytest.mark.parametrize("d,d_pad,slices", [(129, 192, 1), (192, 192, 1), (256, 256, 1),
+                                            (320, 320, 2), (384, 384, 2), (512, 512, 2),
+                                            (1000, 1024, 4)])
+def test_wide_heads_pad_to_multiples_of_64_in_slices_of_256(d, d_pad, slices):
+    """Above 128 the wrapper's plan: pad to the next multiple of 64, one CTA
+    per slice of at most 256 output columns (d320: 256 + 64), the split plan
+    counting the slices' CTAs as heads at 128-row tiles, one CTA an SM,
+    pieces of the mean load of an SM. The check names no width limit."""
     q, k, v = (torch.zeros(1, 2, 64, d, dtype=torch.bfloat16) for _ in range(3))
     check_kernel_inputs(q, k, v)
     assert fa_mod.padded_head_dim(d) == d_pad
     assert fa_mod.column_slices(d_pad) == slices
-    # b1 h8 s2048 causal fills an H100 with or without the slices: no split;
-    # one head of s1024 splits, its pieces in a wave of the slices' CTAs.
-    assert fa_mod.split_plan(8 * slices, 2048, 2048, True, 132) is None
-    plan = fa_mod.split_plan(slices, 1024, 1024, True, 132)
-    assert plan is not None and slices * len(plan[0]) <= 2 * 132
+    # The slices of 256 share a launch, the rest runs in its own: the plan
+    # counts one launch's CTAs (d320: 1, then 1; d512: 2).
+    heads = fa_mod.launch_slices(d_pad)
+    assert heads == max(1, d_pad // 256) and heads <= slices
+    # b1 h8 s2048 causal at one slice a launch: 8 * 16 tiles of 128 rows
+    # underfill 132 SMs, the longest 32 key tiles against a mean of 16.5:
+    # pieces of at most 17 (32 = 16 + 16). Non-causal every tile is the
+    # mean: no split.
+    plan = fa_mod.split_plan(8 * heads, 2048, 2048, True, 132, **WIDE)
+    if heads == 1:
+        assert plan is not None and max(ke - kb for _, kb, ke, _ in plan[0]) == 16
+    else:
+        assert plan is None  # 8 * heads * 16 CTAs fill the card
+    assert fa_mod.split_plan(8 * heads, 2048, 2048, False, 132, **WIDE) is None
+    plan = fa_mod.split_plan(heads, 1024, 1024, True, 132, **WIDE)
+    assert plan is not None
+    combine = fa_mod.wide_combine(plan[1], plan[2])
+    # Each consumer's 64 rows combine on their own, over their own slots.
+    assert len(combine) == 2 * len(plan[1])
+    slots = sorted(s for _, first, pieces in combine for s in range(first, first + pieces))
+    assert slots == list(range(2 * plan[2]))
 
 
-@pytest.mark.parametrize("d", [160, 256, 512])
+@pytest.mark.parametrize("d", [160, 192, 256, 320, 384, 512])
 @pytest.mark.parametrize("causal", [False, True])
 def test_wide_heads_match_jax_kernel(rng, causal, d):
     """The plain path at heads above 128 against JAX's kernel in interpret
@@ -248,6 +274,32 @@ def test_work_items_cover_every_visible_tile_once(bh, sq, sk, causal, sm_count):
         assert mine[0][1] == 0 and all(a[2] == b[1] for a, b in zip(mine, mine[1:]))
 
 
+@pytest.mark.parametrize("sm_count", [1, 16, 132])
+@pytest.mark.parametrize("bh,sq,sk,causal", PLAN_SHAPES)
+def test_wide_work_items_cover_every_visible_tile_once(bh, sq, sk, causal, sm_count):
+    """The wide kernels' items: 128-row query tiles, each visible key tile
+    once, longest first; a split cuts no piece longer than the mean load of
+    a CTA slot (one an SM), and its slots are consecutive per tile."""
+    items = fa_mod.work_items(bh, sq, sk, causal, sm_count, **WIDE)
+    want = set()
+    for qt in range(-(-sq // 128)):
+        last_row = min(qt * 128 + 128, sq) - 1
+        want |= {(qt, kt) for kt in range(-(-sk // 64))
+                 if not causal or kt * 64 <= last_row + sk - sq}
+    got = [(qt, kt) for qt, kb, ke, _ in items for kt in range(kb, ke)]
+    assert len(got) == len(set(got)) and set(got) == want
+    lengths = [ke - kb for _, kb, ke, _ in items]
+    assert lengths == sorted(lengths, reverse=True)
+    plan = fa_mod.split_plan(bh, sq, sk, causal, sm_count, **WIDE)
+    if plan is None:
+        assert all(slot == -1 for *_, slot in items)
+        return
+    mean = -(-bh * len(got) // sm_count)
+    assert max(lengths) <= max(2, mean) < max(fa_mod.visible_key_tiles(sq, sk, causal, 128))
+    for qt, first, pieces in plan[1]:
+        assert sorted(slot for q, *_, slot in items if q == qt) == list(range(first, first + pieces))
+
+
 def test_only_the_longest_serving_bucket_splits_on_an_h100():
     # 132 SMs: every bucket underfills the card, but only s1024's tiles
     # (up to 16 key tiles) are long enough for the split to pay.
@@ -266,6 +318,33 @@ def test_split_and_combine_matches_reference(rng, bh, sq, sk, causal):
     got = fa_mod.split_attention_reference(q, k, v, causal=causal, plan=plan)
     want = attention_reference(q, k, v, causal=causal)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("bh,sq,sk,causal", PLAN_SHAPES)
+def test_wide_split_and_combine_matches_reference(rng, bh, sq, sk, causal):
+    """The wide kernel's plan (128-row tiles, one CTA an SM): pieces whose
+    keys a 64-row half never sees get weight 0."""
+    plan = fa_mod.split_plan(bh, sq, sk, causal, 16, **WIDE)
+    if plan is None:
+        plan = (fa_mod.work_items(bh, sq, sk, causal, 16, **WIDE), [], 0)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, b=1, h=bh, sq=sq, sk=sk, d=32))
+    got = fa_mod.split_attention_reference(q, k, v, causal=causal, plan=plan, q_tile=128)
+    want = attention_reference(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_wide_split_and_combine_matches_jax_kernel(rng):
+    """A d320 head's wide plan on an H100 (two slices' CTAs as heads),
+    split and combined, against JAX's kernel in interpret mode."""
+    plan = fa_mod.split_plan(2, 1024, 1024, True, 132, **WIDE)
+    assert plan is not None and plan[1]
+    q, k, v = _qkv(rng, b=1, h=1, sq=1024, d=320)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                causal=True, block_q=256, block_k=256))
+    got = fa_mod.split_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=True,
+        plan=plan, q_tile=128).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.parametrize("sq,sk", [(1024, 1024), (256, 1024)])
