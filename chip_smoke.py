@@ -59,11 +59,16 @@ seconds.
 3a. fused-f32: K1f-K3f (``csrc/fused_matmul_f32.cu``) against their plain
    versions in f32 at the same ten cases: K1f's out at rtol/atol 1e-5
    (tests/test_fused_matmul.py:76), K2f's gt within 1e-5 of max-abs and its
-   ReLU mask bit for bit; the M-long sums (sum_g, sum_gx, dW) each held,
-   beside the plain version's, against an f64 sum of the same f32 terms:
-   within 1e-5 of max-abs or no worse than twice the plain version. Times
-   of each kernel, its plain version and cuBLAS SGEMM (TF32 off) of the
-   same product, beside the bound (operations, 67 TFLOP/s f32).
+   ReLU mask bit for bit (gt zero wherever the mask is off and, with g and
+   W positive, nonzero exactly where it is on; a gt that cancels to exactly
+   zero where the plain one does not fails past 1e-5 of max-abs and is
+   counted); the M-long sums (sum_g, sum_gx, dW) each held, beside the
+   plain version's, against an f64 sum of the same f32 terms: within 1e-5
+   of max-abs or no worse than twice the plain version. Times of each
+   kernel, its plain version and cuBLAS SGEMM (TF32 off) of the same
+   product, beside two bounds for the same work: 3xTF32 on the tensor cores
+   (three products at 495 TFLOP/s, ``bound_ms``; K2f and K3f run so) and
+   one f32 product on the CUDA cores (67 TFLOP/s, ``bound_ffma_ms``; K1f).
 4. training: a 848-row train table and a 212-row val table from the port's
    ``datagen images`` (256 px JPEGs, 1000 classes), then the port's
    ``train`` entry at full width: ResNet-50, ``--pallas-fused``, batch
@@ -346,7 +351,8 @@ ATOL_F32 = 2e-5  # f32 tolerance of tests/test_flash_attention.py:23
 # the output is small, as it is in the long causal rows.
 MEAN_REL = 2.0 ** -7
 PEAK_FLOPS = {"bfloat16": 989e12,  # H100 SXM dense tensor-core peak
-              "float32": 67e12}  # H100 SXM float32 outside the tensor cores
+              "float32": 67e12,  # H100 SXM float32 outside the tensor cores
+              "tf32": 495e12}  # H100 SXM dense TF32 tensor-core peak
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 LM = dict(vocab_size=8192, dim=1024, num_heads=8, num_layers=4, max_seq=2048)
 SLOTS, MAX_LEN, BUCKETS = 8, 2048, (128, 512, 1024)
@@ -649,6 +655,15 @@ def _bound(nbytes: float, flops: float, dtype: str = "bfloat16") -> tuple[float,
     return max(t_bytes, t_ops) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def _f32_bounds(nbytes: float, macs: float) -> dict:
+    """The two bounds of an f32 product of ``macs`` multiply-adds moving
+    ``nbytes``: 3xTF32 (three products on the tensor cores, how K2f and K3f
+    run it) and one f32 product on the CUDA cores (FFMA, how K1f runs it)."""
+    bound, by = _bound(nbytes, 3 * 2 * macs, "tf32")
+    ffma, ffma_by = _bound(nbytes, 2 * macs, "float32")
+    return {"bound_ms": bound, "bound_by": by, "bound_ffma_ms": ffma, "bound_ffma_by": ffma_by}
+
+
 def _rel(got, ref) -> float:
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
@@ -787,15 +802,13 @@ def fused_f32_kernel_phase(torch) -> dict[str, list[dict]]:
             check(bool(torch.isfinite(out).all()), f"K1f {case}: non-finite output")
             bad = int((diff > tol + tol * ref.abs()).sum())
             check(bad == 0, f"K1f {case}: {bad} elements outside rtol/atol {tol}")
-            bound, by = _bound(4 * m * k + rb + 4 * k * n + 4 * m * n + 8 * k, 2 * m * k * n,
-                               "float32")
             rows["K1"].append({
+                **_f32_bounds(4 * m * k + rb + 4 * k * n + 4 * m * n + 8 * k, m * k * n),
                 "shape": case, "max_abs_err": diff.max().item(), "rel_err": _rel(out, ref),
                 "tol": tol,
                 "ms": device_ms(lambda: fm.bn_relu_matmul_fwd(y, s, t, w, res)),
                 "plain_ms": device_ms(lambda: fm.bn_relu_matmul_fwd_reference(y, s, t, w, res), 5),
                 "library_ms": device_ms(lambda: torch.matmul(a, w)),
-                "bound_ms": bound, "bound_by": by,
             })
             del out, ref, diff
             # K2f
@@ -806,26 +819,37 @@ def fused_f32_kernel_phase(torch) -> dict[str, list[dict]]:
             check(math.isfinite(gt_err) and gt_err <= tol,
                   f"K2f {case}: gt max-abs err {gt_err} of max-abs > {tol}")
             # The ReLU mask bit for bit: gt is zero wherever the plain mask
-            # is off, and nonzero wherever it is on and the plain gt is.
+            # is off, and, with g and W positive (no sum can cancel),
+            # nonzero exactly where it is on. With random g and W, a gt that
+            # cancels to exactly zero where the plain one does not is counted
+            # (the tensor cores' sums, truncated, reach zero more often than
+            # an FFMA chain) and fails unless the plain gt is within the gt
+            # bar (1e-5 of max-abs) of zero.
             mask = z > 0
-            flips = int(gt[~mask].ne(0).sum()) + int(((gt != 0) != mask)[rgt != 0].sum())
+            zero = mask & (gt == 0) & (rgt != 0)
+            flips = int(gt[~mask].ne(0).sum()) + int(
+                (zero & (rgt.abs() > tol * rgt.abs().max())).sum())
             check(flips == 0, f"K2f {case}: {flips} elements off the plain ReLU mask")
+            positive = fm.bn_relu_matmul_bwd_da(g.abs(), w.abs(), y, s, t, mean, inv, res)[0]
+            check(torch.equal(positive != 0, mask),
+                  f"K2f {case}: with g and W positive, gt != 0 is not the plain ReLU mask")
             row = {"shape": case, "rel_err_gt": gt_err, "mask_flips": flips,
+                   "zero_where_plain_is_not": int(zero.sum()),
                    "max_abs_err": (gt - rgt).abs().max().item(), "tol": tol}
+            del positive, zero
             row.update(summed("sum_g", f"K2f {case}",
                               sum_errs(sg, rsg, gt.double().sum(0), rgt.double().sum(0))))
             row.update(summed("sum_gx", f"K2f {case}", sum_errs(
                 sgx, rsgx, (gt * x_hat).double().sum(0), (rgt * x_hat).double().sum(0))))
-            bound, by = _bound(4 * m * n + 4 * k * n + 4 * m * k + rb + 16 * k + 4 * m * k + 8 * k,
-                               2 * m * k * n, "float32")
             row.update({
+                **_f32_bounds(4 * m * n + 4 * k * n + 4 * m * k + rb + 16 * k + 4 * m * k + 8 * k,
+                              m * k * n),
                 "rel_err": max(v for key, v in row.items() if key.startswith("rel_err_")
                                and "plain" not in key),
                 "ms": device_ms(lambda: fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res)),
                 "plain_ms": device_ms(
                     lambda: fm.bn_relu_matmul_bwd_da_reference(g, w, y, s, t, mean, inv, res), 5),
                 "library_ms": device_ms(lambda: torch.matmul(g, w.t())),
-                "bound_ms": bound, "bound_by": by,
             })
             rows["K2"].append(row)
             del gt, rgt, mask
@@ -838,14 +862,12 @@ def fused_f32_kernel_phase(torch) -> dict[str, list[dict]]:
             row = {"shape": case, "max_abs_err": (dw - rdw).abs().max().item(), "tol": tol,
                    "rel_err_vs_plain": _rel(dw, rdw)}
             row.update(summed("dw", f"K3f {case}", sum_errs(dw, rdw, dw64, dw64)))
-            bound, by = _bound(4 * m * k + rb + 8 * k + 4 * m * n + 4 * k * n, 2 * m * k * n,
-                               "float32")
             row.update({
+                **_f32_bounds(4 * m * k + rb + 8 * k + 4 * m * n + 4 * k * n, m * k * n),
                 "rel_err": row["rel_err_dw"],
                 "ms": device_ms(lambda: fm.bn_relu_matmul_bwd_dw(y, s, t, g, res)),
                 "plain_ms": device_ms(lambda: fm.bn_relu_matmul_bwd_dw_reference(y, s, t, g, res), 5),
                 "library_ms": device_ms(lambda: torch.matmul(a.t(), g)),
-                "bound_ms": bound, "bound_by": by,
             })
             rows["K3"].append(row)
             del dw, rdw, dw64, z, a, res
@@ -5051,11 +5073,14 @@ def main() -> int:
             "library": "cuBLAS product of the same shapes (matmul part only)",
             "shape": head["shape"],
             "cases": fused[key],
-            "f32": {  # K1f-K3f, csrc/fused_matmul_f32.cu; library: cuBLAS SGEMM, TF32 off
+            # K1f-K3f, csrc/fused_matmul_f32.cu; library: cuBLAS SGEMM, TF32 off;
+            # bound_ms: 3xTF32 on the tensor cores, bound_ffma_ms: FFMA.
+            "f32": {
                 "source": "dss_ml_at_scale_tpu_torch/csrc/fused_matmul_f32.cu",
                 "launches": f32_train["launches_f32"][key],
                 **{x: fused_f32[key][0][x] for x in ("shape", "ms", "plain_ms", "bound_ms",
-                                                      "bound_by", "library_ms")},
+                                                      "bound_by", "bound_ffma_ms",
+                                                      "library_ms")},
                 "max_abs_err": max(c["max_abs_err"] for c in fused_f32[key]),
                 "cases": fused_f32[key],
             },

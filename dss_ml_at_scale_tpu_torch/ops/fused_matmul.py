@@ -58,13 +58,14 @@ from .fused_norm import reduce_grad_sums
 _FWD_TILE_M, _FWD_TILE_N = 128, 256
 _DA_TILE_M = 128
 _DW_TILE_N, _DW_DEPTH = 256, 64
-# Those of csrc/fused_matmul_f32.cu: K1f-K3f compute 128 x 128 tiles (128 x
-# 64 at 64 channels, the same ``da_tile_n``/``dw_tile_k`` rule) with 256
-# threads, two CTAs to an SM, summing in slabs of 8 rows (kBK). K1f takes
-# one CTA per tile; K2f's walk and K3f's runs fill two CTAs per SM.
+# Those of csrc/fused_matmul_f32.cu. K1f computes 128 x 128 tiles of out,
+# one CTA per tile. K2f walks 128-row tiles of gt, ``da_tile_n`` channels
+# wide, one CTA per SM. K3f computes ``dw_tile_k`` x 128 tiles of dW and sums
+# M in runs that are multiples of its ring's 32-row stage (kDepth), one CTA
+# per SM.
 _F32_TILE = 128
-_F32_DEPTH = 8
-_F32_CTAS_PER_SM = 2
+_TF32_DEPTH = 32
+_CTAS_PER_SM = {torch.bfloat16: 1, torch.float32: 1}  # K2/K3 and K2f/K3f
 # TMA coordinates and the kernels' row indices are 32-bit signed integers.
 _MAX_ROWS = 2 ** 31 - 1
 
@@ -106,6 +107,21 @@ def bn_relu_matmul_bwd_dw_reference(y2, s, t, g, res=None) -> torch.Tensor:
     return torch.matmul(a.float().t(), g.float())
 
 
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The split K2f and K3f apply to every f32 operand in registers, in
+    torch ops: ``hi = rna(x)`` and ``lo = rna(x - hi)``, where ``rna``
+    rounds to TF32 (10 mantissa bits), to nearest with ties away from zero,
+    as ``cvt.rna.tf32.f32`` does. The kernels take ``A @ B`` as ``A_hi @
+    B_hi + A_hi @ B_lo + A_lo @ B_hi`` on the tensor cores (3xTF32)."""
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -141,8 +157,12 @@ def _kernel_f32():
         lib = load("fused_matmul_f32")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dsst_bn_relu_matmul_fwd_f32.argtypes = [p] * 6 + [i] * 3 + [p]
-        lib.dsst_bn_relu_matmul_bwd_da_f32.argtypes = [p] * 11 + [i] * 5 + [p]
+        lib.dsst_bn_relu_matmul_bwd_da_f32.argtypes = [p] * 12 + [i] * 5 + [p]
         lib.dsst_bn_relu_matmul_bwd_dw_f32.argtypes = [p] * 7 + [i] * 6 + [p]
+        lib.dsst_bn_relu_matmul_bwd_da_f32_smem_bytes.argtypes = [i]
+        lib.dsst_bn_relu_matmul_bwd_dw_f32_smem_bytes.argtypes = [i, i]
+        lib.dsst_bn_relu_matmul_bwd_da_f32_smem_bytes.restype = i
+        lib.dsst_bn_relu_matmul_bwd_dw_f32_smem_bytes.restype = i
         for fn in (lib.dsst_bn_relu_matmul_fwd_f32, lib.dsst_bn_relu_matmul_bwd_da_f32,
                    lib.dsst_bn_relu_matmul_bwd_dw_f32):
             fn.restype = ctypes.c_int
@@ -220,10 +240,11 @@ def _sm_count(x: torch.Tensor) -> int:
 
 
 def cta_slots(sm_count: int, dtype: torch.dtype) -> int:
-    """CTAs that run at once on ``sm_count`` SMs: one per SM for the bf16
-    kernels, two for the f32 ones (256 threads and at most 128 registers
-    each, 33 KB of shared memory)."""
-    return sm_count * (_F32_CTAS_PER_SM if dtype == torch.float32 else 1)
+    """CTAs of K2 and K3 (``dtype`` bf16) or K2f and K3f (f32) that run at
+    once on ``sm_count`` SMs: one per SM in either type, as each fills an SM
+    alone (K2 and K3 with 384 threads; K2f and K3f with 256 threads of up to
+    255 registers and 178-227 KB of shared memory)."""
+    return sm_count * _CTAS_PER_SM[dtype]
 
 
 def fwd_tile_walk(m: int, n: int, sm_count: int,
@@ -281,7 +302,8 @@ def da_tile_walk(m: int, k: int, bn: int, sm_count: int) -> list[list[tuple[int,
     tile ``i // tiles_k`` (the bands of an M band first), and CTA ``c`` takes
     tiles ``c, c + grid, ...``, as the kernel does. It is a fixed function of
     its arguments, so each CTA's row of channel sums is added in the same
-    order on every run. K2f walks the same way over ``cta_slots`` CTAs."""
+    order on every run. K2f walks the same way, over as many CTAs
+    (``cta_slots``: one per SM)."""
     tiles_k = -(-k // bn)
     tiles = -(-m // _DA_TILE_M) * tiles_k
     grid = min(tiles, sm_count)
@@ -310,12 +332,16 @@ def bn_relu_matmul_bwd_da(g, w, y2, s, t, mean, inv, res=None):
     sums = torch.empty((2, k), dtype=torch.float32, device=y2.device)
     args = (g.data_ptr(), w.data_ptr(), y2.data_ptr(), _ptr(res), s.data_ptr(),
             t.data_ptr(), mean.data_ptr(), inv.data_ptr(), gt.data_ptr(),
-            partial.data_ptr(), sums.data_ptr(), m, k, n, bn)
+            partial.data_ptr(), sums.data_ptr())
     with torch.cuda.device(y2.device):
         if f32:
-            rc = _kernel_f32().dsst_bn_relu_matmul_bwd_da_f32(*args, grid, _stream(y2))
+            # W_hi and W_lo, the TF32 halves of W: the C entry point splits W
+            # into them before K2f runs.
+            w_split = torch.empty((2, k, n), dtype=torch.float32, device=y2.device)
+            rc = _kernel_f32().dsst_bn_relu_matmul_bwd_da_f32(
+                *args, w_split.data_ptr(), m, k, n, bn, grid, _stream(y2))
         else:
-            rc = _kernel().dsst_bn_relu_matmul_bwd_da(*args, sm_count, _stream(y2))
+            rc = _kernel().dsst_bn_relu_matmul_bwd_da(*args, m, k, n, bn, sm_count, _stream(y2))
     _raise_if(rc, "bn_relu_matmul_bwd_da")
     bn_relu_matmul_bwd_da.launches += 1
     bn_relu_matmul_bwd_da.launches_f32 += f32
@@ -336,10 +362,10 @@ def dw_plan(m: int, k: int, n: int, sm_count: int,
     next run: TMA zero-fills only at the tensor's edge), for every
     ``dw_tile_k(k)`` x 256 output tile. As many runs as fill the SMs once
     with one CTA per (tile, run), at least one ring stage each. K3f
-    (``dtype`` f32): ``dw_tile_k(k)`` x 128 tiles, runs of whole 8-row
-    slabs, filling two CTAs per SM."""
+    (``dtype`` f32): ``dw_tile_k(k)`` x 128 tiles and runs of whole 32-row
+    stages, filling the SMs once in the same way."""
     f32 = dtype == torch.float32
-    tile_n, depth = (_F32_TILE, _F32_DEPTH) if f32 else (_DW_TILE_N, _DW_DEPTH)
+    tile_n, depth = (_F32_TILE, _TF32_DEPTH) if f32 else (_DW_TILE_N, _DW_DEPTH)
     tiles = -(-k // dw_tile_k(k)) * -(-n // tile_n)
     splits = max(1, min(cta_slots(sm_count, dtype) // tiles, -(-m // depth)))
     chunk = -(-(-(-m // splits)) // depth) * depth

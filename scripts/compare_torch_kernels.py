@@ -62,6 +62,32 @@ freed after Q·Kᵀ); the f32 kernel at two CTAs an SM at every width.
     git show <rev>:dss_ml_at_scale_tpu_torch/csrc/flash_attention.cu > build/old/flash_attention.cu
     git show <rev>:dss_ml_at_scale_tpu_torch/csrc/hopper.cuh > build/old/hopper.cuh
     python3 scripts/compare_torch_kernels.py --old build/old --flash
+
+``--fused-f32`` compares the f32 kernels instead: this tree's
+``fused_matmul_f32.cu`` against the earlier one in ``--old``, whose C
+interface it carries (the FFMA design of K2f and K3f: K2f without the W
+split scratch, its walk over two CTAs an SM; K3f split in runs of 8-row
+slabs over two CTAs an SM, ``old_f32_dw_plan``). At the four stage shapes,
+with and without a residual: K1f's output bit for bit between the builds;
+K2f and K3f of each build against the plain version, as ``chip_smoke.py``
+holds them (gt within 1e-5 of the plain max-abs; the ReLU mask bit for bit:
+gt zero wherever it is off and, with g and W positive, nonzero exactly where
+it is on; a gt that cancels to exactly zero where the plain one does not is
+counted, and fails past 1e-5 of the max-abs; the sums and dW within 1e-5 of
+the max-abs of an f64 sum of their terms, or no worse than twice the plain
+version's error), the old build and this one failing the script, the
+variants recorded; and their times in turns (old, new, variants, variants,
+new, old). The variants are builds of this tree's source with one decision
+changed (``F32_VARIANTS``, their ptxas register and spill lines printed):
+the wgmma chain never flushed into the f32 accumulator (one chain a tile of
+K2f, a run of K3f: how the tensor cores' sum holds over a long chain); K2f
+with one set of A-fragment registers instead of two; and, for where the
+time goes, with wrong results, one TF32 product a k8 step, no product, and
+K3f without its a^T prologue. At stage 1 K3f also runs its 664,832 rows as
+one run (``one_run``), flushed every stage and never.
+
+    git show <rev>:dss_ml_at_scale_tpu_torch/csrc/fused_matmul_f32.cu > build/old/fused_matmul_f32.cu
+    python3 scripts/compare_torch_kernels.py --old build/old --fused-f32
 """
 
 from __future__ import annotations
@@ -347,6 +373,243 @@ def flash_compare(torch, old: Path) -> list[dict]:
     return rows
 
 
+def old_f32_dw_plan(m: int, k: int, n: int, sm_count: int) -> tuple[int, int]:
+    """The FFMA design's K3f plan: ``dw_tile_k(k)`` x 128 tiles, runs of
+    whole 8-row slabs filling two CTAs an SM."""
+    tiles = math.ceil(k / (64 if k <= 64 else 128)) * math.ceil(n / 128)
+    splits = max(1, min(2 * sm_count // tiles, math.ceil(m / 8)))
+    chunk = math.ceil(math.ceil(m / splits) / 8) * 8
+    return math.ceil(m / chunk), chunk
+
+
+# Builds of this tree's fused_matmul_f32.cu with one decision changed: the
+# chain never flushed; and, for where the time goes (their results are
+# wrong), one TF32 product a k8 step instead of three, no product, and K3f
+# without its a^T prologue; and K2f with one set of A-fragment registers.
+_MMA3 = ("  wgmma_tf32<N>(d, hi, b_lo, scale_d);\n  wgmma_tf32<N>(d, lo, b_hi, 1);\n"
+         "  wgmma_tf32<N>(d, hi, b_hi, 1);\n")
+F32_VARIANTS = {
+    "flush_never": (("constexpr bool kFlush = true;", "constexpr bool kFlush = false;"),),
+    "one_pass": ((_MMA3, "  wgmma_tf32<N>(d, hi, b_hi, scale_d);\n"),),
+    "no_product": ((_MMA3, ""),),
+    "no_prologue": (("    const uint32_t yb = s_ring + (j % stages) * kStage;\n",
+                     "    return;\n    const uint32_t yb = s_ring + (j % stages) * kStage;\n"),),
+    "k2f_one_fragment_set": ((
+        "      if (kb & 1) {\n        da_frags(hi1, lo1, base, a_row, tq);\n"
+        "        da_mma<BN>(chain, hi1, lo1, base, scale_d);\n      } else {\n"
+        "        da_frags(hi0, lo0, base, a_row, tq);\n"
+        "        da_mma<BN>(chain, hi0, lo0, base, scale_d);\n      }\n",
+        "      da_frags(hi0, lo0, base, a_row, tq);\n"
+        "      da_mma<BN>(chain, hi0, lo0, base, scale_d);\n"),),
+}
+
+
+def build_f32(old: Path) -> dict[str, ctypes.CDLL]:
+    """The old fused_matmul_f32.cu and F32_VARIANTS, built beside it with
+    this tree's flags; ptxas's register and spill lines of the TF32 kernels
+    printed."""
+    import re
+
+    from dss_ml_at_scale_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "fused_matmul_f32.cu").read_text()
+    out = old / "f32_variants"  # not beside the old source: it has no hopper.cuh
+    out.mkdir(exist_ok=True)
+    srcs = {"old": old / "fused_matmul_f32.cu"}
+    for name, edits in F32_VARIANTS.items():
+        text = src
+        for before, after in edits:
+            if before not in text:
+                chip_smoke.fail(f"variant {name}: {before!r} not in fused_matmul_f32.cu")
+            text = text.replace(before, after)
+        srcs[name] = out / f"{name}.cu"
+        srcs[name].write_text(text)
+    jobs = {name: subprocess.Popen(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+         "-o", str(path.with_suffix(".so")), str(path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, path in srcs.items()}
+    _build.build_all()
+    logs = {"new": _build.build_log("fused_matmul_f32")}
+    libs = {}
+    for name, job in jobs.items():
+        logs[name] = job.communicate()[0]
+        if job.returncode != 0:
+            chip_smoke.fail(f"nvcc failed on {srcs[name]}:\n{logs[name][-3000:]}")
+        libs[name] = ctypes.CDLL(str(srcs[name].with_suffix(".so")))
+    for name, log in logs.items():
+        entry = ""
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            entry = m.group(1) if m else entry
+            if "C75" in line or "serialized" in line or "tf32_kernel" in entry and (
+                    "registers" in line or "spill" in line):
+                kern = re.search(r"(bwd_\w+_tf32_kernel\w*)", entry)
+                print(f"ptxas {name} {kern.group(1) if kern else entry[-40:]}: "
+                      f"{line.split(':', 1)[-1].strip()[:160]}", flush=True)
+    old_lib = libs["old"]
+    old_lib.dsst_bn_relu_matmul_fwd_f32.argtypes = [P] * 6 + [I] * 3 + [P]
+    old_lib.dsst_bn_relu_matmul_bwd_da_f32.argtypes = [P] * 11 + [I] * 5 + [P]
+    old_lib.dsst_bn_relu_matmul_bwd_dw_f32.argtypes = [P] * 7 + [I] * 6 + [P]
+    for fn in (old_lib.dsst_bn_relu_matmul_fwd_f32, old_lib.dsst_bn_relu_matmul_bwd_da_f32,
+               old_lib.dsst_bn_relu_matmul_bwd_dw_f32):
+        fn.restype = I
+    return libs
+
+
+def f32_compare(torch, old: Path, card: str) -> list[dict]:
+    """K1f-K3f of this tree against the build of ``old/fused_matmul_f32.cu``
+    and F32_VARIANTS, as the docstring says."""
+    from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
+
+    libs = build_f32(old)
+    old_lib = libs.pop("old")
+    new_lib = fm._kernel_f32()
+    for lib in libs.values():  # the variants take this tree's C interface
+        for fname in ("dsst_bn_relu_matmul_bwd_da_f32", "dsst_bn_relu_matmul_bwd_dw_f32"):
+            getattr(lib, fname).argtypes = getattr(new_lib, fname).argtypes
+            getattr(lib, fname).restype = I
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    tol = chip_smoke.FUSED_F32_TOL
+
+    def with_lib(lib, fn, *args, **kwargs):
+        """A wrapper of this tree run on another build of this tree's ABI."""
+        saved, fm._lib_f32 = fm._lib_f32, lib
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            fm._lib_f32 = saved
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    randn = lambda *shape, std=1.0, mean=0.0: (  # noqa: E731
+        torch.randn(*shape, generator=gen, device="cuda") * std + mean)
+    rows = []
+    for name, m, k, n in chip_smoke.FUSED_SHAPES[:4]:
+        y = randn(m, k)
+        mean = y.mean(0)
+        inv = torch.rsqrt(y.square().mean(0) - mean.square() + 1e-5)
+        s_ = randn(k, mean=1.0, std=0.2) * inv
+        t_ = randn(k, std=0.2) - mean * s_
+        w = randn(k, n, std=k ** -0.5)
+        g = randn(m, n)
+        x_hat = (y - mean) * inv
+        bn, tile_k = fm.da_tile_n(k), fm.dw_tile_k(k)
+        old_grid = min(math.ceil(m / 128) * math.ceil(k / bn), 2 * sm_count)
+        old_plan = old_f32_dw_plan(m, k, n, sm_count)
+        for with_res in (False, True):
+            res = randn(m, k) if with_res else None
+
+            def k1_old():
+                out = torch.empty(m, n, device="cuda")
+                rc = old_lib.dsst_bn_relu_matmul_fwd_f32(
+                    y.data_ptr(), ptr(res), s_.data_ptr(), t_.data_ptr(), w.data_ptr(),
+                    out.data_ptr(), m, k, n, stream())
+                chip_smoke.check(rc == 0, f"old K1f launch: CUDA error {rc}")
+                return out
+
+            def k2_old(gg, ww):
+                gt = torch.empty(m, k, device="cuda")
+                part = torch.empty(old_grid, 2 * k, device="cuda")
+                sums = torch.empty(2, k, device="cuda")
+                rc = old_lib.dsst_bn_relu_matmul_bwd_da_f32(
+                    gg.data_ptr(), ww.data_ptr(), y.data_ptr(), ptr(res), s_.data_ptr(),
+                    t_.data_ptr(), mean.data_ptr(), inv.data_ptr(), gt.data_ptr(),
+                    part.data_ptr(), sums.data_ptr(), m, k, n, bn, old_grid, stream())
+                chip_smoke.check(rc == 0, f"old K2f launch: CUDA error {rc}")
+                return gt, sums[0], sums[1]
+
+            def k3_old(gg):
+                splits, chunk = old_plan
+                part = torch.empty(splits, k, n, device="cuda")
+                dw = torch.empty(k, n, device="cuda")
+                rc = old_lib.dsst_bn_relu_matmul_bwd_dw_f32(
+                    y.data_ptr(), ptr(res), s_.data_ptr(), t_.data_ptr(), gg.data_ptr(),
+                    part.data_ptr(), dw.data_ptr(), m, k, n, tile_k, splits, chunk, stream())
+                chip_smoke.check(rc == 0, f"old K3f launch: CUDA error {rc}")
+                return dw
+
+            k2 = {"old": k2_old,
+                  "new": lambda gg, ww: fm.bn_relu_matmul_bwd_da(gg, ww, y, s_, t_, mean, inv, res)}
+            k3 = {"old": k3_old, "new": lambda gg: fm.bn_relu_matmul_bwd_dw(y, s_, t_, gg, res)}
+            for vname, lib in libs.items():
+                k2[vname] = lambda gg, ww, lib=lib: with_lib(
+                    lib, fm.bn_relu_matmul_bwd_da, gg, ww, y, s_, t_, mean, inv, res)
+                k3[vname] = lambda gg, lib=lib: with_lib(lib, fm.bn_relu_matmul_bwd_dw, y, s_, t_,
+                                                          gg, res)
+            case = f"f32 {name} M{m} K{k} N{n}" + (" +res" if with_res else "")
+            k1_same = torch.equal(k1_old(), fm.bn_relu_matmul_fwd(y, s_, t_, w, res))
+            chip_smoke.check(k1_same, f"K1f {case}: output differs between builds")
+            z = fm._z(y, s_, t_, res)
+            mask = z > 0
+            a = torch.clamp_min(z, 0.0)
+            rgt, rsg, rsgx = fm.bn_relu_matmul_bwd_da_reference(g, w, y, s_, t_, mean, inv, res)
+            rdw = fm.bn_relu_matmul_bwd_dw_reference(y, s_, t_, g, res)
+            dw64 = a.double().t() @ g.double()
+            p_sg = rsg.double() - rgt.double().sum(0)
+            p_sgx = rsgx.double() - (rgt * x_hat).double().sum(0)
+            errs = {}
+            for what, fn in k2.items():
+                # The mask bit for bit: with g and W positive no sum cancels,
+                # so gt is nonzero exactly where the mask is on.
+                positive_same = torch.equal(fn(g.abs(), w.abs())[0] != 0, mask)
+                gt, sg, sgx = fn(g, w)
+                flips = int(gt[~mask].ne(0).sum())
+                # A sum that cancels to exactly zero in one order only.
+                zero = mask & (gt == 0) & (rgt != 0)
+                past = int((zero & (rgt.abs() > tol * rgt.abs().max())).sum())
+                e = {"gt": chip_smoke._rel(gt, rgt), "mask_off_nonzero": flips,
+                     "positive_operands_mask_same": positive_same,
+                     "zero_where_plain_is_not": int(zero.sum()), "of_them_past_tol": past,
+                     "sum_g": (sg.double() - gt.double().sum(0)).abs().max().item()
+                     / rgt.double().sum(0).abs().max().item(),
+                     "sum_gx": (sgx.double() - (gt * x_hat).double().sum(0)).abs().max().item()
+                     / (rgt * x_hat).double().sum(0).abs().max().item()}
+                plain = {"sum_g": p_sg.abs().max().item() / rgt.double().sum(0).abs().max().item(),
+                         "sum_gx": p_sgx.abs().max().item()
+                         / (rgt * x_hat).double().sum(0).abs().max().item()}
+                errs[f"K2f {what}"] = e
+                # The builds are held to chip_smoke.py's bars; the variants are recorded.
+                ok = (e["gt"] <= tol and flips == 0 and past == 0 and positive_same
+                      and all(e[x] <= tol or e[x] <= 2 * plain[x] for x in plain))
+                chip_smoke.check(what not in ("old", "new") or ok,
+                                 f"K2f {what} {case}: {e} (plain sums {plain})")
+                del gt, sg, sgx, zero
+            for what, fn in k3.items():
+                e = (fn(g).double() - dw64).abs().max().item() / dw64.abs().max().item()
+                errs[f"K3f {what}"] = {"dw": e}
+                chip_smoke.check(what not in ("old", "new") or e <= tol,
+                                 f"K3f {what} {case}: dW err {e} of max-abs")
+            errs["K3f plain"] = {"dw": (rdw.double() - dw64).abs().max().item()
+                                 / dw64.abs().max().item()}
+            row = {"shape": case, "card": card, "k1f_bit_identical": k1_same,
+                   "dw_plan": fm.dw_plan(m, k, n, sm_count, torch.float32),
+                   "old_dw_plan": old_plan, "rel_err": errs,
+                   "K2f": turns({what: (lambda f=f: f(g, w)) for what, f in k2.items()}),
+                   "K3f": turns({what: (lambda f=f: f(g)) for what, f in k3.items()})}
+            if name == "stage1" and not with_res:
+                # All of M as one run: the chain over 20,776 stages.
+                one = {}
+                for what, lib in (("new", new_lib), ("flush_never", libs["flush_never"])):
+                    part = torch.empty(1, k, n, device="cuda")
+                    dw = torch.empty(k, n, device="cuda")
+                    rc = lib.dsst_bn_relu_matmul_bwd_dw_f32(
+                        y.data_ptr(), None, s_.data_ptr(), t_.data_ptr(), g.data_ptr(),
+                        part.data_ptr(), dw.data_ptr(), m, k, n, tile_k, 1,
+                        math.ceil(m / 32) * 32, stream())
+                    chip_smoke.check(rc == 0, f"K3f one run: CUDA error {rc}")
+                    one[what] = (dw.double() - dw64).abs().max().item() / dw64.abs().max().item()
+                row["one_run_k3f_rel_err"] = one
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            del res, z, mask, a, rgt, rsg, rsgx, rdw, dw64
+            torch.cuda.empty_cache()
+        del y, g, w, x_hat
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -356,13 +619,16 @@ def main() -> int:
     parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out/compare_torch_kernels.json")
     parser.add_argument("--flash", action="store_true",
                         help="compare K4 (flash_attention.cu) instead of K2 and K3")
+    parser.add_argument("--fused-f32", action="store_true",
+                        help="compare K1f-K3f (fused_matmul_f32.cu) instead of K2 and K3")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         chip_smoke.fail("torch.cuda.is_available() is false: this script needs the card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.flash:
-        print(chip_smoke.card_line(), flush=True)
-        rows = flash_compare(torch, args.old)
+    if args.flash or args.fused_f32:
+        card = chip_smoke.card_line()
+        print(card, flush=True)
+        rows = flash_compare(torch, args.old) if args.flash else f32_compare(torch, args.old, card)
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(rows, indent=1))
         return 0

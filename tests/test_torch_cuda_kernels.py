@@ -162,15 +162,20 @@ def test_kernels_opt_in_to_more_than_48kb_of_shared_memory(cuda):
     assert fa._kernel().dsst_flash_attention_smem_bytes(128) > 48 * 1024
     lib = fm._kernel()
     assert lib.dsst_bn_relu_matmul_fwd_smem_bytes(512, 1) > 48 * 1024
+    lib_f32 = fm._kernel_f32()
     for tile in (64, 128):
+        assert lib_f32.dsst_bn_relu_matmul_bwd_da_f32_smem_bytes(tile) > 48 * 1024
         for with_res in (0, 1):
             assert lib.dsst_bn_relu_matmul_bwd_da_smem_bytes(tile, with_res) > 48 * 1024
             assert lib.dsst_bn_relu_matmul_bwd_dw_smem_bytes(tile, with_res) > 48 * 1024
+            assert lib_f32.dsst_bn_relu_matmul_bwd_dw_f32_smem_bytes(tile, with_res) > 48 * 1024
     q = torch.randn(1, 2, 128, 128, generator=cuda, device="cuda", dtype=torch.bfloat16)
     out = flash_attention(q, q, q, causal=True)  # raises if the launch is refused
     outs = [out]
-    for k, with_res in ((512, True), (512, False), (64, True)):
-        y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, 300, k, 256, with_res)
+    for k, with_res, dtype in ((512, True, torch.bfloat16), (512, False, torch.bfloat16),
+                               (64, True, torch.bfloat16), (128, True, torch.float32),
+                               (128, False, torch.float32), (64, True, torch.float32)):
+        y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, 300, k, 256, with_res, dtype)
         outs += [fm.bn_relu_matmul_fwd(y, s, t, w, res),
                  *fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res),
                  fm.bn_relu_matmul_bwd_dw(y, s, t, g, res)]
@@ -286,8 +291,8 @@ def test_fused_matmul_kernels_match_plain_versions(cuda, m, k, n, with_res, dtyp
         assert err <= rel * want.float().abs().max().item()
 
 
-def _check_backward(cuda, m, k, n, with_res):
-    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, n, with_res)
+def _check_backward(cuda, m, k, n, with_res, dtype=torch.bfloat16, rel=2.0 ** -7):
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, n, with_res, dtype)
     gt, sg, sgx = fm.bn_relu_matmul_bwd_da(g, w, y, s, t, mean, inv, res)
     dw = fm.bn_relu_matmul_bwd_dw(y, s, t, g, res)
     torch.cuda.synchronize()
@@ -295,13 +300,13 @@ def _check_backward(cuda, m, k, n, with_res):
     rdw = fm.bn_relu_matmul_bwd_dw_reference(y, s, t, g, res)
     for got, want in ((gt, rgt), (sg, rsg), (sgx, rsgx), (dw, rdw)):
         err = (got.float() - want.float()).abs().max().item()
-        assert err <= 2.0 ** -7 * want.float().abs().max().item()
+        assert err <= rel * want.float().abs().max().item()
     # The ReLU mask agrees bit for bit: gt is zero wherever the plain mask is
     # off, and nonzero wherever it is on and the plain gt is not near zero
     # (a sum may cancel to exactly zero in one summation order only).
     mask = fm._z(y, s, t, res) > 0
     assert not gt[~mask].any()
-    big = mask & (rgt.float().abs() > 2.0 ** -7 * rgt.float().abs().max())
+    big = mask & (rgt.float().abs() > rel * rgt.float().abs().max())
     assert gt[big].ne(0).all()
 
 
@@ -330,8 +335,29 @@ def test_fused_backward_kernels_on_split_edges(cuda, m, k, n, with_res):
     _check_backward(cuda, m, k, n, with_res)
 
 
+# K2f and K3f (3xTF32 wgmma) on their edges, held to the f32 bar: K2f's
+# 128-row tiles, 64/128-channel bands and 32-deep stages (N = 200 ends inside
+# one); K3f's 32-row stages (M off 32 and off K2f's 128), the transposed a^T
+# staging at K = 72 (a 128-channel tile with one 32-channel block wholly past
+# K and one partly) and 136, its 128-column tiles at N = 200 and 264, and
+# its runs of M (several runs from M = 6437 on, the last one short).
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 4, 4), (31, 72, 200), (33, 72, 200), (127, 64, 256), (4133, 72, 200), (129, 136, 264),
+    (6437, 128, 512), (20017, 64, 256), (20000, 72, 200), (257, 512, 2048),
+])
+def test_f32_backward_kernels_on_tf32_edges(cuda, m, k, n, with_res):
+    if m > 4133:
+        sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+        splits, chunk = fm.dw_plan(m, k, n, sm_count, torch.float32)
+        assert splits > 1 and chunk % 32 == 0 and m % chunk
+    _check_backward(cuda, m, k, n, with_res, torch.float32, 1e-5)
+
+
 # K3's prologue rounds as the plain version does: with g the identity on its
 # first rows, each entry of dW is one product, a * 1, so dW^T is a itself.
+# K3f (3xTF32) takes a * 1 as a_hi * 1 + a_hi * 0 + a_lo * 1: the sum of
+# the plain a's two TF32 halves, exact in f32.
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=DTYPE_IDS)
 @pytest.mark.parametrize("with_res", [False, True])
 @pytest.mark.parametrize("m,k,n", [(256, 64, 256), (700, 136, 520), (2048, 512, 2048)])
@@ -343,6 +369,9 @@ def test_dw_prologue_is_the_plain_a_bit_for_bit(cuda, m, k, n, with_res, dtype):
     dw = fm.bn_relu_matmul_bwd_dw(y, s, t, eye, res)
     torch.cuda.synchronize()
     a = torch.clamp_min(fm._z(y, s, t, res), 0.0).to(dtype).float()
+    if dtype == torch.float32:
+        hi, lo = fm.tf32_split(a)
+        a = hi + lo
     assert torch.equal(dw[:, :rows].t(), a[:rows])
 
 
@@ -362,11 +391,11 @@ def test_da_mask_is_the_plain_mask_bit_for_bit(cuda, m, k, n, with_res, dtype):
 @pytest.mark.parametrize("dtype,tiles_per_cta", [(torch.bfloat16, 3), (torch.float32, 2)],
                          ids=DTYPE_IDS)
 def test_fused_matmul_kernels_are_deterministic(cuda, dtype, tiles_per_cta):
-    # K2's walk gives each CTA several tiles (782 tiles on at most 132 CTAs;
-    # K2f's on 264, two to an SM); K3 and K3f split M over as many CTAs as
-    # the card runs at once.
+    # K2's walk gives each CTA several tiles (782 tiles on at most 132 CTAs,
+    # K2f's too); K3 and K3f split M over as many CTAs as the card runs at
+    # once (132 runs of K3's one tile, 66 of each of K3f's two).
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    assert fm.dw_plan(100000, 64, 256, sm_count, dtype)[0] > 100
+    assert len(fm.dw_work(100000, 64, 256, sm_count, dtype)) >= sm_count - 1
     walk = fm.da_tile_walk(100000, 64, 64, fm.cta_slots(sm_count, dtype))
     assert len(walk[0]) > tiles_per_cta
     y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, 100000, 64, 256, True, dtype)

@@ -228,7 +228,7 @@ def test_k2f_walk_covers_every_tile_of_gt_once(shape, sm_count):
     m, k, _ = shape
     bn = fm.da_tile_n(k)
     slots = fm.cta_slots(sm_count, torch.float32)
-    assert slots == 2 * sm_count
+    assert slots == sm_count  # one CTA an SM, as the bf16 K2's walk
     walk = fm.da_tile_walk(m, k, bn, slots)
     tiles = -(-m // 128) * -(-k // bn)
     assert len(walk) == min(slots, tiles)
@@ -244,16 +244,17 @@ def test_k2f_walk_covers_every_tile_of_gt_once(shape, sm_count):
 def test_k3f_split_plan_covers_every_tile_and_row_once(shape, sm_count):
     m, k, n = shape
     splits, chunk = fm.dw_plan(m, k, n, sm_count, torch.float32)
-    assert chunk % 8 == 0 and splits * chunk >= m > (splits - 1) * chunk
+    # Runs of whole 32-row ring stages: no stage crosses into the next run.
+    assert chunk % 32 == 0 and splits * chunk >= m > (splits - 1) * chunk
     work = fm.dw_work(m, k, n, sm_count, torch.float32)
     tile_k = fm.dw_tile_k(k)
     tiles = {(r, c) for r in range(0, k, tile_k) for c in range(0, n, 128)}
     assert len(work) == len(tiles) * splits
-    # The runs fill two CTAs per SM at most, unless the tiles alone are more.
-    assert len(work) <= max(2 * sm_count, len(tiles))
+    # The runs fill one CTA per SM at most, unless the tiles alone are more.
+    assert len(work) <= max(sm_count, len(tiles))
     rows = {}
     for k0, n0, begin, end in work:
-        assert (k0, n0) in tiles and begin % 8 == 0 and begin < end <= m
+        assert (k0, n0) in tiles and begin % 32 == 0 and begin < end <= m
         rows.setdefault((k0, n0), []).append((begin, end))
     assert set(rows) == tiles
     for spans in rows.values():
@@ -262,13 +263,13 @@ def test_k3f_split_plan_covers_every_tile_and_row_once(shape, sm_count):
         assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
 
 
-@pytest.mark.parametrize("m,k,n,splits,ctas", [
-    (664832, 64, 256, 132, 264), (166208, 128, 512, 66, 264),
-    (41552, 256, 1024, 16, 256), (10388, 512, 2048, 4, 256)])
-def test_k3f_plan_at_the_resnet50_stages(m, k, n, splits, ctas):
-    # Stage 1's two 64 x 128 tiles of dW split M 132 ways: 264 CTAs, two
-    # on each of the H100's 132 SMs.
-    assert fm.dw_plan(m, k, n, 132, torch.float32)[0] == splits
+@pytest.mark.parametrize("m,k,n,splits,chunk,ctas", [
+    (664832, 64, 256, 66, 10080, 132), (166208, 128, 512, 33, 5056, 132),
+    (41552, 256, 1024, 8, 5216, 128), (10388, 512, 2048, 2, 5216, 128)])
+def test_k3f_plan_at_the_resnet50_stages(m, k, n, splits, chunk, ctas):
+    # Stage 1's two 64 x 128 tiles of dW split M 66 ways: 132 CTAs, one on
+    # each of the H100's 132 SMs, each summing 315 stages of 32 rows.
+    assert fm.dw_plan(m, k, n, 132, torch.float32) == (splits, chunk)
     assert len(fm.dw_work(m, k, n, 132, torch.float32)) == ctas
 
 
@@ -289,3 +290,75 @@ def test_cpu_f32_counts_no_launch():
     after = [(f.launches, f.launches_f32) for f in
              (fm.bn_relu_matmul_fwd, fm.bn_relu_matmul_bwd_da, fm.bn_relu_matmul_bwd_dw)]
     assert after == before
+
+
+# -- 3xTF32: the arithmetic of K2f and K3f --------------------------------------
+#
+# K2f and K3f take each f32 product on the tensor cores as three TF32
+# products, A_hi B_hi + A_hi B_lo + A_lo B_hi, of the halves that
+# fm.tf32_split gives (cvt.rna.tf32.f32's rounding, emulated in torch ops).
+# Emulated here on the CPU with f32 accumulation, against the JAX op's f32
+# gradients (its Pallas kernels in interpret mode): gt (the residual's
+# cotangent, K2's function, with beta shifted so that the mask is on
+# everywhere and gt is the bare product) over reductions of 256 to 2,048,
+# and dW (K3's function) over one long run of M. Three passes meet JAX's
+# 1e-5 of max-abs; one TF32 pass (A_hi B_hi) does not.
+
+def _tf32_product(a, b, passes):
+    a_hi, a_lo = fm.tf32_split(a)
+    b_hi, b_lo = fm.tf32_split(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    return a_hi @ b_lo + a_lo @ b_hi + a_hi @ b_hi  # the kernels' order
+
+
+def _tf32_case(kernel, m, k, n, passes):
+    """(emulated, JAX's) result of ``kernel`` at [m, k] x [k, n] shapes."""
+    rng = np.random.default_rng(7)
+    y, res, g = (rng.normal(size=shape).astype(np.float32)
+                 for shape in ((m, k), (m, k), (m, n)))
+    gamma = rng.normal(1.0, 0.2, k).astype(np.float32)
+    beta = (rng.normal(0.0, 0.2, k) + (8.0 if kernel == "K2f" else 0.0)).astype(np.float32)
+    w = rng.normal(0.0, k ** -0.5, (k, n)).astype(np.float32)
+    jy, jgamma, jbeta = map(jnp.asarray, (y, gamma, beta))
+    _, vjp = jax.vjp(lambda w_, r_: _jax_fused(jy, jgamma, jbeta, w_, r_),
+                     jnp.asarray(w), jnp.asarray(res))
+    jdw, jgt = vjp(jnp.asarray(g))
+    ty, tres, tg, tw = map(torch.tensor, (y, res, g, w))
+    if kernel == "K2f":
+        mean, var = _stats(ty)
+        s = torch.tensor(gamma) * torch.rsqrt(var + EPS)
+        z = fm._z(ty, s, torch.tensor(beta) - mean * s, tres)
+        assert bool((z > 0).all())  # gt is the bare product g @ W^T
+        return _tf32_product(tg, tw.t(), passes), jgt
+    mean, var = _stats(ty)
+    s = torch.tensor(gamma) * torch.rsqrt(var + EPS)
+    a = torch.clamp_min(fm._z(ty, s, torch.tensor(beta) - mean * s, tres), 0.0)
+    return _tf32_product(a.t(), tg, passes), jdw
+
+
+@pytest.mark.parametrize("kernel,m,k,n", [
+    ("K2f", 64, 32, 256), ("K2f", 64, 32, 512), ("K2f", 64, 32, 1024), ("K2f", 64, 32, 2048),
+    ("K3f", 20000, 16, 32)])
+def test_3xtf32_product_meets_jax_f32_bar(kernel, m, k, n):
+    got, want = _tf32_case(kernel, m, k, n, passes=3)
+    assert _rel(want, got) < REL, f"{kernel}: rel err {_rel(want, got)}"
+
+
+@pytest.mark.parametrize("kernel,m,k,n", [("K2f", 64, 32, 2048), ("K3f", 20000, 16, 32)])
+def test_one_tf32_pass_misses_jax_f32_bar(kernel, m, k, n):
+    got, want = _tf32_case(kernel, m, k, n, passes=1)
+    assert _rel(want, got) > 10 * REL, f"{kernel}: rel err {_rel(want, got)}"
+
+
+def test_tf32_split_rounds_as_cvt_rna():
+    # Ties away from zero; the low 13 bits of both halves are zero.
+    x = torch.tensor([1.0 + 2 ** -11, -(1.0 + 2 ** -11), 1.0 + 2 ** -11 - 2 ** -23, 3.0])
+    hi, lo = fm.tf32_split(x)
+    assert hi.tolist() == [1.0 + 2 ** -10, -(1.0 + 2 ** -10), 1.0, 3.0]
+    assert torch.equal(lo, fm.tf32_split(x - hi)[0])
+    for v in (hi, lo):
+        assert not (v.view(torch.int32) & 0x1FFF).any()
+    r = torch.randn(10000, generator=torch.Generator().manual_seed(0))
+    hi, lo = fm.tf32_split(r)
+    assert ((r - hi - lo).abs() <= r.abs() * 2.0 ** -21).all()
