@@ -67,8 +67,9 @@ seconds.
    of max-abs or no worse than twice the plain version. Times of each
    kernel, its plain version and cuBLAS SGEMM (TF32 off) of the same
    product, beside two bounds for the same work: 3xTF32 on the tensor cores
-   (three products at 495 TFLOP/s, ``bound_ms``; K2f and K3f run so) and
-   one f32 product on the CUDA cores (67 TFLOP/s, ``bound_ffma_ms``; K1f).
+   (three products at 495 TFLOP/s, ``bound_ms``; K1f, K2f and K3f all run
+   so) and one f32 product on the CUDA cores (67 TFLOP/s,
+   ``bound_ffma_ms``: the yardstick of their earlier FFMA designs).
 4. training: a 848-row train table and a 212-row val table from the port's
    ``datagen images`` (256 px JPEGs, 1000 classes), then the port's
    ``train`` entry at full width: ResNet-50, ``--pallas-fused``, batch
@@ -96,11 +97,14 @@ seconds.
 5b. f32-parity: the f32 pallas level (K1f-K3f) on one batch of 212, cuDNN
    deterministic: against the f32 fused level, logits and loss within 1e-4
    and every BN running statistic within 1e-5 of max-abs; against the same
-   model through the plain versions, every parameter gradient within 5e-4
-   of max-abs (JAX's model-level bar); the gradients against the fused
-   level recorded (mask flips at this depth: PERF.md); each of the 16 blocks
-   alone, output within 1e-5 of the fused level's and conv3/middle-BN
-   gradients within 1e-4 of the plain versions' (the fused level's recorded).
+   model through the plain versions, logits and loss within 1e-4; against
+   the same model with K1f's forward and the plain versions' backward (the
+   same ReLU masks), every parameter gradient within 5e-4 of max-abs (JAX's
+   model-level bar); the gradients against the fused level and the
+   all-plain model recorded (mask flips at this depth: PERF.md); each of
+   the 16 blocks alone, output within 1e-5 of the fused level's and
+   conv3/middle-BN gradients within 1e-4 of the plain backward's (the fused
+   level's and the all-plain block's recorded).
 5c. pad: ``bn_relu_matmul`` at JAX's awkward shape (3, 5, 7, 17) -> N 33,
    zero-padded to the kernels' 16-byte rows, in f32 and bf16: K1-K3 launched
    once each (the f32 variants in f32), forward and dy against the plain
@@ -657,8 +661,9 @@ def _bound(nbytes: float, flops: float, dtype: str = "bfloat16") -> tuple[float,
 
 def _f32_bounds(nbytes: float, macs: float) -> dict:
     """The two bounds of an f32 product of ``macs`` multiply-adds moving
-    ``nbytes``: 3xTF32 (three products on the tensor cores, how K2f and K3f
-    run it) and one f32 product on the CUDA cores (FFMA, how K1f runs it)."""
+    ``nbytes``: 3xTF32 (three products on the tensor cores, how K1f-K3f run
+    it) and one f32 product on the CUDA cores (FFMA, the yardstick of their
+    earlier designs)."""
     bound, by = _bound(nbytes, 3 * 2 * macs, "tf32")
     ffma, ffma_by = _bound(nbytes, 2 * macs, "float32")
     return {"bound_ms": bound, "bound_by": by, "bound_ffma_ms": ffma, "bound_ffma_by": ffma_by}
@@ -993,14 +998,17 @@ def f32_train_phase(torch, tables, card: str) -> dict:
 
 
 @contextlib.contextmanager
-def _plain_fused_matmul():
+def _plain_fused_matmul(forward: bool = True):
     """The op's three wrappers swapped for their plain versions, so that the
     pallas level runs its arithmetic without the kernels: the comparison's
-    plain side, which launches nothing."""
+    plain side, which launches nothing. ``forward=False`` keeps K1 and swaps
+    the backward's two: a model that takes the kernel's forward, and so its
+    ReLU masks, bit for bit."""
     from dss_ml_at_scale_tpu_torch.ops import fused_matmul as fm
 
     saved = fm.bn_relu_matmul_fwd, fm.bn_relu_matmul_bwd_da, fm.bn_relu_matmul_bwd_dw
-    fm.bn_relu_matmul_fwd = fm.bn_relu_matmul_fwd_reference
+    if forward:
+        fm.bn_relu_matmul_fwd = fm.bn_relu_matmul_fwd_reference
     fm.bn_relu_matmul_bwd_da = fm.bn_relu_matmul_bwd_da_reference
     fm.bn_relu_matmul_bwd_dw = fm.bn_relu_matmul_bwd_dw_reference
     try:
@@ -1016,16 +1024,22 @@ def f32_parity_phase(torch, card: str) -> dict:
     noise). Against the f32 fused level (no kernel) with identical weights:
     logits and loss within 1e-4 of max-abs and every updated BN running
     statistic within 1e-5 of its max-abs. Against the same pallas level
-    through the plain versions: every parameter gradient of the whole model
-    within 5e-4 of max-abs (JAX's model-level f32 bar, which bf16 cannot
-    meet). The whole model's gradients against the fused level are
-    recorded, not held: at this depth they differ by up to 4e-2 of max-abs,
-    as much through the plain versions as through the kernels, where an
-    element's ReLU argument lies within the two levels' forward difference
-    of zero and its mask flips (PERF.md, ROADMAP). Then each of the 16
-    blocks alone at its full-width shape: output within 1e-5 of the fused
-    level's, conv3 and middle-BN gradients within 1e-4 of max-abs of the
-    plain versions' (the fused level's recorded: the same flips)."""
+    through the plain versions: logits and loss within 1e-4 of max-abs. The
+    backward against the same pallas level whose backward runs the plain
+    versions of K2 and K3 and whose forward runs K1f (so that both take the
+    same ReLU masks, bit for bit): every parameter gradient of the whole
+    model within 5e-4 of max-abs (JAX's model-level f32 bar, which bf16
+    cannot meet). The whole model's gradients against the fused level and
+    against the all-plain model are recorded, not held: at this depth they
+    differ by up to 4e-2 of max-abs wherever two forwards differ in their
+    last bits (K1f's 3xTF32 product against SGEMM's, like the fused level's
+    BN against the pallas level's), as an element's ReLU argument lies
+    within that difference of zero and its mask flips (PERF.md, ROADMAP).
+    Then each of the 16 blocks alone at its full-width shape: output within
+    1e-5 of the fused level's, conv3 and middle-BN gradients within 1e-4 of
+    max-abs of those of the block whose backward runs the plain versions
+    (the fused level's and the all-plain block's recorded: the same
+    flips)."""
     import torch.nn.functional as F
 
     from dss_ml_at_scale_tpu_torch.models import seeded_resnet
@@ -1065,11 +1079,27 @@ def f32_parity_phase(torch, card: str) -> dict:
         with _plain_fused_matmul():
             out["versions"] = step(versions)
         check(_fused_launches() == want, "the plain versions launched a kernel")
+        # The kernels' forward, the plain versions' backward: both models
+        # take the same ReLU masks, so the gradients differ by K2f and K3f.
+        bwd_versions = seeded_resnet(0, device="cuda", fused_bn="pallas", **config)
+        bwd_versions.load_state_dict(state)
+        with _plain_fused_matmul(forward=False):
+            out["bwd_versions"] = step(bwd_versions)
+        check(_fused_launches() == {**want, "K1": 32},
+              f"the plain backward launched {_fused_launches()}, want K1 32, K2 16, K3 16")
+        check(torch.equal(out["bwd_versions"][0], out["kernel"][0]),
+              "K1f's forward differs from run to run")
         check(bool(torch.isfinite(out["kernel"][0]).all()), "f32 parity: non-finite logits")
         logits_err = _rel(out["kernel"][0], out["plain"][0])
         loss_err = abs(out["kernel"][1] - out["plain"][1]) / abs(out["plain"][1])
         check(logits_err <= F32_PARITY_LOGITS, f"f32 logits differ by {logits_err} of max-abs")
         check(loss_err <= F32_PARITY_LOGITS, f"f32 loss differs by {loss_err}")
+        versions_logits_err = _rel(out["kernel"][0], out["versions"][0])
+        versions_loss_err = abs(out["kernel"][1] - out["versions"][1]) / abs(out["versions"][1])
+        check(versions_logits_err <= F32_PARITY_LOGITS,
+              f"f32 logits differ from the plain versions' by {versions_logits_err} of max-abs")
+        check(versions_loss_err <= F32_PARITY_LOGITS,
+              f"f32 loss differs from the plain versions' by {versions_loss_err}")
         plain_state = plain.state_dict()
         stat_errs = {name: _rel(v, plain_state[name])
                      for name, v in kernel.state_dict().items() if "running" in name}
@@ -1082,7 +1112,7 @@ def f32_parity_phase(torch, card: str) -> dict:
             theirs = dict(b.named_parameters())
             return {name: _rel(p.grad, theirs[name].grad) for name, p in a.named_parameters()}
 
-        vs_versions = grad_errs(kernel, versions)
+        vs_versions = grad_errs(kernel, bwd_versions)
         check(len(vs_versions) == 161, f"{len(vs_versions)} parameters, want 161")
         for name in vs_versions:
             if name.endswith(("conv3.weight", "bn2.weight", "bn2.bias")):
@@ -1093,23 +1123,27 @@ def f32_parity_phase(torch, card: str) -> dict:
               f"f32 model gradient {worst}: kernels and plain versions differ by "
               f"{vs_versions[worst]} of max-abs")
         vs_fused, versions_vs_fused = grad_errs(kernel, plain), grad_errs(versions, plain)
+        vs_all_plain = grad_errs(kernel, versions)
         worst_fused = max(vs_fused, key=vs_fused.get)
-        block_errs, block_fused_errs, out_errs = [], [], []
+        block_errs, block_fused_errs, block_all_plain_errs, out_errs = [], [], [], []
+        swaps = {"versions": lambda: _plain_fused_matmul(forward=False),
+                 "all_plain": _plain_fused_matmul}
         for li, count in enumerate(config["stage_sizes"], start=1):
             for j in range(count):
                 blocks = {tag: getattr(model, f"layer{li}")[j] for tag, model in
-                          (("kernel", kernel), ("versions", versions), ("plain", plain))}
+                          (("kernel", kernel), ("versions", bwd_versions),
+                           ("all_plain", versions), ("plain", plain))}
                 hw = 56 >> (li - 1) if j else 56 >> max(li - 2, 0)  # the block's input
                 xb = torch.randn(BATCH, hw, hw, blocks["kernel"].conv1.weight.shape[1],
                                  generator=gen, device="cuda")
                 yb = {}
                 for tag, blk in blocks.items():
                     blk.zero_grad()
-                    with _plain_fused_matmul() if tag == "versions" else contextlib.nullcontext():
+                    with swaps.get(tag, contextlib.nullcontext)():
                         yb[tag] = blk(xb)
                 cot = torch.randn(yb["plain"].shape, generator=gen, device="cuda")
                 for tag, blk in blocks.items():
-                    with _plain_fused_matmul() if tag == "versions" else contextlib.nullcontext():
+                    with swaps.get(tag, contextlib.nullcontext)():
                         yb[tag].backward(cot)
                 e = _rel(yb["kernel"].detach(), yb["plain"].detach())
                 check(e <= F32_BLOCK_OUT, f"f32 layer{li}.{j}: output differs by {e} of max-abs")
@@ -1121,10 +1155,12 @@ def f32_parity_phase(torch, card: str) -> dict:
                           f"versions' gradients differ by {e} of max-abs")
                     block_errs.append(e)
                     block_fused_errs.append(_rel(grad["kernel"], grad["plain"]))
+                    block_all_plain_errs.append(_rel(grad["kernel"], grad["all_plain"]))
     finally:
         torch.backends.cudnn.deterministic = deterministic
     result = {"logits_rel_err": logits_err, "loss_rel_err": loss_err, "loss": out["kernel"][1],
-              "logits_rel_err_plain_versions": _rel(out["kernel"][0], out["versions"][0]),
+              "logits_rel_err_plain_versions": versions_logits_err,
+              "loss_rel_err_plain_versions": versions_loss_err,
               "running_stat_rel_err_max": stat_errs[worst_stat], "running_stat_worst": worst_stat,
               "model_grad_rel_err_max": vs_versions[worst], "model_grad_worst": worst,
               "model_grad_rel_err_median": statistics.median(vs_versions.values()),
@@ -1134,13 +1170,18 @@ def f32_parity_phase(torch, card: str) -> dict:
               "vs_fused_model_grad_rel_err_median": statistics.median(vs_fused.values()),
               "vs_fused_model_grads_over_5e-4": sum(e > F32_PARITY_GRADS for e in vs_fused.values()),
               "plain_versions_vs_fused_model_grad_rel_err_max": max(versions_vs_fused.values()),
+              "vs_all_plain_model_grad_rel_err_max": max(vs_all_plain.values()),
+              "vs_all_plain_model_grad_rel_err_median": statistics.median(vs_all_plain.values()),
+              "vs_all_plain_model_grads_over_5e-4": sum(
+                  e > F32_PARITY_GRADS for e in vs_all_plain.values()),
               "block_out_rel_err_max": max(out_errs),
               "block_grad_rel_err_max": max(block_errs),
               "block_grads_checked": len(block_errs),
               "vs_fused_block_grad_rel_err_max": max(block_fused_errs),
-              "vs_fused_block_grad_rel_err_median": statistics.median(block_fused_errs)}
+              "vs_fused_block_grad_rel_err_median": statistics.median(block_fused_errs),
+              "vs_all_plain_block_grad_rel_err_max": max(block_all_plain_errs)}
     print(f"f32-parity ({card}): " + json.dumps(result), flush=True)
-    del kernel, plain, versions, out
+    del kernel, plain, versions, bwd_versions, out
     torch.cuda.empty_cache()
     return result
 

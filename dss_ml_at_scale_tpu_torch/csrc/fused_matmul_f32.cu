@@ -15,8 +15,8 @@
 // rebuilt for a change here.
 //
 // Precision. JAX's f32 tests hold these to 1e-5 of max-abs, which one pass
-// of TF32 (10 mantissa bits; 3e-4 here) cannot meet. K1f runs its product
-// in full f32 on the CUDA cores. K2f and K3f run theirs on the tensor cores
+// of TF32 (10 mantissa bits; 3e-4 here) cannot meet, nor K1f's element by
+// element rtol/atol 1e-5. All three run their products on the tensor cores
 // as 3xTF32: each f32 operand x is split as hi = rna_tf32(x) and lo =
 // rna_tf32(x - hi), and A*B is taken as A_hi*B_hi + A_hi*B_lo + A_lo*B_hi,
 // three TF32 wgmma products into one accumulator (the dropped A_lo*B_lo is
@@ -27,32 +27,26 @@
 // accumulator with FADD, rounded to nearest (kFlush).
 //
 // Bound on an H100 SXM. Every ResNet-50 bottleneck site does M*K*N =
-// 1.09e10 multiply-adds at batch 212. K1f on the CUDA cores (67 TFLOP/s) is
-// bound by operations at 0.325 ms at all four stages. K2f and K3f do three
-// TF32 products (495 TFLOP/s): 0.132 ms of operations, against bytes (each
-// input read and each output written once in f32, at 3.35 TB/s) of 0.305
-// ms (K2f) and 0.254 ms (K3f) at stage 1 and 0.152 ms (K2f) at stage 2:
-// stage 1 is set by bytes, stages 3-4 by operations.
+// 1.09e10 multiply-adds at batch 212. Three TF32 products (495 TFLOP/s) are
+// 0.132 ms of operations, against bytes (each input read and each output
+// written once in f32, at 3.35 TB/s) of 0.254 ms (K1f, K3f) and 0.305 ms
+// (K2f) at stage 1 and 0.152 ms (K2f) at stage 2: stage 1 is set by bytes,
+// stages 3-4 by operations.
 //
-// K1f: a register-blocked FFMA product. A CTA of 256 threads computes a
-// 128 x 128 tile of out, each thread an 8 x 8 block of it in registers,
-// summing the reduction in slabs of 8 that are staged into shared memory,
-// double buffered: each thread loads the next slab's float4 of each operand
-// from device memory into registers while the CTA multiplies the current
-// one, and stores it after, with one barrier per slab. y's slab is
-// transposed on that store, so every inner step reads its fragments as
-// float4 from shared memory. The BN prologue is applied to y's float4 in
-// registers on its way to shared memory, so the normalized activation never
-// reaches device memory. One CTA per tile, M first within a band of N.
-//
-// K2f and K3f: wgmma kernels of two warpgroups (8 warps: 255 registers a
+// All three are wgmma kernels of two warpgroups (8 warps: 255 registers a
 // thread, where a producer warp or warpgroup would cap them at 168), one
 // thread of which keeps a ring of stages full by TMA (every tile in the
 // 128-byte swizzle of hopper.cuh, 32 f32 a row, out-of-bounds rows and
 // columns zero-filled). TF32 wgmma takes no transposed operand, so its
 // shared-memory operand is K-major (the reduction index contiguous); A comes
-// from registers. The activation-sized operand (g, and K3f's a) is split in
-// registers and never reaches device memory as hi/lo copies.
+// from registers. The activation-sized operand (K1f's a, g, and K3f's a) is
+// split in registers and never reaches device memory as hi/lo copies.
+//   K1f: the reduction is K, contiguous in y[M,K] and strided in W[K,N]; W
+//        is split and transposed once a call into W_hi^T and W_lo^T [N, Kp]
+//        scratch, the B operands; a's A fragment is built from y's TMA tile
+//        in registers (BN prologue, residual, ReLU, split). Persistent: one
+//        CTA per SM walks 128 x 128 tiles of out, the N bands of an M band
+//        first; the epilogue stores each tile by TMA from a staging tile.
 //   K2f: the reduction is N, contiguous in g[M,N] and W[K,N]. W is split once
 //        a call by split_tf32_kernel into W_hi and W_lo [K,N] scratch (at
 //        most 512 x 2048), the two B operands; g's A fragment is read from
@@ -92,14 +86,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kBK = 8;         // reduction depth of one slab
-constexpr int kPad = 4;        // floats past each row of a staged slab
-
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
 // z = y*s + t, rounded after each operation as the plain version's separate
 // torch ops round (no fused multiply-add).
 __device__ __forceinline__ float bn_pre(float y, float s, float t) {
@@ -116,167 +102,8 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
                      __fadd_rn(a.w, b.w));
 }
 
-// One operand of the product, staged slab by slab. E is its extent along
-// the result (rows of the tile for A, columns for B); a slab is kBK x E,
-// kept in shared memory as [kBK][E + kPad]. RED_CONTIG: the source is
-// [E-index][reduction] row-major (the reduction index contiguous: the
-// float4 is transposed on its store); otherwise [reduction][E-index]. BNPRO
-// applies relu(y*s + t [+ res]) to the source y, per channel (the
-// reduction index of a RED_CONTIG operand, else the E index).
-template <int E, bool RED_CONTIG, bool BNPRO, bool RES>
-struct Operand {
-  static constexpr int kVecs = E * kBK / 4;  // float4 per slab: at most one per thread
-  static_assert(kVecs <= kThreads, "a slab is one float4 per thread at most");
-
-  const float* src;
-  const float* res;
-  const float* s;
-  const float* t;
-  int ld;     // the source's row length
-  int e0;     // first E index of the tile
-  int e_end;  // E indices at or past this are zero
-  int r_end;  // reduction indices at or past this are zero
-  float4 v;
-
-  __device__ __forceinline__ void coords(int& e, int& r) const {
-    const int i = threadIdx.x;
-    if (RED_CONTIG) {
-      e = i / (kBK / 4);
-      r = (i % (kBK / 4)) * 4;
-    } else {
-      r = i / (E / 4);
-      e = (i % (E / 4)) * 4;
-    }
-  }
-
-  __device__ __forceinline__ void load(int r0) {
-    if (threadIdx.x >= kVecs) return;
-    int e, r;
-    coords(e, r);
-    const int ge = e0 + e, gr = r0 + r;
-    v = make_float4(0.f, 0.f, 0.f, 0.f);
-    // Whole float4 in or out: the contiguous extent is a multiple of 4.
-    if (ge >= e_end || gr >= r_end) return;
-    const size_t off = RED_CONTIG ? static_cast<size_t>(ge) * ld + gr
-                                  : static_cast<size_t>(gr) * ld + ge;
-    v = ldg4(src + off);
-    if (BNPRO) {
-      const int ch = RED_CONTIG ? gr : ge;
-      float4 z = bn_z(v, ldg4(s + ch), ldg4(t + ch));
-      if (RES) z = add4(z, ldg4(res + off));
-      v = make_float4(fmaxf(z.x, 0.f), fmaxf(z.y, 0.f), fmaxf(z.z, 0.f), fmaxf(z.w, 0.f));
-    }
-  }
-
-  __device__ __forceinline__ void store(float* sm) const {
-    if (threadIdx.x >= kVecs) return;
-    int e, r;
-    coords(e, r);
-    if (RED_CONTIG) {
-      sm[(r + 0) * (E + kPad) + e] = v.x;
-      sm[(r + 1) * (E + kPad) + e] = v.y;
-      sm[(r + 2) * (E + kPad) + e] = v.z;
-      sm[(r + 3) * (E + kPad) + e] = v.w;
-    } else {
-      *reinterpret_cast<float4*>(sm + r * (E + kPad) + e) = v;
-    }
-  }
-};
-
-// Thread (tx, ty) = (t % 16, t / 16) holds rows h * BM/2 + 4 ty + i of the
-// tile (h < BM/64, i < 4) and columns h * BN/2 + 4 tx + j: two (or one)
-// float4 of each fragment per inner step.
-__device__ __forceinline__ int tile_row(int i, int bm) {
-  return (i / 4) * (bm / 2) + (threadIdx.x / 16) * 4 + i % 4;
-}
-
-__device__ __forceinline__ int tile_col(int j, int bn) {
-  return (j / 4) * (bn / 2) + (threadIdx.x % 16) * 4 + j % 4;
-}
-
-// acc += A[rows, r_begin:r_end] @ B[r_begin:r_end, cols], slab by slab.
-template <int BM, int BN, class OA, class OB>
-__device__ __forceinline__ void product(OA& oa, OB& ob, float (*as)[kBK * (BM + kPad)],
-                                        float (*bs)[kBK * (BN + kPad)], int r_begin,
-                                        int r_end, float (&acc)[BM / 16][BN / 16]) {
-  constexpr int TM = BM / 16, TN = BN / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int slabs = (r_end - r_begin + kBK - 1) / kBK;
-  oa.load(r_begin);
-  ob.load(r_begin);
-  oa.store(as[0]);
-  ob.store(bs[0]);
-  __syncthreads();
-  for (int sl = 0; sl < slabs; ++sl) {
-    const int cur = sl & 1;
-    const bool more = sl + 1 < slabs;
-    if (more) {
-      oa.load(r_begin + (sl + 1) * kBK);
-      ob.load(r_begin + (sl + 1) * kBK);
-    }
-    const float* a_s = as[cur];
-    const float* b_s = bs[cur];
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int h = 0; h < TM / 4; ++h) {
-        const float4 x = *reinterpret_cast<const float4*>(a_s + k * (BM + kPad) + h * (BM / 2) + ty * 4);
-        a[4 * h] = x.x, a[4 * h + 1] = x.y, a[4 * h + 2] = x.z, a[4 * h + 3] = x.w;
-      }
-#pragma unroll
-      for (int h = 0; h < TN / 4; ++h) {
-        const float4 x = *reinterpret_cast<const float4*>(b_s + k * (BN + kPad) + h * (BN / 2) + tx * 4);
-        b[4 * h] = x.x, b[4 * h + 1] = x.y, b[4 * h + 2] = x.z, b[4 * h + 3] = x.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (more) {
-      oa.store(as[cur ^ 1]);
-      ob.store(bs[cur ^ 1]);
-    }
-    __syncthreads();
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K1f: out = relu(y*s + t [+ res]) @ W.  y, res [M,K]; W [K,N]; out [M,N].
-// One CTA per 128 x 128 tile of out; tile i is row tile i % tiles_m of column
-// band i / tiles_m (M first within a band of N, so W's band stays in L2).
-// ---------------------------------------------------------------------------
-template <bool RES>
-__global__ void __launch_bounds__(kThreads, 2)
-fwd_f32_kernel(const float* __restrict__ y, const float* __restrict__ res,
-               const float* __restrict__ s, const float* __restrict__ t,
-               const float* __restrict__ w, float* __restrict__ out, int M, int K, int N,
-               int tiles_m) {
-  __shared__ __align__(16) float as[2][kBK * (128 + kPad)];
-  __shared__ __align__(16) float bs[2][kBK * (128 + kPad)];
-  const int m0 = (blockIdx.x % tiles_m) * 128, n0 = (blockIdx.x / tiles_m) * 128;
-  Operand<128, true, true, RES> oa{y, res, s, t, K, m0, M, K};
-  Operand<128, false, false, false> ob{w, nullptr, nullptr, nullptr, N, n0, N, K};
-  float acc[8][8] = {};
-  product<128, 128>(oa, ob, as, bs, 0, K, acc);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + tile_row(i, 128);
-    if (row >= M) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = n0 + tile_col(4 * h, 128);
-      if (col < N)
-        *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * N + col) =
-            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
-    }
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// 3xTF32 on wgmma: what K2f and K3f share.
+// 3xTF32 on wgmma: what K1f, K2f and K3f share.
 // ---------------------------------------------------------------------------
 using namespace hopper;
 
@@ -368,18 +195,250 @@ __device__ __forceinline__ void da_frags(uint32_t (&hi)[4][4], uint32_t (&lo)[4]
                  hi[ks][r], lo[ks][r]);
 }
 
-// K2f's 12 products of a stage on W_hi and W_lo at `base`, committed as one
+// The 12 products of a stage on the B tiles at b_hi (BN rows of 32 TF32 hi
+// halves, K-major) and b_hi + BN * 128 (the lo halves), committed as one
 // group; scale_d 0 starts a fresh chain.
 template <int BN>
-__device__ __forceinline__ void da_mma(float (&d)[BN / 2], const uint32_t (&hi)[4][4],
-                                       const uint32_t (&lo)[4][4], uint32_t base, int scale_d) {
-  const uint32_t b_hi = base + kDaGBytes, b_lo = b_hi + BN * 128;
+__device__ __forceinline__ void stage_mma(float (&d)[BN / 2], const uint32_t (&hi)[4][4],
+                                          const uint32_t (&lo)[4][4], uint32_t b_hi,
+                                          int scale_d) {
+  const uint32_t b_lo = b_hi + BN * 128;
   wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks)
     mma3<BN>(d, hi[ks], lo[ks], sw128_desc(b_hi + ks * 32, 16, 1024),
              sw128_desc(b_lo + ks * 32, 16, 1024), ks | scale_d);
   wgmma_commit();
+}
+
+// ---------------------------------------------------------------------------
+// K1f: out = relu(y*s + t [+ res]) @ W.  y, res [M,K]; W [K,N]; out [M,N].
+//
+// wgmma m64n128k8 with A = a's rows (k, the reduction, contiguous) from
+// registers and B = W^T's rows [n][k] (K-major) from shared memory. W is
+// split and transposed once a call by split_tf32_t_kernel into W_hi^T and
+// W_lo^T [N, Kp] scratch (Kp: K rounded up to the 32-deep stage), the two B
+// operands. A ring stage is a 128 x 32 tile of y (and of res) and the
+// 128 x 32 tiles of W_hi^T and W_lo^T; a warpgroup owns 64 rows of the
+// 128 x 128 output tile. Within a stage the reduction runs in a permuted
+// order (fwd_col): lane quad tq's A registers are then 8 neighbouring
+// columns of y, two 16-byte reads a row, and its s and t two float4 each;
+// W^T's scratch holds its columns in the same order. Each lane applies the
+// BN prologue to its fragment (rounding after every operation, so a is the
+// plain version's bit for bit), adds res, rectifies and splits it: a never
+// reaches device memory. Stage q+1's fragment is built into the second of
+// two register sets while stage q's 12 products run; the chain is then
+// added into the f32 accumulator and the slot freed (every warp arrives on
+// its empty barrier; thread 0 waits for them and refills it). Persistent:
+// CTA c walks tiles c, c + grid, ...; tile i is column band i % tiles_n of
+// row tile i / tiles_n (the N bands of an M band first, so neighbouring
+// CTAs read one y tile from device memory once), and the ring runs on
+// across tiles, so the next tile's loads are in flight during the epilogue.
+// The epilogue writes each warpgroup's 64 x 128 block into a staging tile
+// in shared memory (the SW128 layout of the out map) and one thread stores
+// it by TMA, which clips rows past M and columns past N; the store drains
+// while the next tile's products run, and is waited for (its reads of the
+// staging tile) only before the next tile's epilogue writes it.
+// ---------------------------------------------------------------------------
+constexpr int kFwdBM = 128, kFwdBN = 128;
+constexpr int kFwdYBytes = kFwdBM * 128;           // 16 KB: 128 rows x 32 columns of y
+constexpr int kFwdWBytes = kFwdBN * 128;           // 16 KB: 128 rows n x 32 k of W_hi^T
+constexpr int kFwdOutBytes = kFwdBM * kFwdBN * 4;  // 64 KB: the staged out tile
+
+// Physical column of logical column j of a stage (a permutation of 0..31):
+// lane quad tq's registers of k8 step ks, logical columns 8 ks + tq and
+// 8 ks + tq + 4, are physical 8 tq + 2 ks and 8 tq + 2 ks + 1.
+__host__ __device__ constexpr int fwd_col(int j) {
+  return 8 * (j % 4) + 2 * (j / 8) + (j / 4) % 2;
+}
+
+__host__ __device__ constexpr int fwd_stage_bytes(bool res) {
+  return kFwdYBytes * (res ? 2 : 1) + 2 * kFwdWBytes;
+}
+
+// Bytes of dynamic shared memory: alignment slack, the staging tile, the
+// ring, the barriers.
+__host__ __device__ constexpr int fwd_smem_bytes(bool res, int stages) {
+  return 1024 + kFwdOutBytes + stages * fwd_stage_bytes(res) + 2 * stages * 8;
+}
+
+// As many ring stages as fit, up to 4: 3 without a residual, 2 with one.
+int fwd_stages(bool res) {
+  return std::min(4, (kSmemLimit - fwd_smem_bytes(res, 0)) / (fwd_stage_bytes(res) + 16));
+}
+
+// W_hi^T and W_lo^T [N, Kp] from W [K,N]: element (n, 32 kb + j) is the
+// split of W[32 kb + fwd_col(j)][n], zero where that row is past K. One
+// 32 x 32 block of W per CTA, transposed through shared memory.
+__global__ void __launch_bounds__(256)
+split_tf32_t_kernel(const float* __restrict__ w, uint32_t* __restrict__ hi,
+                    uint32_t* __restrict__ lo, int K, int N, int Kp) {
+  __shared__ float blk[32][33];
+  const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int r = ty; r < 32; r += 8) {
+    const int k = k0 + r, n = n0 + tx;
+    blk[r][tx] = k < K && n < N ? w[static_cast<size_t>(k) * N + n] : 0.f;
+  }
+  __syncthreads();
+  for (int r = ty; r < 32; r += 8) {
+    const int n = n0 + r;
+    if (n >= N) continue;
+    const size_t off = static_cast<size_t>(n) * Kp + k0 + tx;
+    tf32_split(blk[fwd_col(tx)][r], hi[off], lo[off]);
+  }
+}
+
+// This lane's A fragment of a stage: a = relu(y*s + t [+ res]) of rows a_row
+// and a_row + 8 of the 128 x 32 y tile at `base` (res's tile follows it),
+// physical columns 8 tq .. 8 tq + 7 (s and t of them in sc, tc), split.
+// Register r of k8 step ks is row a_row + 8 (r & 1), physical column
+// 8 tq + 2 ks + (r >> 1).
+template <bool RES>
+__device__ __forceinline__ void fwd_frags(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                          uint32_t base, int a_row, int tq,
+                                          const float4 (&sc)[2], const float4 (&tc)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {  // physical columns 8 tq + 4 c .. + 3
+      const uint32_t at = sw128(a_row + 8 * h, 2 * tq + c);
+      float4 z = bn_z(lds128(base + at), sc[c], tc[c]);
+      if (RES) z = add4(z, lds128(base + kFwdYBytes + at));
+      const float a[4] = {fmaxf(z.x, 0.f), fmaxf(z.y, 0.f), fmaxf(z.z, 0.f), fmaxf(z.w, 0.f)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = 4 * c + e;  // = 2 ks + (r >> 1)
+        tf32_split(a[e], hi[p / 2][h + 2 * (p % 2)], lo[p / 2][h + 2 * (p % 2)]);
+      }
+    }
+}
+
+__device__ __forceinline__ void sts64(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b));
+}
+
+template <bool RES>
+__global__ void __launch_bounds__(kTcThreads, 1)
+fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_y,
+                const __grid_constant__ CUtensorMap tm_res,
+                const __grid_constant__ CUtensorMap tm_whi,
+                const __grid_constant__ CUtensorMap tm_wlo,
+                const __grid_constant__ CUtensorMap tm_out, const float* __restrict__ s,
+                const float* __restrict__ t, int M, int K, int N, int stages) {
+  constexpr int kYStage = kFwdYBytes * (RES ? 2 : 1);  // y's (and res's) tiles; W's follow
+  constexpr int kStage = fwd_stage_bytes(RES);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  const uint32_t s_out = smem_u32(smem);  // warpgroup wg's 64 rows at s_out + wg * 32 KB
+  const uint32_t s_ring = s_out + kFwdOutBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kFwdOutBytes + stages * kStage);
+  uint64_t* empty = full + stages;
+  const int tiles_n = (N + kFwdBN - 1) / kFwdBN;
+  const int tiles = (M + kFwdBM - 1) / kFwdBM * tiles_n;
+  const int n_kb = (K + kDepth - 1) / kDepth;
+  // Stage q of this CTA's walk: step q % n_kb of its tile q / n_kb.
+  const int n_q = (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x * n_kb;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  auto load = [&](int q) {  // thread 0: stage q into ring slot q % stages
+    const int tile = blockIdx.x + (q / n_kb) * gridDim.x, kb = q % n_kb, st = q % stages;
+    const int m0 = (tile / tiles_n) * kFwdBM, n0 = (tile % tiles_n) * kFwdBN;
+    const uint32_t base = s_ring + st * kStage;
+    mbar_arrive_expect_tx(&full[st], kStage);
+    tma_load_2d(base, &tm_y, &full[st], kb * kDepth, m0);
+    if (RES) tma_load_2d(base + kFwdYBytes, &tm_res, &full[st], kb * kDepth, m0);
+    tma_load_2d(base + kYStage, &tm_whi, &full[st], kb * kDepth, n0);
+    tma_load_2d(base + kYStage + kFwdWBytes, &tm_wlo, &full[st], kb * kDepth, n0);
+  };
+  // Thread 0 refills the slot of stage q once every warp has freed it.
+  auto refill = [&](int q) {
+    if (q + stages >= n_q) return;
+    mbar_wait(&empty[q % stages], (q / stages) & 1);
+    load(q + stages);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_fence_init();
+    for (int q = 0; q < min(stages, n_q); ++q) load(q);
+  }
+  __syncthreads();
+
+  // Warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile.
+  const int wg = warp / 4, wl = warp % 4;
+  const int g = lane >> 2, tq = lane & 3;
+  const int a_row = wg * 64 + wl * 16 + g;  // this lane's rows a_row and a_row + 8 of a tile
+  const bool storer = tid % 128 == 0;       // issues its warpgroup's TMA stores
+  const uint32_t s_wg = s_out + wg * (kFwdOutBytes / 2);
+  // Stage q's A fragment, once its slot has landed; s and t are read first.
+  auto frags = [&](int q, uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
+    const int c = (q % n_kb) * kDepth + 8 * tq;
+    float4 sc[2], tc[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // K is a multiple of 4: a float4 is in or out whole
+      const bool in = c + 4 * i < K;
+      sc[i] = in ? __ldg(reinterpret_cast<const float4*>(s + c + 4 * i)) : make_float4(0, 0, 0, 0);
+      tc[i] = in ? __ldg(reinterpret_cast<const float4*>(t + c + 4 * i)) : make_float4(0, 0, 0, 0);
+    }
+    mbar_wait(&full[q % stages], (q / stages) & 1);
+    fwd_frags<RES>(hi, lo, s_ring + (q % stages) * kStage, a_row, tq, sc, tc);
+  };
+
+  float acc[kFwdBN / 2], chain[kFwdBN / 2];
+  uint32_t hi0[4][4], lo0[4][4], hi1[4][4], lo1[4][4];
+  frags(0, hi0, lo0);  // every CTA has a tile: the grid is at most the tile count
+  int q = 0;           // stage q of the CTA's walk
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile / tiles_n) * kFwdBM, n0 = (tile % tiles_n) * kFwdBN;
+#pragma unroll
+    for (int i = 0; i < kFwdBN / 2; ++i) acc[i] = 0.f;
+    for (int kb = 0; kb < n_kb; ++kb, ++q) {
+      const int st = q % stages;
+      const uint32_t b_hi = s_ring + st * kStage + kYStage;
+      const int scale_d = kFlush ? 0 : kb != 0;  // without the flush, one chain a tile
+      const bool more = q + 1 < n_q;
+      if (q & 1) {
+        stage_mma<kFwdBN>(chain, hi1, lo1, b_hi, scale_d);
+        if (more) frags(q + 1, hi0, lo0);
+      } else {
+        stage_mma<kFwdBN>(chain, hi0, lo0, b_hi, scale_d);
+        if (more) frags(q + 1, hi1, lo1);
+      }
+      wgmma_wait<0>();
+      fence_regs(chain);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // stage q's tiles are read
+      if (tid == 0) refill(q);
+#pragma unroll
+      for (int i = 0; i < kFwdBN / 2; ++i) acc[i] = kFlush ? acc[i] + chain[i] : chain[i];
+    }
+
+    // Epilogue: this warpgroup's 64 x 128 block into its staging tile (four
+    // SW128 blocks of 64 rows x 32 columns, 8 KB each) once the previous
+    // tile's store has read it, then out by TMA.
+    if (storer) bulk_wait_read<0>();
+    named_bar_sync(1 + wg, 128);
+    const int row = wl * 16 + g;
+#pragma unroll
+    for (int i = 0; i < kFwdBN / 8; ++i) {  // columns 8 i + 2 tq, + 1
+      const uint32_t at = s_wg + (i / 4) * (64 * 128) + (tq & 1) * 8;
+      sts64(at + sw128(row, 2 * (i % 4) + tq / 2), acc[4 * i], acc[4 * i + 1]);
+      sts64(at + sw128(row + 8, 2 * (i % 4) + tq / 2), acc[4 * i + 2], acc[4 * i + 3]);
+    }
+    fence_proxy_async();  // the staging tile's stores, visible to the TMA store
+    named_bar_sync(1 + wg, 128);
+    if (storer) {
+      if (m0 + 64 * wg < M)
+        for (int b = 0; b < kFwdBN / 32 && n0 + 32 * b < N; ++b)
+          tma_store_2d(&tm_out, s_wg + b * (64 * 128), n0 + 32 * b, m0 + 64 * wg);
+      bulk_commit();
+    }
+  }
+  if (storer) bulk_wait<0>();  // the last stores are done before the CTA exits
 }
 
 // ---------------------------------------------------------------------------
@@ -495,10 +554,10 @@ bwd_da_tf32_kernel(const __grid_constant__ CUtensorMap tm_g,
       mbar_wait(&full[st], (q / stages) & 1);
       if (kb & 1) {
         da_frags(hi1, lo1, base, a_row, tq);
-        da_mma<BN>(chain, hi1, lo1, base, scale_d);
+        stage_mma<BN>(chain, hi1, lo1, base + kDaGBytes, scale_d);
       } else {
         da_frags(hi0, lo0, base, a_row, tq);
-        da_mma<BN>(chain, hi0, lo0, base, scale_d);
+        stage_mma<BN>(chain, hi0, lo0, base + kDaGBytes, scale_d);
       }
       wgmma_wait<0>();
       fence_regs(chain);
@@ -888,21 +947,47 @@ int opt_in(Kernel kernel, bool& configured) {
 // cudaGetLastError() after its launches (0 when they were accepted).
 
 
-// K1f. out [M,N]; one CTA per 128 x 128 tile.
+// K1f. out [M,N]; grid CTAs walk the 128 x 128 tiles (the wrapper's choice:
+// at most one per SM and one per tile); w_split [2, N, Kp] f32 scratch for
+// W_hi^T and W_lo^T, Kp = K rounded up to a multiple of 32.
 extern "C" int dsst_bn_relu_matmul_fwd_f32(const void* y, const void* res, const void* s,
-                                           const void* t, const void* w, void* out, int M, int K,
-                                           int N, void* stream) {
-  if (bad_shape(M, K, N)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles_m = (M + 127LL) / 128;
-  const long long tiles = tiles_m * ((N + 127LL) / 128);
-  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+                                           const void* t, const void* w, void* out,
+                                           void* w_split, int M, int K, int N, int grid,
+                                           void* stream) {
+  if (bad_shape(M, K, N) || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long kp = (K + 31LL) / 32 * 32;
+  const long long tiles = (M + 127LL) / 128 * ((N + 127LL) / 128);
+  if (kp / 32 > 65535 || grid > tiles || (tiles + grid - 1) / grid * (kp / 32) > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool with_res = res != nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto kernel = res != nullptr ? fwd_f32_kernel<true> : fwd_f32_kernel<false>;
-  kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
-      static_cast<const float*>(y), static_cast<const float*>(res), static_cast<const float*>(s),
-      static_cast<const float*>(t), static_cast<const float*>(w), static_cast<float*>(out), M, K,
-      N, static_cast<int>(tiles_m));
+  auto* w_hi = static_cast<uint32_t*>(w_split);
+  uint32_t* w_lo = w_hi + static_cast<size_t>(N) * kp;
+  split_tf32_t_kernel<<<dim3((N + 31) / 32, static_cast<unsigned>(kp / 32)), 256, 0, st>>>(
+      static_cast<const float*>(w), w_hi, w_lo, K, N, static_cast<int>(kp));
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  CUtensorMap tm_y, tm_res, tm_whi, tm_wlo, tm_out;
+  rc = make_map(&tm_y, y, K, M, kFwdBM);
+  if (rc == 0) rc = make_map(&tm_res, with_res ? res : y, K, M, kFwdBM);
+  if (rc == 0) rc = make_map(&tm_whi, w_hi, static_cast<int>(kp), N, kFwdBN);
+  if (rc == 0) rc = make_map(&tm_wlo, w_lo, static_cast<int>(kp), N, kFwdBN);
+  if (rc == 0) rc = make_map(&tm_out, out, N, M, 64);  // a warpgroup's 64 rows a store
+  if (rc != 0) return rc;
+  auto kernel = with_res ? fwd_tf32_kernel<true> : fwd_tf32_kernel<false>;
+  static bool configured[2] = {};
+  rc = opt_in(kernel, configured[with_res]);
+  if (rc != 0) return rc;
+  const int stages = fwd_stages(with_res);
+  kernel<<<grid, kTcThreads, fwd_smem_bytes(with_res, stages), st>>>(
+      tm_y, tm_res, tm_whi, tm_wlo, tm_out, static_cast<const float*>(s),
+      static_cast<const float*>(t), M, K, N, stages);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of one K1f CTA.
+extern "C" int dsst_bn_relu_matmul_fwd_f32_smem_bytes(int with_res) {
+  return fwd_smem_bytes(with_res != 0, fwd_stages(with_res != 0));
 }
 
 // K2f. gt [M,K]; bn the tile width, 64 or 128 (the wrapper's da_tile_n);

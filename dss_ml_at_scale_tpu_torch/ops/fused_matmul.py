@@ -58,14 +58,15 @@ from .fused_norm import reduce_grad_sums
 _FWD_TILE_M, _FWD_TILE_N = 128, 256
 _DA_TILE_M = 128
 _DW_TILE_N, _DW_DEPTH = 256, 64
-# Those of csrc/fused_matmul_f32.cu. K1f computes 128 x 128 tiles of out,
-# one CTA per tile. K2f walks 128-row tiles of gt, ``da_tile_n`` channels
-# wide, one CTA per SM. K3f computes ``dw_tile_k`` x 128 tiles of dW and sums
-# M in runs that are multiples of its ring's 32-row stage (kDepth), one CTA
-# per SM.
+# Those of csrc/fused_matmul_f32.cu. K1f walks 128 x 128 tiles of out, one
+# CTA per SM, and takes W split and transposed into [N, K] scratch whose rows
+# are padded to its 32-deep stage (kDepth). K2f walks 128-row tiles of gt,
+# ``da_tile_n`` channels wide, one CTA per SM. K3f computes ``dw_tile_k`` x
+# 128 tiles of dW and sums M in runs that are multiples of its ring's 32-row
+# stage, one CTA per SM.
 _F32_TILE = 128
 _TF32_DEPTH = 32
-_CTAS_PER_SM = {torch.bfloat16: 1, torch.float32: 1}  # K2/K3 and K2f/K3f
+_CTAS_PER_SM = {torch.bfloat16: 1, torch.float32: 1}  # K2/K3 and K1f-K3f
 # TMA coordinates and the kernels' row indices are 32-bit signed integers.
 _MAX_ROWS = 2 ** 31 - 1
 
@@ -108,11 +109,11 @@ def bn_relu_matmul_bwd_dw_reference(y2, s, t, g, res=None) -> torch.Tensor:
 
 
 def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The split K2f and K3f apply to every f32 operand in registers, in
-    torch ops: ``hi = rna(x)`` and ``lo = rna(x - hi)``, where ``rna``
-    rounds to TF32 (10 mantissa bits), to nearest with ties away from zero,
-    as ``cvt.rna.tf32.f32`` does. The kernels take ``A @ B`` as ``A_hi @
-    B_hi + A_hi @ B_lo + A_lo @ B_hi`` on the tensor cores (3xTF32)."""
+    """The split K1f-K3f apply to every f32 operand, in torch ops: ``hi =
+    rna(x)`` and ``lo = rna(x - hi)``, where ``rna`` rounds to TF32 (10
+    mantissa bits), to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32`` does. The kernels take ``A @ B`` as ``A_hi @ B_hi +
+    A_hi @ B_lo + A_lo @ B_hi`` on the tensor cores (3xTF32)."""
 
     def rna(v):
         bits = v.contiguous().view(torch.int32)
@@ -156,7 +157,9 @@ def _kernel_f32():
 
         lib = load("fused_matmul_f32")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dsst_bn_relu_matmul_fwd_f32.argtypes = [p] * 6 + [i] * 3 + [p]
+        lib.dsst_bn_relu_matmul_fwd_f32.argtypes = [p] * 7 + [i] * 4 + [p]
+        lib.dsst_bn_relu_matmul_fwd_f32_smem_bytes.argtypes = [i]
+        lib.dsst_bn_relu_matmul_fwd_f32_smem_bytes.restype = i
         lib.dsst_bn_relu_matmul_bwd_da_f32.argtypes = [p] * 12 + [i] * 5 + [p]
         lib.dsst_bn_relu_matmul_bwd_dw_f32.argtypes = [p] * 7 + [i] * 6 + [p]
         lib.dsst_bn_relu_matmul_bwd_da_f32_smem_bytes.argtypes = [i]
@@ -240,10 +243,10 @@ def _sm_count(x: torch.Tensor) -> int:
 
 
 def cta_slots(sm_count: int, dtype: torch.dtype) -> int:
-    """CTAs of K2 and K3 (``dtype`` bf16) or K2f and K3f (f32) that run at
-    once on ``sm_count`` SMs: one per SM in either type, as each fills an SM
-    alone (K2 and K3 with 384 threads; K2f and K3f with 256 threads of up to
-    255 registers and 178-227 KB of shared memory)."""
+    """CTAs of K2 and K3 (``dtype`` bf16) or K1f-K3f (f32) that run at once
+    on ``sm_count`` SMs: one per SM in either type, as each fills an SM alone
+    (K2 and K3 with 384 threads; K1f-K3f with 256 threads of up to 255
+    registers and 178-227 KB of shared memory)."""
     return sm_count * _CTAS_PER_SM[dtype]
 
 
@@ -254,12 +257,20 @@ def fwd_tile_walk(m: int, n: int, sm_count: int,
     in order. Tile ``i`` is row tile ``i % tiles_m`` of column band
     ``i // tiles_m`` (M first within a band of N), and CTA ``c`` takes tiles
     ``c, c + grid, c + 2 grid, ...``, as the kernel does. K1f (``dtype``
-    f32) orders its 128 x 128 tiles the same way, one CTA per tile."""
-    tile_n = _F32_TILE if dtype == torch.float32 else _FWD_TILE_N
+    f32) walks 128 x 128 tiles over ``cta_slots`` CTAs in the same way, but
+    the N bands of an M band first: tile ``i`` is column band ``i %
+    tiles_n`` of row tile ``i // tiles_n``, so CTAs that run together read
+    one tile of y."""
+    if dtype == torch.float32:
+        tiles_n = -(-n // _F32_TILE)
+        tiles = -(-m // _F32_TILE) * tiles_n
+        grid = min(tiles, cta_slots(sm_count, dtype))
+        return [[((i // tiles_n) * _F32_TILE, (i % tiles_n) * _F32_TILE)
+                 for i in range(c, tiles, grid)] for c in range(grid)]
     tiles_m = -(-m // _FWD_TILE_M)
-    tiles = tiles_m * -(-n // tile_n)
-    grid = tiles if dtype == torch.float32 else min(tiles, sm_count)
-    return [[((i % tiles_m) * _FWD_TILE_M, (i // tiles_m) * tile_n)
+    tiles = tiles_m * -(-n // _FWD_TILE_N)
+    grid = min(tiles, sm_count)
+    return [[((i % tiles_m) * _FWD_TILE_M, (i // tiles_m) * _FWD_TILE_N)
              for i in range(c, tiles, grid)] for c in range(grid)]
 
 
@@ -276,12 +287,19 @@ def bn_relu_matmul_fwd(y2, s, t, w, res=None) -> torch.Tensor:
     out = torch.empty((m, n), dtype=y2.dtype, device=y2.device)
     f32 = y2.dtype == torch.float32
     args = (y2.data_ptr(), _ptr(res), s.data_ptr(), t.data_ptr(), w.data_ptr(),
-            out.data_ptr(), m, k, n)
+            out.data_ptr())
     with torch.cuda.device(y2.device):
         if f32:
-            rc = _kernel_f32().dsst_bn_relu_matmul_fwd_f32(*args, _stream(y2))
+            # W_hi^T and W_lo^T, the TF32 halves of W transposed, rows padded
+            # to the 32-deep stage: the C entry point writes them before K1f.
+            w_split = torch.empty((2, n, -(-k // _TF32_DEPTH) * _TF32_DEPTH),
+                                  dtype=torch.float32, device=y2.device)
+            tiles = -(-m // _F32_TILE) * -(-n // _F32_TILE)
+            grid = min(tiles, cta_slots(_sm_count(y2), y2.dtype))
+            rc = _kernel_f32().dsst_bn_relu_matmul_fwd_f32(
+                *args, w_split.data_ptr(), m, k, n, grid, _stream(y2))
         else:
-            rc = _kernel().dsst_bn_relu_matmul_fwd(*args, _sm_count(y2), _stream(y2))
+            rc = _kernel().dsst_bn_relu_matmul_fwd(*args, m, k, n, _sm_count(y2), _stream(y2))
     _raise_if(rc, "bn_relu_matmul_fwd")
     bn_relu_matmul_fwd.launches += 1
     bn_relu_matmul_fwd.launches_f32 += f32

@@ -163,6 +163,8 @@ def test_kernels_opt_in_to_more_than_48kb_of_shared_memory(cuda):
     lib = fm._kernel()
     assert lib.dsst_bn_relu_matmul_fwd_smem_bytes(512, 1) > 48 * 1024
     lib_f32 = fm._kernel_f32()
+    for with_res in (0, 1):
+        assert lib_f32.dsst_bn_relu_matmul_fwd_f32_smem_bytes(with_res) > 48 * 1024
     for tile in (64, 128):
         assert lib_f32.dsst_bn_relu_matmul_bwd_da_f32_smem_bytes(tile) > 48 * 1024
         for with_res in (0, 1):
@@ -264,7 +266,7 @@ DTYPE_IDS = ["bfloat16", "float32"]
 
 
 # M, K and N on and off K1's 128 x 256 x 64 tile edges and K1f's 128 x 128
-# x 8 ones.
+# x 32 ones.
 @pytest.mark.parametrize("dtype,out_tol,rel", DTYPES)
 @pytest.mark.parametrize("with_res", [False, True])
 @pytest.mark.parametrize("n", [200, 256, 2048])
@@ -352,6 +354,51 @@ def test_f32_backward_kernels_on_tf32_edges(cuda, m, k, n, with_res):
         splits, chunk = fm.dw_plan(m, k, n, sm_count, torch.float32)
         assert splits > 1 and chunk % 32 == 0 and m % chunk
     _check_backward(cuda, m, k, n, with_res, torch.float32, 1e-5)
+
+
+# K1f (3xTF32 wgmma) on its edges, held to JAX's f32 bar element by element
+# (rtol/atol 1e-5, tests/test_fused_matmul.py:76): one row, and rows on and
+# off its 64-row warpgroup blocks and 128-row tiles; K off its 32-deep stage
+# (4, 36, 72, 136: a stage partly past K; 32 one whole stage) and at stage
+# 4's 512; N off its 128-column tiles and its 32-column TMA stores (4, 132,
+# 200) and at stage 4's 2048 (16 column bands a row tile).
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("n", [4, 128, 132, 200, 2048])
+@pytest.mark.parametrize("k", [4, 32, 36, 72, 136, 512])
+@pytest.mark.parametrize("m", [1, 63, 65, 129, 4133])
+def test_k1f_on_its_edges(cuda, m, k, n, with_res):
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, n, with_res, torch.float32)
+    before = _launches()[0]
+    out = fm.bn_relu_matmul_fwd(y, s, t, w, res)
+    torch.cuda.synchronize()
+    assert _launches()[0] == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, fm.bn_relu_matmul_fwd_reference(y, s, t, w, res),
+                               rtol=1e-5, atol=1e-5)
+
+
+# K1f's prologue rounds as the plain version does: with W the identity each
+# entry of out is one product, a * 1, which 3xTF32 takes as a_hi * 1 +
+# a_hi * 0 + a_lo * 1: the sum of the plain a's two TF32 halves, exact in f32.
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("m,k", [(256, 64), (700, 136), (2048, 512)])
+def test_k1f_prologue_is_the_plain_a_bit_for_bit(cuda, m, k, with_res):
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, m, k, k, with_res, torch.float32)
+    out = fm.bn_relu_matmul_fwd(y, s, t, torch.eye(k, device="cuda"), res)
+    torch.cuda.synchronize()
+    hi, lo = fm.tf32_split(torch.clamp_min(fm._z(y, s, t, res), 0.0))
+    assert torch.equal(out, hi + lo)
+
+
+@pytest.mark.parametrize("with_res", [False, True])
+def test_k1f_is_deterministic(cuda, with_res):
+    # Stage 1's shape: 79 tiles on some of the 132 CTAs, each summed in a
+    # fixed order (no atomics), so every run gives the same bits.
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    assert max(map(len, fm.fwd_tile_walk(664832, 256, sm_count, torch.float32))) > 1
+    y, s, t, mean, inv, w, g, res = _fused_inputs(cuda, 664832, 64, 256, with_res, torch.float32)
+    first = fm.bn_relu_matmul_fwd(y, s, t, w, res)
+    for _ in range(3):
+        assert torch.equal(fm.bn_relu_matmul_fwd(y, s, t, w, res), first)
 
 
 # K3's prologue rounds as the plain version does: with g the identity on its

@@ -11,7 +11,8 @@ in interpret mode) and the port's op, at the tolerances of
 cotangent under 1e-5 of the JAX gradient's max-abs (``:104``), the bf16
 pipeline at rtol 0.05 / atol 0.15 (``:203``). The f32 kernels' tile walks and
 K3f's split plan are pure functions, checked here to cover every output tile
-and every row exactly once; the kernels themselves run on the card
+and every row exactly once, and their 3xTF32 arithmetic is emulated here
+against JAX's bars; the kernels themselves run on the card
 (``tests/test_torch_cuda_kernels.py``).
 """
 
@@ -213,13 +214,32 @@ _PLAN_SETTINGS = settings(max_examples=60, deadline=None)
 @given(shape=_SHAPES, sm_count=_SMS)
 def test_k1f_tiles_cover_every_output_tile_once(shape, sm_count):
     m, _, n = shape
+    slots = fm.cta_slots(sm_count, torch.float32)
     walk = fm.fwd_tile_walk(m, n, sm_count, torch.float32)
-    assert all(len(cta) == 1 for cta in walk)  # one CTA per tile
+    want = [(r, c) for r in range(0, m, 128) for c in range(0, n, 128)]
+    assert len(walk) == min(slots, len(want))  # persistent: one CTA an SM at most
     got = [tile for cta in walk for tile in cta]
-    want = {(r, c) for r in range(0, m, 128) for c in range(0, n, 128)}
-    assert len(got) == len(want) and set(got) == want
-    # M first within a band of N, in CTA order.
-    assert got == sorted(got, key=lambda rc: (rc[1], rc[0]))
+    assert len(got) == len(want) and set(got) == set(want)
+    # The kernel's order: tile i is column band i % tiles_n of row tile
+    # i // tiles_n (the N bands of an M band first), CTA c takes tiles c,
+    # c + grid, ...; so round j of the walk is tiles j * grid .. in order.
+    grid = len(walk)
+    for c, cta in enumerate(walk):
+        assert cta == want[c::grid]
+
+
+@pytest.mark.parametrize("m,n,most,least", [
+    (664832, 256, 79, 78), (166208, 512, 40, 39), (41552, 1024, 20, 19), (10388, 2048, 10, 9)])
+def test_k1f_walk_at_the_resnet50_stages(m, n, most, least):
+    # 132 CTAs, one on each of the H100's SMs, share the 128 x 128 tiles
+    # (10,388 at stage 1, 1,312 at stage 4) within one tile of each other;
+    # the CTAs of a round read the same rows of y: stage 1's two column
+    # bands of a row tile go to neighbouring CTAs.
+    walk = fm.fwd_tile_walk(m, n, 132, torch.float32)
+    assert len(walk) == 132
+    assert max(map(len, walk)) == most and min(map(len, walk)) == least
+    first = [cta[0] for cta in walk]
+    assert first[:2 * (n // 128)] == [(r, c) for r in (0, 128) for c in range(0, n, 128)]
 
 
 @_PLAN_SETTINGS
@@ -292,17 +312,19 @@ def test_cpu_f32_counts_no_launch():
     assert after == before
 
 
-# -- 3xTF32: the arithmetic of K2f and K3f --------------------------------------
+# -- 3xTF32: the arithmetic of K1f, K2f and K3f --------------------------------
 #
-# K2f and K3f take each f32 product on the tensor cores as three TF32
-# products, A_hi B_hi + A_hi B_lo + A_lo B_hi, of the halves that
-# fm.tf32_split gives (cvt.rna.tf32.f32's rounding, emulated in torch ops).
-# Emulated here on the CPU with f32 accumulation, against the JAX op's f32
-# gradients (its Pallas kernels in interpret mode): gt (the residual's
-# cotangent, K2's function, with beta shifted so that the mask is on
-# everywhere and gt is the bare product) over reductions of 256 to 2,048,
-# and dW (K3's function) over one long run of M. Three passes meet JAX's
-# 1e-5 of max-abs; one TF32 pass (A_hi B_hi) does not.
+# K1f-K3f take each f32 product on the tensor cores as three TF32 products,
+# A_hi B_hi + A_hi B_lo + A_lo B_hi, of the halves that fm.tf32_split gives
+# (cvt.rna.tf32.f32's rounding, emulated in torch ops). Emulated here on the
+# CPU with f32 accumulation, against the JAX op's f32 forward and gradients
+# (its Pallas kernels in interpret mode): out (K1's function) element by
+# element at rtol/atol 1e-5, summed as K1f sums it, a fresh chain per 32-deep
+# stage added into an f32 accumulator, at the four ResNet-50 stages' K and N;
+# gt (the residual's cotangent, K2's function, with beta shifted so that the
+# mask is on everywhere and gt is the bare product) over reductions of 256
+# to 2,048, and dW (K3's function) over one long run of M. Three passes meet
+# JAX's bars; one TF32 pass (A_hi B_hi) does not.
 
 def _tf32_product(a, b, passes):
     a_hi, a_lo = fm.tf32_split(a)
@@ -349,6 +371,35 @@ def test_3xtf32_product_meets_jax_f32_bar(kernel, m, k, n):
 def test_one_tf32_pass_misses_jax_f32_bar(kernel, m, k, n):
     got, want = _tf32_case(kernel, m, k, n, passes=1)
     assert _rel(want, got) > 10 * REL, f"{kernel}: rel err {_rel(want, got)}"
+
+
+def _k1f_case(m, k, n, passes):
+    """(emulated K1f, JAX's forward, max over elements of |err| / (atol +
+    rtol |JAX's|)) at [m, k] x [k, n]: one chain per 32-deep stage."""
+    y, _, gamma, beta, w = _inputs((m,), k, n, seed=11)
+    w = w * (10 * k ** -0.5)  # the model's init scale, out ~ 1
+    want = np.asarray(_jax_fused(*map(jnp.asarray, (y, gamma, beta, w))))
+    ty, tw = torch.tensor(y), torch.tensor(w)
+    mean, var = _stats(ty)
+    s = torch.tensor(gamma) * torch.rsqrt(var + EPS)
+    a = torch.clamp_min(fm._z(ty, s, torch.tensor(beta) - mean * s, None), 0.0)
+    got = torch.zeros(m, n)
+    for k0 in range(0, k, 32):
+        got = got + _tf32_product(a[:, k0:k0 + 32], tw[k0:k0 + 32], passes)
+    share = np.abs(got.numpy() - want) / (1e-5 + 1e-5 * np.abs(want))
+    return got, want, float(share.max())
+
+
+@pytest.mark.parametrize("k,n", [(64, 256), (128, 512), (256, 1024), (512, 2048)])
+def test_k1f_3xtf32_meets_jax_elementwise_bar(k, n):
+    got, want, share = _k1f_case(64, k, n, passes=3)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert share < 0.5  # with room: the tensor cores' truncated sums add to this
+
+
+def test_k1f_one_tf32_pass_misses_jax_elementwise_bar():
+    _, _, share = _k1f_case(64, 512, 2048, passes=1)
+    assert share > 10, f"worst element at {share} of the bar"
 
 
 def test_tf32_split_rounds_as_cvt_rna():
