@@ -13,7 +13,9 @@ seconds.
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions; TF32
    off for matmuls and convolutions (the LM head is an f32 product, and
-   the plain versions of the kernels must be full f32);
+   the plain versions of the kernels must be full f32); ``info`` and
+   ``info --probe 30`` of the port's CLI as child processes, each listing
+   ``cuda:0`` with the card's name, and their seconds;
    builds every kernel of ``dss_ml_at_scale_tpu_torch/csrc`` with nvcc,
    one process per source, all at once; prints the build time, each
    kernel's registers, spills and static shared memory from ptxas (and its
@@ -248,9 +250,13 @@ seconds.
    restarted worker's trial spans (pulled over RPC) count its evaluations,
    the sweep's process re-admitted it; a sweep SIGKILLed at its third trial
    (``--fault-plan trial.evaluate=k1@2``) and ``hpo --resume-auto`` to 4
-   (tids 2 and 3 journaled, the killed run INTERRUPTED). Best alphas in
-   [0, 10], seconds per trial, the card's idle share over the closure
-   sweep.
+   (tids 2 and 3 journaled, the killed run INTERRUPTED); the >= 1 GB
+   regime: ``datagen regression --bytes 1e9`` (split 990098+247525, an npz
+   of at least 1e9 bytes) and ``hpo --workers --data`` over 4 evals against
+   two fresh workers, every trial ok, each worker's first trial (the 1 GB
+   load) and later trials timed from its spans, the host's available
+   memory before and after. Best alphas in [0, 10], seconds per trial, the
+   card's idle share over the closure sweep.
 15e. chaos (beside 15b-15d, on a thread): the ``chaos`` soaks of train,
    then serve, with hpo beside them, on the card, every invariant held
    (``CHAOS_SOAKS``).
@@ -447,6 +453,28 @@ def toolchain(_build) -> dict:
                    if importlib.util.find_spec("triton") else None),
         "cutlass_headers": os.path.isdir("/usr/local/cutlass/include"),
     }
+
+
+def info_phase(kind: str, card: str) -> dict:
+    """``info`` and ``info --probe 30`` of the port's CLI, each a child
+    process on the card: rc 0 and exactly ``process 0/1``, ``devices 1
+    local / 1 global`` and the card's line, ``cuda:0 (<its name>)``; each
+    one's seconds (a process start, torch's import and the CUDA init; the
+    probe adds its parent's)."""
+    want = ["process 0/1", "devices 1 local / 1 global", f"  cuda:0 ({kind})"]
+    out = {}
+    for argv in (["info"], ["info", "--probe", "30"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(CLI + argv, capture_output=True, text=True, timeout=120,
+                              env=_port_env())
+        seconds = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        check(proc.returncode == 0 and lines == want,
+              f"{' '.join(argv)}: rc {proc.returncode}, lines {lines}, want {want}\n"
+              f"{proc.stderr[-2000:]}")
+        out[" ".join(argv)] = {"seconds": seconds, "lines": lines}
+        print(f"info: `{' '.join(argv)}` {seconds:.2f} s ({card})", flush=True)
+    return out
 
 
 def device_ms(fn, launches: int = 20, trials: int = 3) -> float:
@@ -1255,8 +1283,61 @@ def pad_phase(torch, card: str) -> dict:
             "forward_max_abs_err": fwd_err.max().item(), "dy_max_abs_err": dy_err.max().item(),
             "dy_rel_err": _rel(dy, ref_y.grad), "launches": _fused_launches(),
             "launches_f32": _fused_launches_f32()}
+        # Timed after the counts are read (each dtype's run zeroes them first).
+        result[str(dtype).removeprefix("torch.")]["timing"] = _pad_kernel_times(
+            torch, fm, cuda[0], cuda[1], cuda[2], cuda[3], dtype)
     print(f"pad ({card}): " + json.dumps(result), flush=True)
     return result
+
+
+def _pad_kernel_times(torch, fm, y, gamma, beta, w, dtype) -> dict:
+    """K1-K3 (K1f-K3f in f32) at the pad case, on the operands zero-padded as
+    ``bn_relu_matmul`` hands them to the kernels, each beside its plain
+    version, the cuBLAS product and the bound, the last two of the true
+    shape (M 105, K 17, N 33)."""
+    import torch.nn.functional as F
+
+    k, n = w.shape
+    y2 = y.reshape(-1, k).to(dtype)
+    m = y2.shape[0]
+    yf = y2.float()
+    mean = yf.mean(0)
+    var = yf.square().mean(0) - mean.square()
+    inv = torch.rsqrt(var + 1e-5)
+    s = gamma * inv
+    t = beta - mean * s
+    wd = w.to(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g = torch.randn(m, n, generator=gen, device="cuda").to(dtype)
+    a = torch.clamp_min(fm._z(y2, s, t, None), 0.0).to(dtype)
+    align = fm.row_align(dtype)
+    pk, pn = -k % align, -n % align
+    yp, sp, tp, meanp = (F.pad(x, (0, pk)) for x in (y2, s, t, mean))
+    invp = torch.rsqrt(F.pad(var, (0, pk)) + 1e-5)
+    wp, gp = F.pad(wd, (0, pn, 0, pk)), F.pad(g, (0, pn))
+    elt = y2.element_size()
+    work = {  # (kernel on the padded operands, plain version, cuBLAS, bytes of the true shape)
+        "K1": (lambda: fm.bn_relu_matmul_fwd(yp, sp, tp, wp),
+               lambda: fm.bn_relu_matmul_fwd_reference(y2, s, t, wd),
+               lambda: torch.matmul(a, wd), elt * (m * k + k * n + m * n) + 8 * k),
+        "K2": (lambda: fm.bn_relu_matmul_bwd_da(gp, wp, yp, sp, tp, meanp, invp),
+               lambda: fm.bn_relu_matmul_bwd_da_reference(g, wd, y2, s, t, mean, inv),
+               lambda: torch.matmul(g, wd.t()), elt * (m * n + k * n + 2 * m * k) + 24 * k),
+        "K3": (lambda: fm.bn_relu_matmul_bwd_dw(yp, sp, tp, gp),
+               lambda: fm.bn_relu_matmul_bwd_dw_reference(y2, s, t, g),
+               lambda: torch.matmul(a.t(), g), elt * (m * k + m * n) + 8 * k + 4 * k * n),
+    }
+    out = {}
+    for name, (kernel, plain, library, nbytes) in work.items():
+        if dtype == torch.float32:
+            bound = _f32_bounds(nbytes, m * k * n)
+        else:
+            ms, by = _bound(nbytes, 2 * m * k * n)
+            bound = {"bound_ms": ms, "bound_by": by}
+        out[name] = {"shape": f"M{m} K{k} N{n} (padded K{k + pk} N{n + pn})",
+                     "ms": device_ms(kernel), "plain_ms": device_ms(plain, 5),
+                     "library_ms": device_ms(library), **bound}
+    return out
 
 
 def _cli_out(argv: list[str]) -> tuple[int, str]:
@@ -3441,10 +3522,12 @@ def job_pipeline_phase(torch, card: str, side: dict) -> dict:
 
 # Two train steps of 212 real-photo crops at the repo's Track A width.
 PHOTOS_ROWS, PHOTOS_SIZE, PHOTOS_STEPS = 424, 256, 2
-# The reference's <= 10 MB closure and ~100 MB regimes
-# (hyperopt/2. hyperopt on diff sizes of data.py); its >= 1 GB shared-FS
-# regime is cut for the script's time (PERF.md section 4).
-HPO_CLOSURE_BYTES, HPO_SHARED_BYTES = "1e7", "1e8"
+# The reference's <= 10 MB closure, ~100 MB and >= 1 GB shared-filesystem
+# regimes (hyperopt/2. hyperopt on diff sizes of data.py), and the train/test
+# split gen_data makes of each shared set: int(bytes / 101 / 8) samples, a
+# fifth of them (rounded up) held out.
+HPO_CLOSURE_BYTES, HPO_SHARED_BYTES, HPO_LARGE_BYTES = "1e7", "1e8", "1e9"
+HPO_SHARED_SPLIT, HPO_LARGE_SPLIT = "99009+24753", "990098+247525"
 HPO_EVALS, HPO_PARALLELISM = 4, 2
 # The remote sweep's length: long enough that a killed worker, started again
 # on its address (a process start of seconds), rejoins it mid-sweep.
@@ -3596,7 +3679,8 @@ def hpo_chain(work: Path) -> dict:
        SIGKILLed once 2 trials are journaled and started again on its
        address; the sweep ends with every trial ok and the restarted
        worker's own trial spans (pulled over RPC) count its evaluations;
-    4. resume: the closure sweep at parallelism 1 with
+    4. the >= 1 GB regime (:func:`hpo_large`);
+    5. resume: the closure sweep at parallelism 1 with
        ``--fault-plan trial.evaluate=k1@2`` (the sweep SIGKILLs itself at
        its third trial), then ``hpo --resume-auto`` to 4.
     """
@@ -3627,7 +3711,7 @@ def hpo_chain(work: Path) -> dict:
     proc = subprocess.run(CLI + ["datagen", "regression", "--bytes", HPO_SHARED_BYTES,
                                  "--out", str(npz)],
                           capture_output=True, text=True, timeout=600, env=env, cwd=work)
-    check(proc.returncode == 0 and "regression: 99009+24753 samples" in proc.stdout,
+    check(proc.returncode == 0 and f"regression: {HPO_SHARED_SPLIT} samples" in proc.stdout,
           f"datagen regression: {proc.stdout[-1000:]}{proc.stderr[-2000:]}")
     out["regression_npz_bytes"] = npz.stat().st_size
     # 3. remote, one worker killed and started again on its address
@@ -3670,7 +3754,9 @@ def hpo_chain(work: Path) -> dict:
                      "trial_span_s": _span_mean_s(run_dir, "trial"),
                      "killed_after_trials": killed_at, "restarted_worker_trials": by_restarted,
                      "readmitted": readmitted}
-    # 4. a sweep killed after 2 trials, then --resume-auto to 4
+    # 4. the >= 1 GB regime
+    out["large"] = hpo_large(work, secret)
+    # 5. a sweep killed after 2 trials, then --resume-auto to 4
     t0 = time.perf_counter()
     common = ("--bytes", HPO_CLOSURE_BYTES, "--max-evals", str(HPO_EVALS), "--parallelism", "1")
     proc = subprocess.run(_hpo_cmd(work, "resume", *common, plan="trial.evaluate=k1@2"),
@@ -3694,6 +3780,70 @@ def hpo_chain(work: Path) -> dict:
     return out
 
 
+def _mem_available_gib() -> float:
+    """The host's available memory (``MemAvailable`` of /proc/meminfo), GiB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+def hpo_large(work: Path, secret: Path) -> dict:
+    """The reference's >= 1 GB shared-filesystem regime: ``datagen regression
+    --bytes 1e9`` (split 990098+247525, an npz of at least 1e9 bytes), then
+    ``hpo --workers a,b --data <npz> --max-evals 4 --parallelism 2`` against
+    two fresh ``trial-worker`` processes (one BLAS thread each): 4 of 4
+    trials ok, best alpha in [0, 10]. From each worker's ``trial`` spans
+    (pulled over RPC): its first trial's seconds, which pay the 1 GB
+    ``load_shared``, and the later ones', which hit its per-process cache.
+    The host's available memory before the workers start and after the
+    sweep, while they still hold the arrays. The npz is removed at the end."""
+    from dss_ml_at_scale_tpu_torch.runtime.rpc import rpc_call
+
+    env = _port_env()
+    npz = work / "regression_1g.npz"
+    t0 = time.perf_counter()
+    proc = subprocess.run(CLI + ["datagen", "regression", "--bytes", HPO_LARGE_BYTES,
+                                 "--out", str(npz)],
+                          capture_output=True, text=True, timeout=600, env=env, cwd=work)
+    datagen_s = time.perf_counter() - t0
+    check(proc.returncode == 0 and f"regression: {HPO_LARGE_SPLIT} samples" in proc.stdout,
+          f"datagen regression --bytes {HPO_LARGE_BYTES}: {proc.stdout[-1000:]}"
+          f"{proc.stderr[-2000:]}")
+    npz_bytes = npz.stat().st_size
+    check(npz_bytes >= float(HPO_LARGE_BYTES), f"the 1 GB regime's npz has {npz_bytes} bytes")
+    mem_before = _mem_available_gib()
+    a, addr_a = _start_worker(work, "worker_1g_a", "127.0.0.1:0", secret)
+    b, addr_b = _start_worker(work, "worker_1g_b", "127.0.0.1:0", secret)
+    t0 = time.perf_counter()
+    proc = subprocess.run(_hpo_cmd(work, "large", "--workers", f"{addr_a},{addr_b}", "--data",
+                                   str(npz), "--secret-file", str(secret), "--max-evals",
+                                   str(HPO_EVALS), "--parallelism", str(HPO_PARALLELISM)),
+                          capture_output=True, text=True, timeout=900, env=env, cwd=work)
+    sweep_s = time.perf_counter() - t0
+    mem_after = _mem_available_gib()
+    check(proc.returncode == 0 and f"({HPO_EVALS}/{HPO_EVALS} trials ok)" in proc.stdout,
+          f"hpo >= 1 GB rc {proc.returncode}:\n{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    first, later = [], []
+    for addr in (addr_a, addr_b):
+        spans = sorted((e for e in rpc_call(addr, "telemetry_spans", timeout=60,
+                                            secret=secret.read_text().strip())
+                        if e.get("name") == "trial"), key=lambda e: e["ts"])
+        first += [e["dur"] for e in spans[:1]]
+        later += [e["dur"] for e in spans[1:]]
+    check(len(first) + len(later) == HPO_EVALS,
+          f"the workers' trial spans count {len(first) + len(later)}, want {HPO_EVALS}")
+    for run in (a, b):
+        _killpg(run)
+    npz.unlink()
+    return {"best_alpha": _best_alpha(proc.stdout, "hpo (remote"), "evals": HPO_EVALS,
+            "npz_bytes": npz_bytes, "datagen_s": datagen_s, "sweep_wall_s": sweep_s,
+            "first_trial_s": first,
+            "later_trial_median_s": statistics.median(later) if later else None,
+            "later_trial_s": later,
+            "mem_available_gib": {"before": mem_before, "after": mem_after}}
+
+
 def hpo_phase(card: str, side: dict) -> dict:
     """Wait for :func:`hpo_chain` (started beside the other side runs) and
     print its result: best alphas, seconds per trial, the restarted worker's
@@ -3707,6 +3857,14 @@ def hpo_phase(card: str, side: dict) -> dict:
     lo, hi = out["closure"].pop("window")
     out["closure"]["idle_share_side_by_side"] = _idle(side["util"], lo, hi)[0]
     out["wall_s"] = round(side["hpo"]["wall_s"], 2)
+    large = out["large"]
+    print(f"hpo >= 1 GB regime (host CPU of {card}): available memory "
+          f"{large['mem_available_gib']['before']:.2f} GiB before the workers, "
+          f"{large['mem_available_gib']['after']:.2f} GiB after the sweep", flush=True)
+    print(f"hpo >= 1 GB regime (host CPU of {card}): datagen {large['datagen_s']:.2f} s for "
+          f"{large['npz_bytes']} bytes; first trial per worker {large['first_trial_s']} s "
+          f"(the 1 GB load), later trials median {large['later_trial_median_s']} s; sweep "
+          f"{large['sweep_wall_s']:.2f} s", flush=True)
     print(f"hpo ({card}): " + json.dumps(out), flush=True)
     return out
 
@@ -4913,6 +5071,8 @@ def main() -> int:
     print("tf32: off for matmuls and convolutions", flush=True)
 
     print("toolchain: " + json.dumps(toolchain(_build)), flush=True)
+    print(f"info ({card}): " + json.dumps(info_phase(kind, card)), flush=True)
+    lap("info")
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"build: {len(built)} kernel source(s) in {time.perf_counter() - t0:.2f} s",

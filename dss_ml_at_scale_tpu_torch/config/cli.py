@@ -1,7 +1,12 @@
 """Command line of the port: ``python -m dss_ml_at_scale_tpu_torch.config.cli``.
 
-Ports of the JAX package's commands (``config/commands.py``):
+Ports of the JAX package's commands (``config/cli.py``, ``config/commands.py``):
 
+- ``info``: the process, the device counts and the card this process
+  drives (``cpu`` on a host with no visible CUDA device); ``--probe
+  SECONDS`` runs the query in a child under that timeout and turns a hung
+  driver into exit 3. JAX's global ``--platform`` has no port: the
+  commands take ``--device``.
 - ``serve-lm``: the same flags, plus ``--device``.
 - ``datagen images``: the synthetic JPEG-grating Delta table.
 - ``train``: data-parallel image-classifier training from a Delta table,
@@ -126,6 +131,15 @@ def build_parser() -> argparse.ArgumentParser:
         "fs.crash_after_tmp.manifest=k1). Default: env DSST_FAULT_PLAN; "
         "fault testing only")
     sub = parser.add_subparsers(dest="command", required=True)
+    info = sub.add_parser("info", help="show runtime topology and devices")
+    info.add_argument(
+        "--probe", type=_positive_seconds, default=None, metavar="SECONDS",
+        help="query devices in a watchdog subprocess with this timeout "
+        "instead of in-process: reports an unreachable card (a hung "
+        "driver, a CUDA init that never returns) as a diagnostic, exit 3, "
+        "instead of hanging",
+    )
+    info.set_defaults(fn=_cmd_info)
     sv = sub.add_parser(
         "serve-lm",
         help="HTTP token-streaming LM server: continuous-batching decode "
@@ -215,6 +229,60 @@ def build_parser() -> argparse.ArgumentParser:
     observe.register_all(sub)
     analysis.register_all(sub)
     return parser
+
+
+def child_env() -> dict:
+    """The environment of a child process of this CLI: this process's, with
+    the checkout that holds the package first on ``PYTHONPATH``, so the
+    child imports it from wherever the parent was started."""
+    root = str(Path(__file__).resolve().parents[2])
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+
+
+def _positive_seconds(s: str) -> float:
+    v = float(s)
+    if v <= 0:
+        raise argparse.ArgumentTypeError(f"must be a positive number of seconds, got {s!r}")
+    return v
+
+
+def _cmd_info(args: argparse.Namespace) -> int:
+    """``process i/n``, ``devices L local / G global`` and one line per
+    local device: the card this process drives (``cuda:N (name)``), or
+    ``cpu`` on a host with no visible CUDA device. With ``--probe`` the
+    query runs in a child under a timeout, and this process touches no CUDA
+    state before it spawns the child."""
+    if args.probe is not None:
+        import subprocess
+
+        try:
+            # The child is this same command without --probe, so both
+            # paths print the same lines.
+            proc = subprocess.run(
+                [sys.executable, "-m", "dss_ml_at_scale_tpu_torch.config.cli", "info"],
+                timeout=args.probe, capture_output=True, text=True, env=child_env())
+        except subprocess.TimeoutExpired:
+            print(f"accelerator unreachable: device query did not return within "
+                  f"{args.probe:g}s (hung CUDA driver or init?)")
+            return 3
+        sys.stdout.write(proc.stdout)
+        sys.stderr.write(proc.stderr)
+        return proc.returncode
+
+    import torch
+
+    from ..runtime import local_topology, process_device
+
+    topo = local_topology()
+    print(f"process {topo.process_index}/{topo.process_count}")
+    print(f"devices {topo.local_device_count} local / {topo.global_device_count} global")
+    if torch.cuda.is_available():
+        dev = process_device("cuda")
+        print(f"  {dev} ({torch.cuda.get_device_name(dev)})")
+    else:
+        print("  cpu")
+    return 0
 
 
 def _no_card(device: str) -> bool:

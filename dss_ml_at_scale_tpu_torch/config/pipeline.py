@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import subprocess
 import sys
 import time
@@ -112,10 +111,9 @@ def run_pipeline(args: argparse.Namespace) -> int:
             print(f"{t['task_key']:<20} after [{deps}]  {' '.join(render(t['argv']))}")
         return 0
 
-    # The tasks import this package from wherever the runner is started.
-    root = str(Path(__file__).resolve().parents[2])
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    from .cli import child_env
+
+    env = child_env()
     print(f"pipeline {spec.get('name', Path(args.spec).stem)}: {len(order)} tasks", flush=True)
     failed: set[str] = set()
     skipped: set[str] = set()

@@ -16,7 +16,9 @@ writes a regression ``.npz``, runs ``hpo`` on the CPU (closure and shared
 filesystem) and two trials through an in-process trial worker over RPC,
 runs one CPU ``chaos`` cycle, ``trace tail`` on its killed run and ``slo
 status --report`` on a saved SLO document, runs ``lint --json`` and ``audit
---device cpu --entrypoints train_step.lm --json``, and then lists what got loaded (scikit-learn must not be among it). A second check runs one
+--device cpu --entrypoints train_step.lm --json``, runs ``info`` and ``info
+--probe``, imports the session sanitizer's pytest plugin (with every other
+module), and then lists what got loaded (scikit-learn must not be among it). A second check runs one
 data-parallel ``train`` step in two processes (gloo on the CPU, meeting at
 a ``file://`` rendezvous), each of which lists what it loaded. The static
 scan reads every source file of the port (``runtime/`` and ``native/``
@@ -173,7 +175,13 @@ for argv in (["lint", "--json"],
     with contextlib.redirect_stdout(out):
         rc = cli.main(argv)
     analysis.append({"rc": rc, "report": json.loads(out.getvalue())})
-print(json.dumps({"done": lines[-1], "analysis": analysis, "train": train, "lm": lm, "forecast": forecast,
+info = []
+for argv in (["info"], ["info", "--probe", "120"]):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    info.append({"rc": rc, "out": out.getvalue()})
+print(json.dumps({"done": lines[-1], "analysis": analysis, "info": info, "train": train, "lm": lm, "forecast": forecast,
                   "tpe": tpe, "eda": eda, "plan": plan, "track": track, "remote": remote,
                   "predicted": predicted, "vit": vit, "chaos": chaos, "ops": ops,
                   "modules": sorted(sys.modules)}))
@@ -234,6 +242,10 @@ def test_port_serves_a_generation_without_jax():
     assert lint["rc"] == 0 and lint["report"]["ok"] and len(lint["report"]["rules"]) == 12
     assert audit["rc"] == 0 and audit["report"]["entrypoints"] == ["train_step.lm"]
     assert audit["report"]["device"] == "cpu"
+    # `info` in process and through its --probe child.
+    for run in report["info"]:
+        assert run["rc"] == 0, run
+        assert run["out"].splitlines()[:2] == ["process 0/1", "devices 1 local / 1 global"]
     loaded = [m for m in report["modules"] if _forbidden(m) or m.split(".")[0] == "sklearn"]
     assert loaded == []
     assert "dss_ml_at_scale_tpu_torch.ops.flash_attention" in report["modules"]
@@ -253,7 +265,8 @@ def test_port_serves_a_generation_without_jax():
                  "config.observe", "config.analysis", "analysis.core",
                  "analysis.checkers.host_sync", "analysis.sanitize.runtime",
                  "analysis.sanitize.workloads", "analysis.audit.core",
-                 "analysis.audit.entrypoints", "analysis.audit.rules"):
+                 "analysis.audit.entrypoints", "analysis.audit.rules",
+                 "analysis.sanitize.pytest_plugin"):
         assert f"dss_ml_at_scale_tpu_torch.{name}" in report["modules"]
 
 

@@ -90,11 +90,42 @@ def test_pipeline_dry_run(tmp_path):
     assert out.index("gen") < out.index("next")
 
 
+def test_pipeline_dry_run_with_info(tmp_path):
+    # tests/test_cli.py's dry run, whose dependent task is JAX's `info`.
+    spec = _spec(tmp_path, [
+        {"task_key": "gen", "argv": ["datagen", "demand", "--out", "{workdir}/d"]},
+        {"task_key": "next", "argv": ["info"], "depends_on": ["gen"]},
+    ])
+    rc, out = _main(["pipeline", "--spec", spec, "--workdir", str(tmp_path), "--dry-run",
+                     "--task-device", "cpu"])
+    assert rc == 0
+    assert str(tmp_path / "d") in out
+    assert out.rstrip().endswith("info")  # takes no --device
+    assert out.index("gen") < out.index("next")
+
+
+def test_pipeline_runs_info_and_skips_it_after_a_failure(tmp_path):
+    # tests/test_cli.py's failed-vs-skipped summary with `info` downstream,
+    # and an `info` task that runs: its lines reach the runner's stdout.
+    spec = _spec(tmp_path, [
+        {"task_key": "topology", "argv": ["info"]},
+        {"task_key": "bad", "argv": _BAD_BOM},
+        {"task_key": "down", "argv": ["info"], "depends_on": ["bad"]},
+    ], timeout_seconds=120)
+    proc = _pipeline(spec, tmp_path, "--task-device", "cpu")
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    assert "[topology] info\n" in proc.stdout and "[topology] ok (" in proc.stdout
+    assert "process 0/1\ndevices 1 local / 1 global\n" in proc.stdout
+    assert "[down] SKIPPED (failed dependency bad)" in proc.stdout
+    assert "pipeline failed: bad (skipped: down)" in proc.stdout
+
+
 def test_task_device_goes_to_the_commands_that_take_one():
     for argv, takes in ((["datagen", "demand"], True), (["datagen", "bom"], False),
                         (["datagen", "images"], False), (["forecast"], True), (["eda"], True),
                         (["train"], True), (["predict"], True), (["export"], True),
-                        (["lm"], True), (["runs", "list"], False), (["pipeline"], False)):
+                        (["lm"], True), (["runs", "list"], False), (["pipeline"], False),
+                        (["info"], False)):
         assert pl.takes_device(argv) is takes, argv
 
 
