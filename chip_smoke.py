@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with the card:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; there is no CPU path). Phases 1-14
-run one after another; then 15-15f start in the background and this
+run one after another; then 15-15g start in the background and this
 process runs 16-20, 22, 23 and 15's card checks beside them, waits for
 them, and runs 21 last. A ``time:`` line after each step gives its
 seconds.
@@ -270,6 +270,19 @@ seconds.
    every program pinned on the card, K1, K2 and K3 each launched by
    ``ops.fused_matmul.grad`` and K4 by ``ops.flash_attention.grad`` (in
    bf16). Each tier's seconds.
+15g. bench (beside 15b-15f, on a thread): the fourth analysis tier through
+   the CLI: ``bench --list-scenarios`` lists JAX's 11 scenarios and tiers
+   (``cuda`` in place of ``tpu``); ``bench --scenarios <JAX's nine tier1
+   ones>,feeder_e2e --json``, each scenario in a child on the card against
+   the committed ``analysis/baselines/bench.json``: every scenario
+   completed, none failed, salvaged or stale, every gated metric finite and
+   > 0, the fingerprint naming this card and its power limit, ``compute``'s
+   utilization in (0, 1] (a ``regression`` is printed with its numbers and
+   passes: the phase checks the harness, and its numbers are taken beside
+   the side runs); ``bench profile feeder_e2e``, in process on the card: the
+   merged Perfetto file holds spans, flow events and CUDA kernel events on
+   the offset pids inside the recorder's window. The kernels' launches in
+   every scenario and the profile go into the kernels line (``bench``).
 16. moe-lm: ``lm --ffn moe --num-experts 8 --aux-loss-weight 0.01`` at the
    LM-training width (capacity factor 1.25), 2 epochs of 4 steps, 2 val
    batches, checkpoints, ``--sample 16``: K4's launches exactly (4 per train
@@ -3117,6 +3130,16 @@ def start_side_runs() -> dict:
     side["analysis"]["thread"] = threading.Thread(target=_analysis, name="analysis-chain",
                                                   daemon=True)
     side["analysis"]["thread"].start()
+    side["bench"] = {"t0": time.perf_counter()}
+
+    def _bench() -> None:
+        try:
+            side["bench"]["result"] = bench_chain(Path(tempfile.mkdtemp(prefix="chip_smoke_bench_")))
+        except BaseException as e:  # a failed check exits; the phase reports it
+            side["bench"]["error"] = f"{type(e).__name__}: {e}"
+
+    side["bench"]["thread"] = threading.Thread(target=_bench, name="bench-chain", daemon=True)
+    side["bench"]["thread"].start()
     return side
 
 
@@ -3300,6 +3323,124 @@ def analysis_phase(card: str, side: dict) -> dict:
     print(f"analysis ({card}): " + json.dumps(summary), flush=True)
     print("analysis tiers: " + ", ".join(f"{n} {t['seconds']:.1f} s" for n, t in out.items()),
           flush=True)
+    return summary
+
+
+# The bench phase: JAX's tier-1 scenarios and feeder_e2e, each in a child on
+# the card; group_fit_10k (timeout 1,800 s) is run on its own, not here.
+BENCH_SCENARIOS = ("compute", "decode", "group_fit", "lm_serving", "reader",
+                   "recorder_overhead", "sanitizer_overhead", "serving", "slo_overhead",
+                   "feeder_e2e")
+# JAX's registry, name -> tier; its accelerator-only tier "tpu" is "cuda" here.
+BENCH_TIERS = {**{n: "tier1" for n in BENCH_SCENARIOS}, "feeder_e2e": "slow",
+               "group_fit_10k": "slow"}
+
+
+def bench_chain(work: Path) -> dict:
+    """``bench --list-scenarios``, ``bench --scenarios <BENCH_SCENARIOS>
+    --json`` (each scenario in a child on the card, one after another,
+    against the committed baseline) and ``bench profile feeder_e2e``
+    through the port's CLI, the three side by side: each one's rc, seconds
+    and output."""
+    work.mkdir(parents=True, exist_ok=True)
+    profile = work / "profile.json"
+    steps = (("list", ["bench", "--list-scenarios"]),
+             ("run", ["bench", "--scenarios", ",".join(BENCH_SCENARIOS), "--json"]),
+             ("profile", ["bench", "profile", "feeder_e2e", "--out", str(profile)]))
+    runs = {name: _start(CLI + argv, work / name, env=_port_env()) for name, argv in steps}
+    out: dict = {"profile_path": str(profile)}
+    for name, run in runs.items():
+        proc, wall = _wait(run, 900, f"bench {name}")
+        out[name] = {"rc": proc.returncode, "seconds": round(wall, 2), "stdout": proc.stdout,
+                     "stderr": proc.stderr[-3000:]}
+    return out
+
+
+def bench_phase(card: str, side: dict) -> dict:
+    """Wait for :func:`bench_chain` (started beside the other side runs) and
+    check it: the registry lists JAX's 11 scenarios and tiers; every selected
+    scenario completed in its child (none failed, salvaged or stale; a
+    regression is printed with its numbers and passes: this checks the
+    harness, not the card's speed); every gated metric finite and > 0; the
+    fingerprint names this card and its power limit; the compute MFU block's
+    utilization in (0, 1]; the merged profile holds spans, flow events and
+    CUDA kernel events on the offset pids inside the recorder's window. The
+    kernels' launches over the run and the profile come back for the
+    kernels line."""
+    import math
+
+    from dss_ml_at_scale_tpu_torch.telemetry.catalog import KNOWN_BENCH_METRICS
+
+    side["bench"]["thread"].join(
+        timeout=max(1.0, side["bench"]["t0"] + 1500 - time.perf_counter()))
+    check(not side["bench"]["thread"].is_alive(), "the bench chain did not finish within 1500 s")
+    if "error" in side["bench"]:
+        fail(f"bench chain: {side['bench']['error']}")
+    out = side["bench"]["result"]
+    for step in ("list", "run", "profile"):
+        check(out[step]["rc"] in ((0, 1) if step == "run" else (0,)),
+              f"bench {step} rc {out[step]['rc']}: {out[step]['stdout'][-3000:]} "
+              f"{out[step]['stderr']}")
+    listed = {}
+    for line in out["list"]["stdout"].splitlines():
+        name, _, rest = line.partition(" ")
+        listed[name] = rest.strip().split("]")[0].lstrip("[").strip()
+    check(listed == BENCH_TIERS and set(listed) == set(KNOWN_BENCH_METRICS),
+          f"bench --list-scenarios: {listed}")
+    report = json.loads(out["run"]["stdout"])
+    check(report["version"] == 1 and report["scenarios"] == list(BENCH_SCENARIOS),
+          f"bench ran {report.get('scenarios')}")
+    regressions = [f for f in report["findings"] if f["kind"] == "regression"]
+    for f in regressions:
+        print(f"bench regression ({card}): {f['scenario']}.{f['metric']}: {f['message']}",
+              flush=True)
+    others = [f for f in report["findings"] if f["kind"] != "regression"]
+    check(not others, f"bench findings: {others}")
+    check(set(report["results"]) == set(BENCH_SCENARIOS)
+          and not any(r.get("salvaged") for r in report["results"].values()),
+          f"bench results: {sorted(report['results'])}")
+    gated = {}
+    for name, res in report["results"].items():
+        for metric, m in res["metrics"].items():
+            if m["verdict"] != "informational":
+                gated[f"{name}.{metric}"] = m["summary"]["median"]
+    check(all(math.isfinite(v) and v > 0 for v in gated.values()), f"bench gated metrics {gated}")
+    fp = report["fingerprint"]
+    name, power = (x.strip() for x in card.split(","))
+    check(fp["platform"] == "cuda" and fp["device"] == name and fp["power_limit"] == power,
+          f"bench fingerprint {fp} vs {card}")
+    mfu = report["mfu"].get("train_step.classifier") or {}
+    check(mfu.get("utilization") is not None and 0 < mfu["utilization"] <= 1,
+          f"bench compute mfu {mfu}")
+    prof = json.loads(out["profile"]["stdout"].strip().splitlines()[-1])
+    trace = json.loads(Path(out["profile_path"]).read_text())["traceEvents"]
+    offset = 1 << 20
+    w0, w1 = prof["window_us"]
+    kernels = [e for e in trace if e.get("pid", 0) >= offset and e.get("ph") == "X"
+               and e.get("cat") == "kernel"]
+    inside = [e for e in kernels if w0 <= e["ts"] <= w1]
+    check(prof["spans"] > 0 and prof["flows"] > 0 and len(inside) > 0,
+          f"bench profile: {prof['spans']} spans, {prof['flows']} flow events, "
+          f"{len(kernels)} kernel events, {len(inside)} inside the recorder's window "
+          f"[{w0}, {w1}]")
+    launches = {k: sum(r.get("launches", {}).get(k, 0) for r in report["results"].values())
+                + prof["launches"].get(k, 0) for k in ("K1", "K2", "K3", "K4")}
+    summary = {
+        "seconds": {step: out[step]["seconds"] for step in ("list", "run", "profile")},
+        "fingerprint": fp["key"],
+        "completed": {n: r["completed"] for n, r in report["results"].items()},
+        "scenario_seconds": {n: r["seconds"] for n, r in report["results"].items()},
+        "verdicts": {f"{n}.{m}": v["verdict"] for n, r in report["results"].items()
+                     for m, v in r["metrics"].items() if v["verdict"] != "informational"},
+        "gated": gated,
+        "regressions": len(regressions),
+        "mfu": mfu,
+        "profile": {k: prof[k] for k in ("spans", "flows", "profiler_events",
+                                         "profiler_events_dropped", "kernel_events")}
+        | {"kernel_events_in_window": len(inside), "mfu": prof["mfu"]},
+        "launches": launches,
+    }
+    print(f"bench ({card}): " + json.dumps(summary), flush=True)
     return summary
 
 
@@ -5205,6 +5346,7 @@ def main() -> int:
     chaos_phase(card, side)
     analysis = analysis_phase(card, side)
     audit_launches = analysis["audit"]["launches"]
+    bench = bench_phase(card, side)
     lap("the rest of the side-by-side block")
     torch.cuda.empty_cache()
     image_serve = image_serve_phase(torch, training["tables"], flags["checkpoint_dir"], card)
@@ -5221,13 +5363,15 @@ def main() -> int:
                      + res_lm["launches"] + moe_lm["launches"]
                      + sum(moe_dp["launches_per_rank"])
                      + jobs["full_stack"]["lm_flash_launches"]
-                     + audit_launches["ops.flash_attention.grad"]["K4"]),
+                     + audit_launches["ops.flash_attention.grad"]["K4"]
+                     + bench["launches"]["K4"]),
         "launches_by_path": {"serving": serving["launches"], "lm_train": lm_train["launches"],
                              "lm_dp": lm_dp["launches"], "resilience": res_lm["launches"],
                              "moe_lm": moe_lm["launches"],
                              "moe_dp_per_rank": moe_dp["launches_per_rank"],
                              "pipeline": jobs["full_stack"]["lm_flash_launches"],
-                             "audit": audit_launches["ops.flash_attention.grad"]["K4"]},
+                             "audit": audit_launches["ops.flash_attention.grad"]["K4"],
+                             "bench": bench["launches"]["K4"]},
         "training": {k: train_case[k] for k in ("shape", "max_abs_err", "mean_rel_err", "ms",
                                                 "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")},
@@ -5254,7 +5398,7 @@ def main() -> int:
                          + sum(r[key] for r in dp["launches_per_rank"])
                          + res_train["launches"][key] + photos["launches"][key]
                          + audit_launches["ops.fused_matmul.grad"][key]
-                         + f32_train["launches"][key]),
+                         + f32_train["launches"][key] + bench["launches"][key]),
             "launches_by_path": {"train": training["launches"][key],
                                  "f32_train": f32_train["launches_f32"][key],
                                  "pad_f32": pad["float32"]["launches_f32"][key],
@@ -5263,6 +5407,7 @@ def main() -> int:
                                  "dp_per_rank": [r[key] for r in dp["launches_per_rank"]],
                                  "resilience": res_train["launches"][key],
                                  "audit": audit_launches["ops.fused_matmul.grad"][key],
+                                 "bench": bench["launches"][key],
                                  "serve": [image_serve[f"micro_batch_{m}"]["launches"][key]
                                            for m in (8, 32)]},
             "max_abs_err": max(c["max_abs_err"] for c in fused[key]),

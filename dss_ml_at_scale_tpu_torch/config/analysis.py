@@ -1,20 +1,24 @@
-"""The analysis commands of the port's CLI: ``lint``, ``sanitize``, ``audit``.
+"""The analysis commands of the port's CLI: ``lint``, ``sanitize``,
+``audit`` and ``bench``.
 
 Ports of the JAX commands (``config/commands.py``: ``register_lint``,
-``register_audit``, ``register_sanitize``) with their flags (``lint
---changed`` included), exit codes
-(0 clean, 1 findings or stale baseline entries, 2 usage error) and JSON
-schema (its ``version`` field), pointed at the port's sources, threads and
-programs (:mod:`..analysis`). The defaults of ``--baseline`` are the port's
-own baselines under ``analysis/baselines/``. ``sanitize`` and ``audit``
-also take ``--device`` (default ``cuda``; a missing card is an error, as in
-every other command): the feeder workload places its batches there, and
-the audit runs its entrypoints there.
+``register_audit``, ``register_sanitize``, ``register_bench``) with their
+flags (``lint --changed`` and ``bench profile`` included), exit codes
+(0 clean, 1 findings, regressions or stale baseline entries, 2 usage
+error) and JSON schema (its ``version`` field), pointed at the port's
+sources, threads, programs and scenarios (:mod:`..analysis`,
+:mod:`..bench`). The defaults of ``--baseline`` are the port's own
+baselines under ``analysis/baselines/``. ``sanitize``, ``audit`` and
+``bench`` also take ``--device`` (default ``cuda``; a missing card is an
+error, as in every other command): the feeder workload places its batches
+there, the audit runs its entrypoints there, and the bench's scenario
+children inherit it.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from pathlib import Path
 
@@ -23,6 +27,7 @@ def register_all(sub: argparse._SubParsersAction) -> None:
     _register_lint(sub)
     _register_audit(sub)
     _register_sanitize(sub)
+    _register_bench(sub)
 
 
 def _split(csv: str | None) -> list[str] | None:
@@ -293,4 +298,146 @@ def _cmd_sanitize(args: argparse.Namespace) -> int:
         return res.exit_code
     except SanitizeUsageError as e:
         print(f"sanitize: {e}", file=sys.stderr)
+        return 2
+
+
+# -- bench --------------------------------------------------------------------
+
+
+def _register_bench(sub) -> None:
+    bn = sub.add_parser(
+        "bench",
+        help="performance regression harness (fourth analysis tier): run "
+        "registered scenarios in isolated children on --device with "
+        "noise-aware repetitions and judge them against the "
+        "environment-fingerprinted analysis/baselines/bench.json; `bench "
+        "profile <scenario>` merges flight-recorder spans with a "
+        "torch.profiler trace into one Perfetto timeline")
+    bn.add_argument(
+        "--scenarios", default=None, metavar="S1,S2",
+        help="comma-separated subset of scenarios (default: every non-cuda "
+        "scenario; see --list-scenarios)")
+    bn.add_argument(
+        "--tier", default=None, metavar="TIER",
+        help="run one tier (tier1 | slow | cuda) instead of naming "
+        "scenarios; tier1 is the CI smoke subset")
+    bn.add_argument("--repetitions", type=int, default=None, metavar="N",
+                    help="override every selected scenario's repetition count")
+    bn.add_argument(
+        "--in-process", action="store_true",
+        help="measure inline instead of per-scenario child processes "
+        "(debugging; loses crash isolation)")
+    bn.add_argument(
+        "--json", action="store_true",
+        help="machine-readable output (schema documented in README "
+        "'Benchmarking (port)') instead of text")
+    bn.add_argument(
+        "--baseline", default=None, metavar="FILE",
+        help="baseline file (default: the port's analysis/baselines/bench.json)")
+    bn.add_argument(
+        "--update-baseline", action="store_true",
+        help="record this run's summaries for the current environment "
+        "fingerprint: existing entries keep their authored reason, new ones "
+        "take --reason, stale ones are dropped; other fingerprints' entries "
+        "are preserved verbatim")
+    bn.add_argument(
+        "--require-baseline", action="store_true",
+        help="strict gating: a gated metric with NO committed entry under "
+        "this host's fingerprint is a failing finding instead of a silent "
+        "'no-baseline' pass")
+    bn.add_argument(
+        "--reason", default=None, metavar="TEXT",
+        help="justification recorded for entries newly added by "
+        "--update-baseline (mandatory when any exist)")
+    bn.add_argument("--list-scenarios", action="store_true",
+                    help="print the scenario registry and exit")
+    bn.add_argument("--device", default="cuda",
+                    help="where the scenarios run (cuda, cuda:N, or cpu); the "
+                    "children inherit it")
+    bsub = bn.add_subparsers(dest="bench_cmd")
+    pf = bsub.add_parser(
+        "profile",
+        help="run one scenario under the flight recorder AND torch.profiler "
+        "(CPU and CUDA activities); merge both into ONE Perfetto file (host "
+        "handoffs and kernels on the same timeline, flow arrows intact)")
+    pf.add_argument("scenario", help="scenario to profile")
+    pf.add_argument("--out", required=True, metavar="FILE",
+                    help="merged Perfetto trace output path")
+    # Own dest: a subparser option sharing dest="repetitions" would apply
+    # ITS default over a value already parsed by the parent.
+    pf.add_argument("--repetitions", type=int, default=None,
+                    dest="profile_repetitions",
+                    help="repetitions to trace (default: 1, or the parent "
+                    "--repetitions when given before 'profile')")
+    pf.add_argument(
+        "--min-profiler-dur-us", type=float, default=5.0,
+        help="drop torch.profiler complete events shorter than this (the "
+        "dropped count is reported). 0 keeps everything")
+    bn.set_defaults(fn=_cmd_bench)
+
+
+def _cmd_bench(args: argparse.Namespace) -> int:
+    from ..bench import (
+        DEFAULT_BENCH_BASELINE,
+        BenchUsageError,
+        load_bench_baseline,
+        resolve_selection,
+        run_bench,
+        scenario_catalog,
+        write_bench_baseline,
+    )
+    from .cli import _no_card
+
+    try:
+        if args.list_scenarios and getattr(args, "bench_cmd", None) != "profile":
+            for name, tier, desc in scenario_catalog():
+                print(f"{name:20s} [{tier:5s}] {desc}")
+            return 0
+        scenarios = _split(args.scenarios)
+        if getattr(args, "bench_cmd", None) != "profile":
+            if scenarios and args.tier:
+                raise BenchUsageError("--scenarios and --tier are exclusive selections")
+            resolve_selection(scenarios, args.tier)  # a bad selection is exit 2 first
+        if _no_card(args.device):
+            return 2
+        if getattr(args, "bench_cmd", None) == "profile":
+            from ..bench.profile import profile_scenario
+
+            reps = args.profile_repetitions
+            if reps is None:
+                reps = args.repetitions if args.repetitions else 1
+            report = profile_scenario(
+                args.scenario, args.out, repetitions=reps,
+                min_profiler_dur_us=args.min_profiler_dur_us, device=args.device)
+            print(f"merged perfetto trace: {report['spans']} span(s), "
+                  f"{report['flows']} flow event(s), "
+                  f"{report['profiler_events']} profiler event(s) "
+                  f"({report['kernel_events']} CUDA kernel event(s); "
+                  f"+{report['profiler_events_dropped']} dropped under "
+                  f"{args.min_profiler_dur_us:g}us) -> {report['out']}")
+            if report.get("mfu"):
+                b = report["mfu"]
+                util = b.get("utilization")
+                print(f"achieved FLOPs/s ({b['entrypoint']}): "
+                      f"{b['achieved_flops_per_sec']:.4g}"
+                      + (f" ({util:.2%} of the {b['arithmetic']} peak)"
+                         if util is not None else ""))
+            print(json.dumps(report))
+            return 0
+        baseline = Path(args.baseline) if args.baseline else DEFAULT_BENCH_BASELINE
+        res = run_bench(
+            scenarios, tier=args.tier, repetitions=args.repetitions,
+            baseline_path=baseline, isolation=not args.in_process,
+            require_baseline=args.require_baseline, device=args.device)
+        if args.update_baseline:
+            old = load_bench_baseline(baseline)
+            added = write_bench_baseline(baseline, res, old, args.reason)
+            print(f"bench baseline {baseline}: {len(res.results)} "
+                  f"scenario(s) recorded under {res.fingerprint_key} "
+                  f"({added} with new reason)")
+            return 0
+        print(res.render_json() if args.json else res.render_text())
+        return res.exit_code
+    except BenchUsageError as e:
+        print(f"bench: {e}", file=sys.stderr)
         return 2

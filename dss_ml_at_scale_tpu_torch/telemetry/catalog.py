@@ -13,8 +13,9 @@ it in both directions (every literal name at a ``counter()``/``gauge()``/
 site is declared here with its kind, and every entry here still has a call
 site). ``tests/test_torch_catalog.py`` keeps its own reconciliation too.
 
-:data:`KNOWN_BENCH_METRICS` is empty: the port has no benchmark harness
-yet, so there is no ``Scenario(...)`` to reconcile.
+:data:`KNOWN_BENCH_METRICS` is the ``bench`` command's table: JAX's 11
+scenarios and the exact metric keys each schema emits, which the
+``bench-registry`` rule holds ``bench/scenarios.py`` to.
 
 :data:`SPAN_ATTRIBUTION` is what ``trace attribution`` buckets a step's
 spans by; a span not listed buckets as "host".
@@ -27,6 +28,13 @@ KNOWN_METRICS: dict[str, str] = {
     # -- static / IR analysis ----------------------------------------------
     "audit_entrypoints_total": "counter",
     "audit_findings_total": "counter",
+    # -- bench / utilization ----------------------------------------------
+    "bench_regressions_total": "counter",
+    "bench_scenarios_total": "counter",
+    "entrypoint_achieved_flops_per_sec": "gauge",
+    "entrypoint_flops_utilization": "gauge",
+    # the slo_overhead scenario's probe, on a private registry (never served)
+    "slo_overhead_probe_hist": "histogram",
     # -- checkpointing / resilience ---------------------------------------
     "auto_resume_total": "counter",
     "checkpoint_fallback_total": "counter",
@@ -191,7 +199,65 @@ SPAN_ATTRIBUTION: dict[str, str] = {
     "lm.step": "compute",
 }
 
-# Bench scenario -> the exact metric keys its schema emits. Empty until the
-# port's benchmark harness declares its scenarios; the ``bench-registry``
-# lint rule then reconciles them against this in both directions.
-KNOWN_BENCH_METRICS: dict[str, tuple[str, ...]] = {}
+# Scenario name -> the exact metric keys its schema may emit (``bench``),
+# JAX's table key for key. The ``bench-registry`` lint rule reconciles the
+# ``Scenario(...)`` declarations in ``bench/scenarios.py`` against this in
+# both directions: a typo'd metric key would otherwise silently fork a
+# baseline series and dodge its regression gate.
+KNOWN_BENCH_METRICS: dict[str, tuple[str, ...]] = {
+    "compute": (
+        "compute_steps_per_sec",
+        "compute_images_per_sec",
+    ),
+    "decode": (
+        "decode_images_per_sec",
+    ),
+    "feeder_e2e": (
+        "e2e_images_per_sec",
+        "e2e_steps_per_sec",
+        "feeder_stall_fraction",
+        "e2e_unexplained_fraction",
+    ),
+    "group_fit": (
+        "group_fit_skus_per_sec",
+        "group_fit_fits_per_sec",
+        "group_fit_launches_per_sec",
+    ),
+    "group_fit_10k": (
+        "group_fit_10k_skus_per_sec",
+        "group_fit_10k_chunks",
+    ),
+    "reader": (
+        "reader_images_per_sec",
+    ),
+    "recorder_overhead": (
+        "recorder_emit_ring_us",
+        "recorder_emit_tail_us",
+        "recorder_tail_bytes_per_event",
+    ),
+    "sanitizer_overhead": (
+        "sanitizer_plain_acquire_us",
+        "sanitizer_armed_acquire_us",
+        "sanitizer_overhead_ratio",
+    ),
+    "serving": (
+        "serving_throughput_rps",
+        "serving_p50_ms",
+        "serving_p99_ms",
+        "serving_batch_fill_mean",
+        "serving_live_p99_ms",
+    ),
+    "lm_serving": (
+        "lm_tokens_per_sec",
+        "lm_solo_tokens_per_sec",
+        "lm_batching_speedup",
+        "lm_ttft_p99_ms",
+        "lm_inter_token_p99_ms",
+    ),
+    "slo_overhead": (
+        "slo_sketch_observe_us",
+        "slo_hist_observe_us",
+        "slo_overhead_ratio",
+        "slo_emit_step_fraction",
+    ),
+}

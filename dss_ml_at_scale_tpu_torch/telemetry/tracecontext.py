@@ -177,3 +177,14 @@ class Handoff:
             return cls(None)
         trace_id, span_id, kind = m.groups()
         return cls(TraceContext(trace_id, span_id, kind))
+
+    def to_header(self) -> str | None:
+        """This handoff as an ``X-DSST-Trace`` request-header value
+        (``dsst1-<trace>-<span>-<kind>``), or None for an empty handoff: a
+        client (the bench's load generator) injects it, the serving edge
+        adopts it (:meth:`from_header`), and the hop renders as one linked
+        trace."""
+        if self.ctx is None:
+            return None
+        return (f"{TRACE_HEADER_PREFIX}-{self.ctx.trace_id}"
+                f"-{self.ctx.span_id}-{self.ctx.kind}")

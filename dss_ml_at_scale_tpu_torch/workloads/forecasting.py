@@ -46,6 +46,18 @@ SEARCH_SPACE = {
     "q": scope.int(hp.quniform("q", 0, 4, 1)),
 }
 
+# The bench geometry of the grid-fused group-fit chunk (JAX's): the
+# ``bench`` ``group_fit`` tier-1 gate fits 32 groups x 40 weeks over the
+# full order grid of these reduced bounds in one chunk. bfgs_iter=0: the
+# gradient polish is not part of the measured launch.
+GROUP_FIT_BENCH_GROUPS = 32
+GROUP_FIT_BENCH_WEEKS = 40
+GROUP_FIT_BENCH_HORIZON = 20
+GROUP_FIT_BENCH_CFG = SarimaxConfig(
+    k_exog=len(EXO_FIELDS), max_p=1, max_d=1, max_q=1, max_iter=40,
+    bfgs_iter=0,
+)
+
 _COVID_BREAKPOINT = np.datetime64(dt.datetime(2020, 3, 1), "us")
 
 

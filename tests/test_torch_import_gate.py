@@ -18,7 +18,8 @@ runs one CPU ``chaos`` cycle, ``trace tail`` on its killed run and ``slo
 status --report`` on a saved SLO document, runs ``lint --json`` and ``audit
 --device cpu --entrypoints train_step.lm --json``, runs ``info`` and ``info
 --probe``, imports the session sanitizer's pytest plugin (with every other
-module), and then lists what got loaded (scikit-learn must not be among it). A second check runs one
+module, the ``bench`` modules among them), runs ``bench --list-scenarios``
+and one scenario of ``bench`` in process, and then lists what got loaded (scikit-learn must not be among it). A second check runs one
 data-parallel ``train`` step in two processes (gloo on the CPU, meeting at
 a ``file://`` rendezvous), each of which lists what it loaded. The static
 scan reads every source file of the port (``runtime/`` and ``native/``
@@ -181,7 +182,15 @@ for argv in (["info"], ["info", "--probe", "120"]):
     with contextlib.redirect_stdout(out):
         rc = cli.main(argv)
     info.append({"rc": rc, "out": out.getvalue()})
-print(json.dumps({"done": lines[-1], "analysis": analysis, "info": info, "train": train, "lm": lm, "forecast": forecast,
+bench = []
+for argv in (["bench", "--list-scenarios"],
+             ["bench", "--scenarios", "slo_overhead", "--in-process", "--repetitions", "1",
+              "--device", "cpu", "--json"]):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    bench.append({"rc": rc, "out": out.getvalue()})
+print(json.dumps({"done": lines[-1], "analysis": analysis, "info": info, "bench": bench, "train": train, "lm": lm, "forecast": forecast,
                   "tpe": tpe, "eda": eda, "plan": plan, "track": track, "remote": remote,
                   "predicted": predicted, "vit": vit, "chaos": chaos, "ops": ops,
                   "modules": sorted(sys.modules)}))
@@ -246,6 +255,10 @@ def test_port_serves_a_generation_without_jax():
     for run in report["info"]:
         assert run["rc"] == 0, run
         assert run["out"].splitlines()[:2] == ["process 0/1", "devices 1 local / 1 global"]
+    # `bench`: the registry listed, one scenario measured in process.
+    listing, run = report["bench"]
+    assert listing["rc"] == 0 and len(listing["out"].splitlines()) == 11
+    assert run["rc"] == 0 and json.loads(run["out"])["results"]["slo_overhead"]["completed"] == 1
     loaded = [m for m in report["modules"] if _forbidden(m) or m.split(".")[0] == "sklearn"]
     assert loaded == []
     assert "dss_ml_at_scale_tpu_torch.ops.flash_attention" in report["modules"]
@@ -266,7 +279,9 @@ def test_port_serves_a_generation_without_jax():
                  "analysis.checkers.host_sync", "analysis.sanitize.runtime",
                  "analysis.sanitize.workloads", "analysis.audit.core",
                  "analysis.audit.entrypoints", "analysis.audit.rules",
-                 "analysis.sanitize.pytest_plugin"):
+                 "analysis.sanitize.pytest_plugin", "bench.core", "bench.stats",
+                 "bench.scenarios", "bench.loadgen", "bench.mfu", "bench.profile",
+                 "bench.__main__", "utils.benchlib"):
         assert f"dss_ml_at_scale_tpu_torch.{name}" in report["modules"]
 
 
